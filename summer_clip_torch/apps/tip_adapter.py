@@ -1,0 +1,158 @@
+"""Tip-Adapter app: training-free cache baseline end to end.
+
+Counterpart of ``summer_clip_tpu/apps/tip_adapter.py``, composed from the same
+config: few-shot cache construction from augment passes over the train split,
+zero-shot and Tip-Adapter accuracy at the initial (beta, alpha), then the
+beta x alpha grid search through the label-driven cache kernels (K3 for the
+class-grouped Tip cache). Tip-Adapter-F (``finetune.enabled=true``) is not
+ported yet and raises.
+
+Run: ``python -m summer_clip_torch.apps.tip_adapter dataset=<name> shots=16``.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import numpy as np
+import torch
+
+from summer_clip_tpu.core import config as C
+from summer_clip_tpu.data.views import DatasetView
+import summer_clip_torch.data  # noqa: F401  (registers the port's datasets)
+from summer_clip_torch.apps.common import (create_clip_session, extract_image_features,
+                                           resolve_prompting)
+from summer_clip_torch.engine.trainer import BaseTrainer, run_trainer
+from summer_clip_torch.methods import tip as tip_methods
+from summer_clip_torch.methods.zeroshot import accuracy, zeroshot_classifier
+from summer_clip_torch.store import FeatureStore
+
+
+class TipAdapterTrainer(BaseTrainer):
+    dataset_view_cls = DatasetView
+
+    def setup_model(self):
+        cfg = self.cfg
+        fcfg = cfg.get("finetune")
+        if fcfg and bool(fcfg.get("enabled", False)):
+            raise NotImplementedError("Tip-Adapter-F (finetune.enabled=true) is not ported yet")
+        self.store = FeatureStore(f"./caches/{cfg.dataset}")
+        self.session = create_clip_session(cfg.clip.model_name,
+                                           cfg.clip.get("checkpoint_path"),
+                                           cfg.clip.get("dtype"), device=self.device,
+                                           logger=self.logger,
+                                           proj_path=cfg.clip.get("proj_path"),
+                                           quant=cfg.clip.get("quant"))
+        size = self.session.input_size
+        bs = int(cfg.data.batch_size)
+        shots = int(cfg.shots)
+        root = str(cfg.root_path)
+
+        self.logger.log_info("Preparing dataset.")
+        dn = bool(cfg.data.get("device_normalize", False))
+        train_view = self.dataset_view_cls(str(cfg.dataset), "train", root, shots,
+                                           input_size=size, is_train=True,
+                                           seed=int(cfg.meta.random_state), device_normalize=dn)
+        val_view = self.dataset_view_cls(str(cfg.dataset), "val", root, -1, input_size=size,
+                                         device_normalize=dn)
+        test_view = self.dataset_view_cls(str(cfg.dataset), "test", root, -1, input_size=size,
+                                          device_normalize=dn)
+        self.num_classes = train_view.base.num_classes
+
+        self.logger.log_info("Getting textual features as CLIP's classifier.")
+        classes, templates = resolve_prompting(cfg, train_view)
+        self.clip_weights = zeroshot_classifier(self.session.encode_text, classes, templates,
+                                                device=self.device)
+
+        self.logger.log_info("Constructing cache model by few-shot visual features and labels.")
+        self.cache_keys, self.cache_values = self.build_cache_model(train_view, bs)
+        # values are strict one-hots: the per-row labels route the sweeps
+        # through the label-driven kernels
+        self.cache_key_labels = np.argmax(self.cache_values, axis=1).astype(np.int32)
+
+        self.logger.log_info("Loading visual features and labels from val set.")
+        self.val_features, self.val_labels = self.preload_features("val", val_view, bs)
+        self.logger.log_info("Loading visual features and labels from test set.")
+        self.test_features, self.test_labels = self.preload_features("test", test_view, bs)
+
+    # -- cache construction ------------------------------------------------------
+    def build_cache_model(self, train_view: DatasetView, batch_size: int
+                          ) -> tp.Tuple[np.ndarray, np.ndarray]:
+        key = f"cache_{self.cfg.shots}shots"
+        if bool(self.cfg.load_cache) and key in self.store:
+            arrs = self.store.load_all(key, mmap=False)
+            return np.asarray(arrs["features"]), np.asarray(arrs["values"])
+        passes = []
+        labels = None
+        for epoch in range(int(self.cfg.augment_epoch)):
+            self.logger.log_info(f"Augment Epoch: {epoch} / {int(self.cfg.augment_epoch)}")
+            batcher = train_view.batcher(batch_size=batch_size, seed=int(self.cfg.meta.random_state))
+            batcher.set_epoch(epoch)
+            feats, lab, _ = extract_image_features(self.session, batcher)
+            passes.append(feats)
+            if labels is None:
+                labels = lab
+        keys, values = tip_methods.build_cache_from_features(passes, labels, self.num_classes)
+        self.store.save(key, features=keys, extra={"values": values},
+                        meta={"shots": int(self.cfg.shots)})
+        return keys, values
+
+    def preload_features(self, split: str, view: DatasetView, batch_size: int
+                         ) -> tp.Tuple[np.ndarray, np.ndarray]:
+        key = f"{split}_features"
+        if bool(self.cfg.load_pre_feat) and key in self.store:
+            arrs = self.store.load_all(key, mmap=False)
+            return np.asarray(arrs["features"]), np.asarray(arrs["labels"])
+        feats, labels, _ = extract_image_features(self.session, view.batcher(batch_size=batch_size))
+        feats = feats / np.maximum(np.linalg.norm(feats, axis=-1, keepdims=True), 1e-12)
+        self.store.save(key, features=feats, labels=labels)
+        return feats, labels
+
+    # -- evaluation ---------------------------------------------------------------
+    def _clip_logits(self, feats: np.ndarray) -> torch.Tensor:
+        return 100.0 * torch.from_numpy(feats).to(self.device) @ self.clip_weights.t()
+
+    def train_loop(self):
+        cfg = self.cfg
+        dev = self.device
+        clip_logits = self._clip_logits(self.test_features)
+        acc = accuracy(clip_logits, self.test_labels)[0]
+        self.logger.log_info(f"**** Zero-shot CLIP's test accuracy: {acc:.2f}. ****")
+        self.logger.log_info({"type": "zero_shot", "acc1": acc})
+
+        beta, alpha = float(cfg.init_beta), float(cfg.init_alpha)
+        tip = tip_methods.tip_logits(clip_logits, self.test_features, self.cache_keys,
+                                     self.cache_values, beta, alpha,
+                                     cache_labels=self.cache_key_labels, device=dev)
+        acc_tip = accuracy(tip, self.test_labels)[0]
+        self.logger.log_info(f"**** Tip-Adapter's test accuracy: {acc_tip:.2f}. ****")
+        self.logger.log_info({"type": "tip_result", "beta": beta, "alpha": alpha, "acc1": acc_tip})
+
+        if bool(cfg.search_hp):
+            # search on val (falls back to test when the dataset has no val split)
+            feats = self.val_features if len(self.val_features) else self.test_features
+            labels = self.val_labels if len(self.val_features) else self.test_labels
+            best_beta, best_alpha, best_acc = tip_methods.search_hp(
+                feats, labels, self._clip_logits(feats), self.cache_keys, self.cache_values,
+                search_scale=list(cfg.search_scale), search_step=list(cfg.search_step),
+                log_fn=self.logger.log_info_wandb, cache_labels=self.cache_key_labels,
+                device=dev)
+            self.logger.log_info(
+                f"After searching, the best accuracy: {best_acc:.2f} "
+                f"(beta={best_beta:.2f}, alpha={best_alpha:.2f}).")
+            tip_best = tip_methods.tip_logits(clip_logits, self.test_features, self.cache_keys,
+                                              self.cache_values, best_beta, best_alpha,
+                                              cache_labels=self.cache_key_labels, device=dev)
+            acc_best = accuracy(tip_best, self.test_labels)[0]
+            self.logger.log_info(f"**** Tip-Adapter's searched test accuracy: {acc_best:.2f}. ****")
+            self.logger.log_info({"type": "tip_searched", "beta": best_beta,
+                                  "alpha": best_alpha, "acc1": acc_best})
+
+
+@C.main(config_path="../../summer_clip_tpu/conf", config_name="tip_adapter")
+def run(cfg) -> None:
+    run_trainer(TipAdapterTrainer, cfg)
+
+
+if __name__ == "__main__":
+    run()

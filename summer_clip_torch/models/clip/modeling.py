@@ -1,0 +1,263 @@
+"""CLIP towers as PyTorch modules: ViT image tower, text tower, CLIP head.
+
+Counterpart of ``summer_clip_tpu/models/clip/modeling.py`` (ViT and text
+towers; the ModifiedResNet tower is not ported yet). Parameters use OpenAI's
+``clip.load`` key layout (``visual.conv1.weight``,
+``transformer.resblocks.0.attn.in_proj_weight``, ...), so an OpenAI state dict
+loads directly; :mod:`summer_clip_torch.models.clip.convert` carries the JAX
+package's Flax variables across.
+
+Conventions kept from the JAX package:
+
+- images are NHWC at :meth:`CLIP.encode_image`;
+- LayerNorm runs in f32 with f32 parameters whatever the compute dtype
+  (:meth:`CLIP.to_compute` casts every other parameter);
+- the text tower pools at the argmax token id for token inputs and at
+  ``len - 1`` for embeddings (:meth:`TextTransformer.from_embeds`).
+
+Every residual block runs through the fused kernels
+(:func:`~summer_clip_torch.ops.block_kernels.fused_ln_attn`, K5, and
+:func:`~summer_clip_torch.ops.block_kernels.fused_ln_mlp`, K6): the kernels on
+a CUDA tensor, their plain versions on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import math
+import typing as tp
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from summer_clip_torch.models.clip.configs import CLIP_CONFIGS, CLIPConfig
+from summer_clip_torch.ops import block_kernels as bk
+
+__all__ = ["LayerNormF32", "Attention", "MLP", "ResidualAttentionBlock", "Transformer",
+           "PatchEmbed", "VisionTransformer", "TextTransformer", "CLIP", "build_clip"]
+
+
+class LayerNormF32(nn.Module):
+    """LayerNorm computed in float32 regardless of the activation dtype."""
+
+    def __init__(self, d: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bk.ln_f32(x, self.weight, self.bias, self.eps)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention parameters in ``nn.MultiheadAttention``'s
+    layout: q/k/v stacked in ``in_proj_weight`` (3D, D), then ``out_proj``."""
+
+    def __init__(self, d: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d, d))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
+        self.out_proj = nn.Linear(d, d)
+
+
+class MLP(nn.Module):
+    """c_fc -> QuickGELU -> c_proj (4x width); parameters only, the block's
+    fused kernel computes it."""
+
+    def __init__(self, d: int, ratio: int = 4):
+        super().__init__()
+        self.c_fc = nn.Linear(d, d * ratio)
+        self.c_proj = nn.Linear(d * ratio, d)
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, d: int, num_heads: int):
+        super().__init__()
+        self.attn = Attention(d, num_heads)
+        self.ln_1 = LayerNormF32(d)
+        self.mlp = MLP(d)
+        self.ln_2 = LayerNormF32(d)
+
+    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        a, m = self.attn, self.mlp
+        x = bk.fused_ln_attn(x, self.ln_1.weight, self.ln_1.bias, a.in_proj_weight,
+                             a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
+                             num_heads=a.num_heads, causal=causal, eps=self.ln_1.eps)
+        return bk.fused_ln_mlp(x, self.ln_2.weight, self.ln_2.bias, m.c_fc.weight,
+                               m.c_fc.bias, m.c_proj.weight, m.c_proj.bias, eps=self.ln_2.eps)
+
+
+class Transformer(nn.Module):
+    def __init__(self, width: int, num_layers: int, num_heads: int):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            ResidualAttentionBlock(width, num_heads) for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        for block in self.resblocks:
+            x = block(x, causal)
+        return x
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patch embedding as a strided conv (OpenAI's ``conv1``,
+    weight (width, 3, p, p), no bias). NHWC in, (B, patches, width) out."""
+
+    def __init__(self, width: int, patch_size: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.weight = nn.Parameter(torch.empty(width, 3, patch_size, patch_size))
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = images.to(self.weight.dtype).permute(0, 3, 1, 2)
+        out = F.conv2d(x, self.weight, stride=self.patch_size)   # (B, W, g, g)
+        return out.flatten(2).transpose(1, 2)
+
+
+class VisionTransformer(nn.Module):
+    """CLIP ViT image tower. Input (B, H, W, 3) -> (B, output_dim)."""
+
+    def __init__(self, image_resolution: int, patch_size: int, width: int,
+                 num_layers: int, num_heads: int, output_dim: int):
+        super().__init__()
+        grid = image_resolution // patch_size
+        self.conv1 = PatchEmbed(width, patch_size)
+        self.class_embedding = nn.Parameter(torch.empty(width))
+        self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, width))
+        self.ln_pre = LayerNormF32(width)
+        self.transformer = Transformer(width, num_layers, num_heads)
+        self.ln_post = LayerNormF32(width)
+        self.proj = nn.Parameter(torch.empty(width, output_dim))
+
+    def forward(self, images: torch.Tensor, apply_proj: bool = True) -> torch.Tensor:
+        x = self.conv1(images)
+        dtype = x.dtype
+        cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
+        x = self.ln_pre(x)
+        x = self.transformer(x)
+        x = self.ln_post(x[:, 0])
+        if not apply_proj:
+            return x
+        return x @ self.proj.to(dtype)
+
+
+class TextTransformer(nn.Module):
+    """CLIP text tower with two entries: token ids (pool at the argmax id, the
+    <eot> token) or spliced embeddings + lengths (pool at ``len - 1``)."""
+
+    def __init__(self, vocab_size: int, context_length: int, width: int,
+                 num_layers: int, num_heads: int, output_dim: int):
+        super().__init__()
+        self.token_embedding = nn.Embedding(vocab_size, width)
+        self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
+        self.transformer = Transformer(width, num_layers, num_heads)
+        self.ln_final = LayerNormF32(width)
+        self.text_projection = nn.Parameter(torch.empty(width, output_dim))
+
+    def embed(self, token_ids: torch.Tensor) -> torch.Tensor:
+        return self.token_embedding(token_ids)
+
+    def _encode(self, x: torch.Tensor, eot_idx: torch.Tensor) -> torch.Tensor:
+        t = x.shape[1]
+        x = x + self.positional_embedding[:t].to(x.dtype)
+        x = self.transformer(x, causal=True)
+        x = self.ln_final(x)
+        pooled = x[torch.arange(x.shape[0], device=x.device), eot_idx]
+        return pooled @ self.text_projection.to(x.dtype)
+
+    def encode_text(self, token_ids: torch.Tensor) -> torch.Tensor:
+        return self._encode(self.embed(token_ids), token_ids.argmax(dim=-1))
+
+    def from_embeds(self, inputs_embeds: torch.Tensor, input_lens: torch.Tensor) -> torch.Tensor:
+        dtype = self.token_embedding.weight.dtype
+        return self._encode(inputs_embeds.to(dtype), input_lens.long() - 1)
+
+
+class CLIP(TextTransformer):
+    """Joint image/text model. The text tower's parameters sit at the top
+    level, as in OpenAI's checkpoints; ``visual`` holds the image tower."""
+
+    def __init__(self, cfg: CLIPConfig):
+        if cfg.vision_kind != "vit":
+            raise NotImplementedError(f"{cfg.name}: the ResNet image tower is not ported yet")
+        super().__init__(cfg.vocab_size, cfg.context_length, cfg.text_width,
+                         cfg.text_layers, cfg.text_heads, cfg.embed_dim)
+        self.cfg = cfg
+        self.visual = VisionTransformer(cfg.image_resolution, int(cfg.vision_patch_size),
+                                        cfg.vision_width, int(cfg.vision_layers),
+                                        cfg.vision_heads, cfg.embed_dim)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
+
+    def init_weights(self, generator: torch.Generator) -> "CLIP":
+        """Random weights drawn from ``generator`` (the JAX package's init
+        scales: normal embeddings, fan-in-scaled projections, zero biases)."""
+        def normal_(p: torch.Tensor, std: float) -> None:
+            with torch.no_grad():
+                p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+        ln_params = {id(p) for m in self.modules() if isinstance(m, LayerNormF32)
+                     for p in m.parameters()}
+        for name, p in self.named_parameters():
+            if p.dim() == 0 or id(p) in ln_params:
+                continue                                 # log(1/0.07); LN ones and zeros
+            if name.endswith("bias"):
+                with torch.no_grad():
+                    p.zero_()
+            elif name == "token_embedding.weight":
+                normal_(p, 0.02)
+            elif name == "positional_embedding":
+                normal_(p, 0.01)
+            elif p.dim() == 4:                           # patch conv
+                normal_(p, p[0].numel() ** -0.5)
+            elif name.endswith("weight"):                # Linear / in_proj (out, in)
+                normal_(p, p.shape[1] ** -0.5)
+            else:                                        # class/pos embedding, projections
+                width = self.cfg.vision_width if name.startswith("visual.") else self.cfg.text_width
+                normal_(p, width ** -0.5)
+        return self
+
+    def to_compute(self, dtype: torch.dtype) -> "CLIP":
+        """Cast every parameter to ``dtype`` except the LayerNorm parameters
+        and ``logit_scale``, which stay f32 (the JAX package's policy)."""
+        keep = {id(p) for m in self.modules() if isinstance(m, LayerNormF32)
+                for p in m.parameters()}
+        keep.add(id(self.logit_scale))
+        with torch.no_grad():
+            for p in self.parameters():
+                if id(p) not in keep:
+                    p.data = p.data.to(dtype)
+        return self
+
+    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+        return self.visual(images)
+
+    def encode_image_preproj(self, images: torch.Tensor) -> torch.Tensor:
+        return self.visual(images, apply_proj=False)
+
+    def encode_text_embeds(self, inputs_embeds: torch.Tensor,
+                           input_lens: torch.Tensor) -> torch.Tensor:
+        return self.from_embeds(inputs_embeds, input_lens)
+
+    def forward(self, images: torch.Tensor, token_ids: torch.Tensor
+                ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        img = self.encode_image(images).float()
+        txt = self.encode_text(token_ids).float()
+        img = img / img.norm(dim=-1, keepdim=True)
+        txt = txt / txt.norm(dim=-1, keepdim=True)
+        logits_per_image = self.logit_scale.exp() * img @ txt.t()
+        return logits_per_image, logits_per_image.t()
+
+
+def build_clip(name: str, generator: tp.Optional[torch.Generator] = None,
+               dtype: torch.dtype = torch.float32,
+               device: tp.Union[str, torch.device] = "cpu") -> tp.Tuple[CLIP, CLIPConfig]:
+    """Build the named model, frozen, with random weights from ``generator``
+    (seed 0 when None), cast to the compute ``dtype`` and moved to ``device``."""
+    cfg = CLIP_CONFIGS[name]
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = CLIP(cfg).init_weights(generator).requires_grad_(False)
+    return model.to_compute(dtype).to(device).eval(), cfg

@@ -1,0 +1,170 @@
+"""Fused transformer-block halves for the CLIP towers (K5, K6).
+
+Counterpart of ``summer_clip_tpu/ops/block_kernels.py``. Each wrapper takes
+the OpenAI ``clip.load`` parameter layout (``Linear.weight`` is (out, in);
+attention q/k/v ride one ``in_proj_weight`` of shape (3D, D)):
+
+- :func:`fused_ln_attn` -- K5, ``x + out_proj(MHA(LN_f32(x)))``. CUDA source
+  ``csrc/block_kernels.cu`` (``ln_attn_heads`` + ``linear_residual``);
+  replaces the TPU kernel ``fused_ln_attn`` (ops/block_kernels.py:255).
+- :func:`fused_ln_mlp` -- K6, ``x + c_proj(QuickGELU(c_fc(LN_f32(x))))``.
+  CUDA source ``csrc/block_kernels.cu`` (``ln_mlp``); replaces the TPU kernel
+  ``fused_ln_mlp`` (ops/block_kernels.py:75).
+
+On a CPU tensor a wrapper runs its plain PyTorch version
+(:func:`ln_attn_reference`, :func:`ln_mlp_reference`). On a CUDA tensor it
+launches the kernel or raises; it never falls back. The CUDA kernels take
+bf16 activations and weights with f32 LayerNorm parameters; what bounds them
+on the card is described at the top of the CUDA source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from summer_clip_torch.ops import _lib
+
+__all__ = ["quick_gelu", "ln_f32", "ln_attn_reference", "ln_mlp_reference",
+           "fused_ln_attn", "fused_ln_mlp", "HEAD_DIM", "MAX_T", "MAX_D"]
+
+HEAD_DIM = 64      # the CUDA attention kernel's head width
+MAX_T = 240        # longest sequence whose q/k/v and score rows fit shared memory
+MAX_D = 1024       # widest row the kernels' LayerNorm holds in registers
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "ln_attn_heads_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "linear_residual_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ln_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+}
+
+
+def _lib_block():
+    return _lib.load("block_kernels", _SIGNATURES)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(1.702 x)`` with the JAX package's rounding: the constant
+    and the product in x's dtype, the sigmoid in f32 rounded back."""
+    c = torch.tensor(1.702, dtype=x.dtype, device=x.device)
+    return x * torch.sigmoid((c * x).float()).to(x.dtype)
+
+
+def ln_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with f32 scale and bias, rounded to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()).to(x.dtype)
+
+
+def _dense(z: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # f32-accumulated product rounded to z's dtype, then the bias in that dtype
+    return torch.matmul(z, w.to(z.dtype).t()) + b.to(z.dtype)
+
+
+def ln_attn_reference(x, ln_w, ln_b, in_w, in_b, out_w, out_b, *, num_heads: int,
+                      causal: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of K5: ``x + out_proj(MHA(q, k, v of LN_f32(x)))``."""
+    b, t, d = x.shape
+    hd = d // num_heads
+    y = ln_f32(x, ln_w, ln_b, eps)
+    q, k, v = _dense(y, in_w, in_b).split(d, dim=-1)
+
+    def split(z):
+        return z.reshape(b, t, num_heads, hd).transpose(1, 2)
+
+    s = torch.matmul(split(q).float(), split(k).float().transpose(-1, -2)) * (1.0 / hd ** 0.5)
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    o = torch.matmul(p, split(v)).transpose(1, 2).reshape(b, t, d)
+    return x + _dense(o, out_w, out_b)
+
+
+def ln_mlp_reference(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of K6: ``x + c_proj(quick_gelu(c_fc(LN_f32(x))))``."""
+    y = ln_f32(x, ln_w, ln_b, eps)
+    return x + _dense(quick_gelu(_dense(y, fc_w, fc_b)), proj_w, proj_b)
+
+
+def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+def fused_ln_attn(x, ln_w, ln_b, in_w, in_b, out_w, out_b, *, num_heads: int,
+                  causal: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    """K5. x (B, T, D); in_w (3D, D), in_b (3D,); out_w (D, D), out_b (D,)."""
+    if x.device.type == "cpu":
+        return ln_attn_reference(x, ln_w, ln_b, in_w, in_b, out_w, out_b,
+                                 num_heads=num_heads, causal=causal, eps=eps)
+    b, t, d = x.shape
+    if d != num_heads * HEAD_DIM:
+        raise ValueError(f"K5 kernel needs head dim {HEAD_DIM}; got D={d}, heads={num_heads}")
+    if not 0 < t <= MAX_T or d % 128 or d > MAX_D:
+        raise ValueError(f"K5 kernel takes 0 < T <= {MAX_T}, D % 128 == 0 and D <= {MAX_D}; "
+                         f"got T={t}, D={d}")
+    bf = torch.bfloat16
+    _require(x, "x", bf, (b, t, d))
+    _require(ln_w, "ln_w", torch.float32, (d,))
+    _require(ln_b, "ln_b", torch.float32, (d,))
+    _require(in_w, "in_w", bf, (3 * d, d))
+    _require(in_b, "in_b", bf, (3 * d,))
+    _require(out_w, "out_w", bf, (d, d))
+    _require(out_b, "out_b", bf, (d,))
+    lib = _lib_block()
+    stream = _lib.torch_stream()
+    o = torch.empty_like(x)
+    _lib.check(lib.ln_attn_heads_bf16(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), in_w.data_ptr(), in_b.data_ptr(),
+        o.data_ptr(), b, t, d, num_heads, int(causal), eps, stream), "ln_attn_heads")
+    out = torch.empty_like(x)
+    _lib.check(lib.linear_residual_bf16(
+        o.data_ptr(), out_w.data_ptr(), out_b.data_ptr(), x.data_ptr(), out.data_ptr(),
+        b * t, d, d, stream), "linear_residual")
+    fused_ln_attn.launches += 1
+    return out
+
+
+fused_ln_attn.launches = 0
+
+
+def fused_ln_mlp(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, *,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """K6. x (B, T, D); fc_w (H, D), fc_b (H,); proj_w (D, H), proj_b (D,)."""
+    if x.device.type == "cpu":
+        return ln_mlp_reference(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, eps=eps)
+    b, t, d = x.shape
+    h = fc_w.shape[0]
+    if d not in (512, 768) or h % 64:
+        raise ValueError(f"K6 kernel takes D in (512, 768) and H % 64 == 0; got D={d}, H={h}")
+    bf = torch.bfloat16
+    _require(x, "x", bf, (b, t, d))
+    _require(ln_w, "ln_w", torch.float32, (d,))
+    _require(ln_b, "ln_b", torch.float32, (d,))
+    _require(fc_w, "fc_w", bf, (h, d))
+    _require(fc_b, "fc_b", bf, (h,))
+    _require(proj_w, "proj_w", bf, (d, h))
+    _require(proj_b, "proj_b", bf, (d,))
+    lib = _lib_block()
+    out = torch.empty_like(x)
+    _lib.check(lib.ln_mlp_bf16(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(),
+        proj_w.data_ptr(), proj_b.data_ptr(), out.data_ptr(), b * t, d, h, eps,
+        _lib.torch_stream()), "ln_mlp")
+    fused_ln_mlp.launches += 1
+    return out
+
+
+fused_ln_mlp.launches = 0

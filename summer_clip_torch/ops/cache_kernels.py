@@ -1,0 +1,268 @@
+"""Cache attention ``out[b] = exp(-beta_b * (1 - F @ C^T)) @ V`` (K2, K3).
+
+Counterpart of ``summer_clip_tpu/ops/cache_kernels.py``. Tip-Adapter's values
+are always ``one_hot(labels)``, so its sweep takes the label-driven kernels:
+
+- :func:`cache_attention_onehot` -- K3, for class-grouped caches. CUDA source
+  ``csrc/cache_kernels.cu`` (``onehot_grouped``); replaces the TPU kernel
+  ``onehot_pallas`` (ops/cache_kernels.py:394).
+- :func:`cache_attention_labels` -- K2, any row order. CUDA source
+  ``csrc/cache_kernels.cu`` (``labels_dense``); replaces the TPU kernel
+  ``labels_dense_pallas`` (ops/cache_kernels.py:509).
+
+:func:`cache_attention_from_labels` routes between them by the same test as the
+JAX package (``:678-685``): K3 when every ``block_n``-row cache block spans at
+most ``k_limit`` classes, K2 otherwise. The dense K1 ``cache_attention`` is not
+ported yet: on CUDA a call with values and no labels raises.
+
+On a CPU tensor the wrappers run their plain PyTorch version
+(:func:`cache_attention_labels_reference`); on a CUDA tensor they launch the
+kernel or raise. The CUDA kernels take bf16 features (the wrappers cast, as the
+JAX package casts to its compute dtype) and return f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import typing as tp
+
+import numpy as np
+import torch
+
+from summer_clip_torch.ops import _lib
+
+__all__ = ["cache_attention_reference", "cache_attention_labels_reference",
+           "cache_attention_onehot", "cache_attention_labels",
+           "cache_attention_from_labels", "cache_attention_auto",
+           "onehot_block_classes", "onehot_k_max", "class_row_table"]
+
+K3_MAX_BETA = 16   # betas per K3 launch (f32 accumulators held in registers)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "labels_dense_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "onehot_grouped_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+def _lib_cache():
+    return _lib.load("cache_kernels", _SIGNATURES)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def cache_attention_reference(test_features: torch.Tensor, cache_features: torch.Tensor,
+                              cache_values: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
+    """Dense oracle in f32. test (Nt, D), cache (Nc, D), values (Nc, C),
+    betas (B,) -> (B, Nt, C)."""
+    aff = test_features.float() @ cache_features.float().t()
+    w = torch.exp(-betas.float().reshape(-1, 1, 1) * (1.0 - aff[None]))
+    return torch.einsum("bqn,nc->bqc", w, cache_values.float())
+
+
+def cache_attention_labels_reference(test_features: torch.Tensor,
+                                     cache_features: torch.Tensor,
+                                     cache_labels: torch.Tensor, betas: torch.Tensor,
+                                     num_classes: int,
+                                     compute_dtype: torch.dtype = torch.float32
+                                     ) -> torch.Tensor:
+    """Plain version of K2 and K3: features rounded to ``compute_dtype``, the
+    affinity in f32, weights rounded to ``compute_dtype``, sums in f32.
+    ``cache_labels`` (Nc,) int, -1 marks rows that add nothing."""
+    f = test_features.to(compute_dtype).float()
+    c = cache_features.to(compute_dtype).float()
+    labels = cache_labels.to(device=f.device, dtype=torch.long)
+    onehot = torch.zeros(labels.shape[0], num_classes, dtype=torch.float32, device=f.device)
+    real = labels >= 0
+    onehot[real.nonzero()[:, 0], labels[real]] = 1.0
+    aff = f @ c.t()
+    outs = [torch.exp(-float(b) * (1.0 - aff)).to(compute_dtype).float() @ onehot
+            for b in betas.float().tolist()]
+    return torch.stack(outs)
+
+
+def _pick_block_n_onehot(d_p: int, c_p: int, f_bytes: int,
+                         budget_bytes: int = 14 * 1024 * 1024) -> int:
+    """The cache block size the JAX package's K3 would pick
+    (``_pick_blocks_onehot``); the K3/K2 route is decided on these blocks."""
+    candidates = [
+        (128, 1024, 8), (128, 512, 8), (128, 512, 4), (128, 256, 4),
+        (128, 256, 2), (128, 128, 2), (128, 128, 1),
+        (64, 128, 1), (32, 128, 1), (16, 128, 1),
+    ]
+    for bq, bn, bb in candidates:
+        need = (2 * bn * d_p * f_bytes + bq * d_p * f_bytes
+                + 2 * bb * bq * c_p * 4 + bq * bn * 4)
+        if need <= budget_bytes:
+            return bn
+    return 128
+
+
+def onehot_block_classes(labels_padded: np.ndarray, block_n: int
+                         ) -> tp.Tuple[np.ndarray, int]:
+    """Per-cache-block distinct-class table (numpy copy of the JAX package's
+    ``onehot_block_classes``): ``(table (num_n, k_max) padded with -2,
+    k_max)``, ``k_max`` the most distinct real labels in a block, rounded up
+    to 8."""
+    num_n = labels_padded.shape[0] // block_n
+    rows = labels_padded.reshape(num_n, block_n)
+    uniques = [np.unique(r[r >= 0]) for r in rows]
+    need = max((u.shape[0] for u in uniques), default=1)
+    k_max = max(8, -(-need // 8) * 8)
+    table = np.full((num_n, k_max), -2, np.int32)
+    for i, u in enumerate(uniques):
+        table[i, : u.shape[0]] = u
+    return table, k_max
+
+
+def onehot_k_max(labels: np.ndarray, num_classes: int, d: int, itemsize: int) -> int:
+    """``k_max`` of the JAX K3 blocking for these labels and this geometry."""
+    block_n = _pick_block_n_onehot(_ceil_to(d, 128), _ceil_to(max(num_classes, 128), 128),
+                                   itemsize)
+    padded = np.full((_ceil_to(labels.shape[0], block_n),), -1, np.int32)
+    padded[: labels.shape[0]] = labels
+    return onehot_block_classes(padded, block_n)[1]
+
+
+def class_row_table(labels: np.ndarray, num_classes: int) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """Host index of K3: the real rows (label >= 0) stably sorted by label,
+    and per-class offsets ``offs`` (C + 1,) so that class c owns
+    ``rows[offs[c]:offs[c + 1]]``."""
+    real = np.flatnonzero(labels >= 0)
+    rows = real[np.argsort(labels[real], kind="stable")].astype(np.int32)
+    offs = np.searchsorted(labels[rows], np.arange(num_classes + 1), side="left")
+    return rows, offs.astype(np.int32)
+
+
+def _host_labels(cache_labels: tp.Any, nc: int, num_classes: int) -> np.ndarray:
+    if isinstance(cache_labels, torch.Tensor):
+        cache_labels = cache_labels.detach().cpu().numpy()
+    labels = np.asarray(cache_labels, np.int64).reshape(-1).astype(np.int32)
+    if labels.shape[0] != nc:
+        raise ValueError(f"cache_labels has {labels.shape[0]} rows, cache has {nc}")
+    if labels.size and (labels.min() < -1 or labels.max() >= num_classes):
+        raise ValueError("cache_labels out of range")
+    return labels
+
+
+def _betas(betas: tp.Any, device: torch.device) -> torch.Tensor:
+    return torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float32)).to(device)
+
+
+def _cuda_features(test_features: torch.Tensor, cache_features: torch.Tensor,
+                   rows_to: int, cache_rows_to: tp.Optional[int] = None):
+    """bf16, contiguous, D padded to 16, test rows padded to ``rows_to`` (and
+    cache rows to ``cache_rows_to``) with zeros."""
+    for name, t in (("test_features", test_features), ("cache_features", cache_features)):
+        if not t.is_cuda or not t.is_floating_point() or t.dim() != 2:
+            raise ValueError(f"{name}: expected a 2-D floating CUDA tensor, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    nt, d = test_features.shape
+    nc, d2 = cache_features.shape
+    if d != d2:
+        raise ValueError(f"feature widths differ: {d} vs {d2}")
+    d_p = _ceil_to(d, 16)
+    nt_p = _ceil_to(max(nt, 1), rows_to)
+    nc_p = nc if cache_rows_to is None else _ceil_to(max(nc, 1), cache_rows_to)
+    f = torch.zeros(nt_p, d_p, dtype=torch.bfloat16, device=test_features.device)
+    f[:nt, :d] = test_features
+    if nc_p == nc and d_p == d and cache_features.dtype == torch.bfloat16:
+        cf = cache_features.contiguous()
+    else:
+        cf = torch.zeros(nc_p, d_p, dtype=torch.bfloat16, device=cache_features.device)
+        cf[:nc, :d] = cache_features
+    return f, cf, nt_p, nc_p, d_p
+
+
+def cache_attention_onehot(test_features: torch.Tensor, cache_features: torch.Tensor,
+                           cache_labels: tp.Any, betas: tp.Any,
+                           num_classes: int) -> torch.Tensor:
+    """K3: ``cache_attention`` with ``values = one_hot(labels)`` for a
+    class-grouped cache; (B, Nt, C) f32. Correct for any row order; each block
+    walks only the rows of its classes."""
+    nc = cache_features.shape[0]
+    labels = _host_labels(cache_labels, nc, num_classes)
+    if test_features.device.type == "cpu":
+        return cache_attention_labels_reference(
+            test_features, cache_features, torch.from_numpy(labels), _betas(betas, "cpu"),
+            num_classes)
+    nt = test_features.shape[0]
+    dev = test_features.device
+    bet = _betas(betas, dev)
+    f, cf, nt_p, _, d_p = _cuda_features(test_features, cache_features, 64)
+    rows, offs = class_row_table(labels, num_classes)
+    rows_t = torch.from_numpy(rows).to(dev)
+    offs_t = torch.from_numpy(offs).to(dev)
+    out = torch.empty(bet.shape[0], nt, num_classes, dtype=torch.float32, device=dev)
+    lib = _lib_cache()
+    stream = _lib.torch_stream()
+    for s in range(0, bet.shape[0], K3_MAX_BETA):
+        chunk = bet[s:s + K3_MAX_BETA].contiguous()
+        view = out[s:s + K3_MAX_BETA]
+        _lib.check(lib.onehot_grouped_bf16(
+            f.data_ptr(), cf.data_ptr(), rows_t.data_ptr(), offs_t.data_ptr(),
+            chunk.data_ptr(), view.data_ptr(), chunk.shape[0], nt, nt_p, d_p,
+            num_classes, stream), "onehot_grouped")
+        cache_attention_onehot.launches += 1
+    return out
+
+
+cache_attention_onehot.launches = 0
+
+
+def cache_attention_labels(test_features: torch.Tensor, cache_features: torch.Tensor,
+                           cache_labels: tp.Any, betas: tp.Any,
+                           num_classes: int) -> torch.Tensor:
+    """K2: ``cache_attention`` with ``values = one_hot(labels)`` rebuilt in
+    the kernel, for any row order; (B, Nt, C) f32."""
+    nc = cache_features.shape[0]
+    labels = _host_labels(cache_labels, nc, num_classes)
+    if test_features.device.type == "cpu":
+        return cache_attention_labels_reference(
+            test_features, cache_features, torch.from_numpy(labels), _betas(betas, "cpu"),
+            num_classes)
+    nt = test_features.shape[0]
+    dev = test_features.device
+    bet = _betas(betas, dev).contiguous()
+    f, cf, nt_p, nc_p, d_p = _cuda_features(test_features, cache_features, 16, 128)
+    lab = torch.full((nc_p,), -1, dtype=torch.int32, device=dev)
+    lab[:nc] = torch.from_numpy(labels).to(dev)
+    out = torch.empty(bet.shape[0], nt, num_classes, dtype=torch.float32, device=dev)
+    _lib.check(_lib_cache().labels_dense_bf16(
+        f.data_ptr(), cf.data_ptr(), lab.data_ptr(), bet.data_ptr(), out.data_ptr(),
+        bet.shape[0], nt, nt_p, nc_p, d_p, num_classes, _lib.torch_stream()), "labels_dense")
+    cache_attention_labels.launches += 1
+    return out
+
+
+cache_attention_labels.launches = 0
+
+
+def cache_attention_from_labels(test_features: torch.Tensor, cache_features: torch.Tensor,
+                                cache_labels: tp.Any, betas: tp.Any, num_classes: int, *,
+                                k_limit: int = 128) -> torch.Tensor:
+    """Label-driven route: K3 when every cache block of the JAX K3 blocking
+    spans at most ``k_limit`` classes, K2 otherwise (an explicit test; the
+    JAX package catches the ValueError K3 raises)."""
+    labels = _host_labels(cache_labels, cache_features.shape[0], num_classes)
+    itemsize = 4 if test_features.device.type == "cpu" else 2   # compute dtype: f32 / bf16
+    k_max = onehot_k_max(labels, num_classes, test_features.shape[1], itemsize)
+    kernel = cache_attention_onehot if k_max <= k_limit else cache_attention_labels
+    return kernel(test_features, cache_features, labels, betas, num_classes)
+
+
+def cache_attention_auto(test_features: torch.Tensor, cache_features: torch.Tensor,
+                         cache_values: torch.Tensor, betas: tp.Any,
+                         cache_labels: tp.Optional[tp.Any] = None) -> torch.Tensor:
+    """(B, Nt, C) cache logits. With ``cache_labels`` (values known to be
+    ``one_hot(labels)``) the label-driven kernels run; without them the dense
+    K1 kernel would, which is not ported yet (CUDA raises, CPU runs the dense
+    oracle)."""
+    if cache_labels is not None:
+        return cache_attention_from_labels(test_features, cache_features, cache_labels,
+                                           betas, int(cache_values.shape[1]))
+    if test_features.device.type != "cpu":
+        raise NotImplementedError("K1 cache_attention not ported yet")
+    return cache_attention_reference(test_features, cache_features, cache_values,
+                                     _betas(betas, test_features.device))
