@@ -14,8 +14,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from summer_clip_tpu.data.loader import Batch
-from summer_clip_tpu.data.transforms import CLIP_MEAN, CLIP_STD
+from summer_clip_torch.data.loader import Batch
+from summer_clip_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from summer_clip_torch.data.prefetch import prefetch_to_device
 from summer_clip_torch.engine.trainer import resolve_device
 from summer_clip_torch.models.clip.modeling import CLIP, build_clip

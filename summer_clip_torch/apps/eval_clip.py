@@ -1,7 +1,7 @@
 """Zero-shot CLIP evaluation over cached image features.
 
-Counterpart of ``summer_clip_tpu/apps/eval_clip.py``, composed from the same
-config: load stored features, build the prompt-ensemble classifier through
+Counterpart of ``summer_clip_tpu/apps/eval_clip.py``, composed from the port's
+own copy of its config (``summer_clip_torch/conf``): load stored features, build the prompt-ensemble classifier through
 the text tower, report acc@1/acc@5 as a ``zero_shot`` record.
 
 Run: ``python -m summer_clip_torch.apps.eval_clip eval.features_key=<key>``.
@@ -14,9 +14,9 @@ import logging
 import numpy as np
 import torch
 
-from summer_clip_tpu.apps.features_io import resolve_features
-from summer_clip_tpu.core import config as C
 from summer_clip_torch.apps.common import create_clip_session
+from summer_clip_torch.apps.features_io import resolve_features
+from summer_clip_torch.core import config as C
 from summer_clip_torch.engine.trainer import make_logger, resolve_device, set_random_state
 from summer_clip_torch.methods.zeroshot import clip_logits, compute_accuracy, zeroshot_classifier
 from summer_clip_torch.store import FeatureStore
@@ -43,7 +43,7 @@ def eval_clip(cfg, logger) -> dict:
     return {"acc1": top1, "acc5": top5}
 
 
-@C.main(config_path="../../summer_clip_tpu/conf", config_name="eval_clip")
+@C.main(config_path="../conf", config_name="eval_clip")
 def run(cfg) -> None:
     logging.info("Start!")
     logger = make_logger(cfg.exp.project, cfg.exp.name, C.to_container(cfg))

@@ -2,7 +2,7 @@
 tower once and persist the features for every downstream method.
 
 Counterpart of ``summer_clip_tpu/apps/save_features.py``, composed from the
-same config (``summer_clip_tpu/conf/save_features.yaml``). Features land in the
+port's copy of its config (``summer_clip_torch/conf/save_features.yaml``). Features land in the
 :class:`FeatureStore` under the same catalog keys
 ``<dataset>_{train,test}-<model>`` with the same (N, D) row layout, so either
 package reads what the other wrote.
@@ -17,8 +17,8 @@ import logging
 import numpy as np
 import torch
 
-from summer_clip_tpu.core import config as C
 from summer_clip_torch.apps.common import create_clip_session, extract_image_features
+from summer_clip_torch.core import config as C
 from summer_clip_torch.engine.trainer import make_logger, resolve_device
 from summer_clip_torch.methods.zeroshot import clip_logits, zeroshot_classifier
 from summer_clip_torch.store import FeatureStore
@@ -52,7 +52,7 @@ def save_split_features(cfg, session, store: FeatureStore, dataset_cfg, key: str
     logger.log_info({"type": "features_saved", "key": key, "count": int(len(feats))})
 
 
-@C.main(config_path="../../summer_clip_tpu/conf", config_name="save_features")
+@C.main(config_path="../conf", config_name="save_features")
 def run(cfg) -> None:
     logging.info("Start!")
     logger = make_logger(cfg.exp.project, cfg.exp.name, C.to_container(cfg))

@@ -1,7 +1,7 @@
 """Tip-Adapter app: training-free cache baseline end to end.
 
-Counterpart of ``summer_clip_tpu/apps/tip_adapter.py``, composed from the same
-config: few-shot cache construction from augment passes over the train split,
+Counterpart of ``summer_clip_tpu/apps/tip_adapter.py``, composed from the port's
+copy of its config: few-shot cache construction from augment passes over the train split,
 zero-shot and Tip-Adapter accuracy at the initial (beta, alpha), then the
 beta x alpha grid search through the label-driven cache kernels (K3 for the
 class-grouped Tip cache). Tip-Adapter-F (``finetune.enabled=true``) is not
@@ -17,11 +17,10 @@ import typing as tp
 import numpy as np
 import torch
 
-from summer_clip_tpu.core import config as C
-from summer_clip_tpu.data.views import DatasetView
-import summer_clip_torch.data  # noqa: F401  (registers the port's datasets)
 from summer_clip_torch.apps.common import (create_clip_session, extract_image_features,
                                            resolve_prompting)
+from summer_clip_torch.core import config as C
+from summer_clip_torch.data.views import DatasetView
 from summer_clip_torch.engine.trainer import BaseTrainer, run_trainer
 from summer_clip_torch.methods import tip as tip_methods
 from summer_clip_torch.methods.zeroshot import accuracy, zeroshot_classifier
@@ -149,7 +148,7 @@ class TipAdapterTrainer(BaseTrainer):
                                   "alpha": best_alpha, "acc1": acc_best})
 
 
-@C.main(config_path="../../summer_clip_tpu/conf", config_name="tip_adapter")
+@C.main(config_path="../conf", config_name="tip_adapter")
 def run(cfg) -> None:
     run_trainer(TipAdapterTrainer, cfg)
 

@@ -1,7 +1,9 @@
-// Label-driven cache attention: out[b, q, c] = sum_n w_b[q, n] * [label_n == c],
+// Cache attention: out[b, q, c] = sum_n w_b[q, n] * V[n, c],
 // w_b = bf16(exp(-beta_b * (1 - F[q] . C[n]))), affinity accumulated in f32.
+// V is a value matrix (K1) or one_hot(labels), never built (K2, K3).
 //
 // Replaces the TPU kernels of summer_clip_tpu/ops/cache_kernels.py:
+//   K1 cache_attention     -> cache_dense   (bf16 or int8 value matrix)
 //   K2 labels_dense_pallas -> labels_dense  (any row order)
 //   K3 onehot_pallas       -> onehot_grouped (class-grouped rows)
 //
@@ -20,8 +22,21 @@
 //     (a host-side stable sort of the labels, with per-class offsets) and sums
 //     the weights of each class in f32 registers. The per-class partial sums
 //     are never rounded to bf16 (the TPU lost 0.24 abs that way).
-// Weights are bounded by 1 because |affinity| <= 1 for normalised features, so
-// no running maximum is needed.
+//   - K1 is bound by operations (2 Nt Nc C per beta). A block owns 32
+//     queries x 128 classes x the 8 betas of a launch: the 8 weight tiles of
+//     one affinity tile are stacked into a 256-row operand, so one affinity
+//     tile serves all betas of the chunk and the f32 accumulators (256 x 128)
+//     fill the registers of 16 warps. The price of tiling the classes is that
+//     each of the C / 128 class slices recomputes the affinity (0.75 of a
+//     slice's w @ V work at D = 768); sharing it across slices would need the
+//     (Nt, Nc) affinity in device memory, which the TPU kernel never writes
+//     either. Cache features stream through shared memory in 128-column
+//     slices by cp.async into two buffers, the next slice in flight while the
+//     current one is multiplied; values come in 128 x 128 tiles (int8 values
+//     are converted per tile) into the buffer just consumed.
+// No running maximum: the exponent is <= 0 for normalised rows, and like the
+// TPU kernels none of these assumes it (an unnormalised row may overflow to inf
+// here exactly as it does there).
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -229,6 +244,183 @@ onehot_grouped_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1: block = (32-query tile, 128-class slice), all betas (<= 8) of the launch.
+// 16 warps. Per step of 128 cache rows: warp w computes affinity tile
+// (w / 8, w % 8) over the whole D, K steps in order (the same order as
+// affinity_tile, so K1 and K2 see the same affinity bits); all threads turn the
+// 32 x 128 affinities into 8 x 32 weight rows; warp w accumulates rows
+// 32 (w / 2) .. + 31 (beta w / 2) x columns 64 (w % 2) .. + 63 of W @ V.
+// ---------------------------------------------------------------------------
+constexpr int kK1Warps = 16, kK1Threads = kK1Warps * 32;
+constexpr int kK1Q = 32, kK1N = 128, kK1C = 128, kK1B = 8, kK1Ks = 128;
+constexpr int kK1Ldr = 128 + kPad;      // feature slice / value tile rows (bf16)
+constexpr int kK1Ldw = kK1N + kPad;     // weight rows (bf16)
+constexpr int kK1Lda = kK1N + 4;        // affinity rows (f32)
+
+__device__ __forceinline__ uint4 ld16g(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem_ptr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_ptr));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// 128 x 128 value tile into shared memory as bf16 (rows n0 .., columns c0 ..)
+__device__ __forceinline__ void load_values(bf16* r_s, const bf16* v, int n0, int c0, int Cp,
+                                            int tid) {
+  for (int g = tid; g < kK1N * (kK1C / 8); g += kK1Threads) {
+    const int r = g / (kK1C / 8), c = (g % (kK1C / 8)) * 8;
+    *reinterpret_cast<uint4*>(r_s + r * kK1Ldr + c) = ld16g(v + (size_t)(n0 + r) * Cp + c0 + c);
+  }
+}
+__device__ __forceinline__ void load_values(bf16* r_s, const int8_t* v, int n0, int c0, int Cp,
+                                            int tid) {
+  for (int g = tid; g < kK1N * (kK1C / 16); g += kK1Threads) {
+    const int r = g / (kK1C / 16), c = (g % (kK1C / 16)) * 16;
+    const uint4 raw = ld16g(v + (size_t)(n0 + r) * Cp + c0 + c);
+    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+    uint4 lo, hi;
+    bf16* l8 = reinterpret_cast<bf16*>(&lo);
+    bf16* h8 = reinterpret_cast<bf16*>(&hi);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      l8[t] = __float2bfloat16((float)e[t]);
+      h8[t] = __float2bfloat16((float)e[8 + t]);
+    }
+    *reinterpret_cast<uint4*>(r_s + r * kK1Ldr + c) = lo;
+    *reinterpret_cast<uint4*>(r_s + r * kK1Ldr + c + 8) = hi;
+  }
+}
+
+template <typename VT>
+__global__ void __launch_bounds__(kK1Threads, 1)
+cache_dense_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
+                   const VT* __restrict__ v, const float* __restrict__ betas,
+                   float* __restrict__ out, int nb, int Nt, int Ncp, int D, int C, int Cp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kK1Q, c0 = blockIdx.y * kK1C;
+  const int ldq = D + kPad;
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                       // kK1Q x ldq
+  bf16* r_s = q_s + kK1Q * ldq;                                    // 2 x 128 x kK1Ldr
+  float* aff_s = reinterpret_cast<float*>(r_s + 2 * 128 * kK1Ldr); // kK1Q x kK1Lda
+  bf16* w_s = reinterpret_cast<bf16*>(aff_s + kK1Q * kK1Lda);      // (kK1B * kK1Q) x kK1Ldw
+  __shared__ float beta_s[kK1B];
+
+  for (int g = tid; g < kK1Q * (D / 8); g += kK1Threads) {
+    const int r = g / (D / 8), c = (g % (D / 8)) * 8;
+    *reinterpret_cast<uint4*>(q_s + r * ldq + c) = ld16g(f + (size_t)(q0 + r) * D + c);
+  }
+  if (tid < kK1B) beta_s[tid] = betas[tid < nb ? tid : nb - 1];
+
+  const int aq = warp / 8, an = warp % 8;   // this warp's affinity tile
+  const int wm = warp / 2, wn = warp % 2;   // this warp's output tile (beta wm)
+  FragC acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  // feature slice (rows n0 .., columns k0 ..) of the cache into buffer `buf`
+  auto issue_slice = [&](int n0, int k0, int buf) {
+    const int ks = min(kK1Ks, D - k0);
+    bf16* dst = r_s + buf * 128 * kK1Ldr;
+    for (int g = tid; g < kK1N * (ks / 8); g += kK1Threads) {
+      const int r = g / (ks / 8), c = (g % (ks / 8)) * 8;
+      cp_async16(dst + r * kK1Ldr + c, cf + (size_t)(n0 + r) * D + k0 + c);
+    }
+  };
+  int it = 0;            // slices consumed so far; slice `it` lives in buffer it & 1
+  issue_slice(0, 0, 0);
+  cp_async_commit();
+  for (int n0 = 0; n0 < Ncp; n0 += kK1N) {
+    FragC s;
+    wmma::fill_fragment(s, 0.f);
+    for (int k0 = 0; k0 < D; k0 += kK1Ks, ++it) {
+      const int ks = min(kK1Ks, D - k0);
+      // the other buffer was last read before the barrier that ended the
+      // previous slice (or the previous step's w @ V): the next slice may land
+      const bool more_k = k0 + kK1Ks < D, more = more_k || n0 + kK1N < Ncp;
+      if (more) issue_slice(more_k ? n0 : n0 + kK1N, more_k ? k0 + kK1Ks : 0, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait_one();
+      __syncthreads();   // slice `it` landed for all (and q_s, beta_s, first time round)
+      const bf16* c_t = r_s + (it & 1) * 128 * kK1Ldr;
+      for (int kk = 0; kk < ks; kk += 16) {
+        FragA a;
+        FragBc b;
+        wmma::load_matrix_sync(a, q_s + aq * 16 * ldq + k0 + kk, ldq);
+        wmma::load_matrix_sync(b, c_t + an * 16 * kK1Ldr + kk, kK1Ldr);
+        wmma::mma_sync(s, a, b, s);
+      }
+      __syncthreads();   // every warp is done with buffer it & 1
+    }
+    wmma::store_matrix_sync(aff_s + aq * 16 * kK1Lda + an * 16, s, kK1Lda, wmma::mem_row_major);
+    __syncthreads();     // affinities complete
+    bf16* v_s = r_s + ((it - 1) & 1) * 128 * kK1Ldr;   // the buffer just consumed
+    load_values(v_s, v, n0, c0, Cp, tid);
+    for (int idx = tid; idx < kK1Q * kK1N; idx += kK1Threads) {
+      const int qi = idx / kK1N, n = idx % kK1N;
+      const float a = aff_s[qi * kK1Lda + n];
+#pragma unroll
+      for (int b = 0; b < kK1B; ++b)
+        w_s[(b * kK1Q + qi) * kK1Ldw + n] = __float2bfloat16(expf(-beta_s[b] * (1.0f - a)));
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < kK1N; kk += 16) {
+      FragA fa[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], w_s + (wm * 32 + i * 16) * kK1Ldw + kk, kK1Ldw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragBr fb;
+        wmma::load_matrix_sync(fb, v_s + kk * kK1Ldr + wn * 64 + j * 16, kK1Ldr);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+      }
+    }
+    __syncthreads();     // the value buffer and w_s are free for the next step
+  }
+  __syncthreads();       // w_s becomes the warps' f32 staging
+  float* my = reinterpret_cast<float*>(w_s) + warp * 256;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(my, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int qq = q0 + i * 16 + e / 16, c = c0 + wn * 64 + j * 16 + e % 16;
+        if (wm < nb && qq < Nt && c < C) out[((size_t)wm * Nt + qq) * C + c] = my[e];
+      }
+      __syncwarp();
+    }
+}
+
+template <typename VT>
+int launch_cache_dense(const void* f, const void* cf, const void* v, const void* betas,
+                       void* out, int nb, int Nt, int Ntp, int Ncp, int D, int C, int Cp,
+                       cudaStream_t stream) {
+  if (nb < 1 || nb > kK1B || Ntp % kK1Q || Ncp % kK1N || Cp % kK1C || D % 16 || D < 16)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (kK1Q * (D + kPad) + 2 * 128 * kK1Ldr + kK1B * kK1Q * kK1Ldw) * 2
+                   + kK1Q * kK1Lda * 4;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(cache_dense_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  dim3 grid(Ntp / kK1Q, Cp / kK1C);
+  cache_dense_kernel<VT><<<grid, kK1Threads, smem, stream>>>(
+      (const bf16*)f, (const bf16*)cf, (const VT*)v, (const float*)betas, (float*)out, nb, Nt,
+      Ncp, D, C, Cp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -267,6 +459,22 @@ int onehot_grouped_bf16(const void* f, const void* cf, const void* rows_sorted,
       (const bf16*)f, (const bf16*)cf, (const int*)rows_sorted, (const int*)offs,
       (const float*)betas, (float*)out, nb, Nt, D, C);
   return (int)cudaGetLastError();
+}
+
+// f (Ntp, D) with Ntp % 32 == 0; cf (Ncp, D) and v (Ncp, Cp) with Ncp % 128 == 0,
+// Cp % 128 == 0 (zero value rows and columns as padding); nb <= 8 betas;
+// D % 16 == 0 and D <= 1152 (the query tile stays in shared memory).
+int cache_dense_bf16(const void* f, const void* cf, const void* v, const void* betas,
+                     void* out, int nb, int Nt, int Ntp, int Ncp, int D, int C, int Cp,
+                     void* stream) {
+  return launch_cache_dense<bf16>(f, cf, v, betas, out, nb, Nt, Ntp, Ncp, D, C, Cp,
+                                  (cudaStream_t)stream);
+}
+
+int cache_dense_i8(const void* f, const void* cf, const void* v, const void* betas, void* out,
+                   int nb, int Nt, int Ntp, int Ncp, int D, int C, int Cp, void* stream) {
+  return launch_cache_dense<int8_t>(f, cf, v, betas, out, nb, Nt, Ntp, Ncp, D, C, Cp,
+                                    (cudaStream_t)stream);
 }
 
 }  // extern "C"

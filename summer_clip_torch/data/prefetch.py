@@ -1,4 +1,4 @@
-"""Host -> device prefetch for :class:`summer_clip_tpu.data.loader.Batch` streams.
+"""Host -> device prefetch for :class:`summer_clip_torch.data.loader.Batch` streams.
 
 Counterpart of ``summer_clip_tpu.data.loader.prefetch_to_device`` (which
 imports jax): on CUDA each batch's images are copied into pinned host memory
@@ -16,7 +16,7 @@ import typing as tp
 import numpy as np
 import torch
 
-from summer_clip_tpu.data.loader import Batch
+from summer_clip_torch.data.loader import Batch
 
 __all__ = ["to_device", "prefetch_to_device"]
 

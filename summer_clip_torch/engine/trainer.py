@@ -20,8 +20,8 @@ import typing as tp
 import numpy as np
 import torch
 
-from summer_clip_tpu.core import log_utils
-from summer_clip_tpu.core.config import ConfigNode, to_container, to_yaml
+from summer_clip_torch.core import log_utils
+from summer_clip_torch.core.config import ConfigNode, to_container, to_yaml
 
 __all__ = ["BaseTrainer", "run_trainer", "make_logger", "set_random_state", "resolve_device",
            "timed"]

@@ -13,7 +13,7 @@ import typing as tp
 import numpy as np
 import torch
 
-from summer_clip_tpu.models import tokenizer as tokenizer_mod
+from summer_clip_torch.models import tokenizer as tokenizer_mod
 
 __all__ = ["zeroshot_classifier", "accuracy", "compute_accuracy", "clip_logits",
            "label_rank"]

@@ -9,6 +9,8 @@ carries that package's Flax variables (as numpy) across.
 - flax ``kernel`` (in, out) -> torch ``Linear.weight`` (out, in)
 - separate q/k/v projections -> fused ``attn.in_proj_{weight,bias}``
 - flax conv kernel (H, W, I, O) -> torch (O, I, H, W)
+- flax ``batch_stats`` mean/var -> BatchNorm ``running_mean`` / ``running_var``
+- the attention pool's q/k/v/out projections -> ``attnpool.{q,k,v,c}_proj``
 """
 
 from __future__ import annotations
@@ -80,21 +82,56 @@ def _transformer(p: tp.Mapping, prefix: str, out: tp.Dict[str, torch.Tensor]) ->
         _linear(blk["mlp"]["c_proj"], f"{q}.mlp.c_proj", out)
 
 
+def _conv(p: tp.Mapping, prefix: str, out: tp.Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _f32(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+
+def _bn(p: tp.Mapping, stats: tp.Mapping, prefix: str, out: tp.Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _f32(p["scale"])
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+    out[f"{prefix}.running_mean"] = _f32(stats["mean"])
+    out[f"{prefix}.running_var"] = _f32(stats["var"])
+
+
+def _resnet(v: tp.Mapping, stats: tp.Mapping, out: tp.Dict[str, torch.Tensor]) -> None:
+    for i in (1, 2, 3):
+        _conv(v[f"conv{i}"], f"visual.conv{i}", out)
+        _bn(v[f"bn{i}"], stats[f"bn{i}"], f"visual.bn{i}", out)
+    for name in sorted(k for k in v if k.startswith("layer")):
+        stage, blk = name[len("layer"):].split("_")
+        q = f"visual.layer{stage}.{blk}"
+        for i in (1, 2, 3):
+            _conv(v[name][f"conv{i}"], f"{q}.conv{i}", out)
+            _bn(v[name][f"bn{i}"], stats[name][f"bn{i}"], f"{q}.bn{i}", out)
+        if "downsample_conv" in v[name]:
+            _conv(v[name]["downsample_conv"], f"{q}.downsample.0", out)
+            _bn(v[name]["downsample_bn"], stats[name]["downsample_bn"], f"{q}.downsample.1", out)
+    pool = v["attnpool"]
+    out["visual.attnpool.positional_embedding"] = _f32(pool["positional_embedding"])
+    for src, dst in (("q_proj", "q_proj"), ("k_proj", "k_proj"), ("v_proj", "v_proj"),
+                     ("out_proj", "c_proj")):
+        _linear(pool["attn"][src], f"visual.attnpool.{dst}", out)
+
+
 def from_flax_variables(variables: tp.Mapping[str, tp.Any]) -> tp.Dict[str, torch.Tensor]:
-    """JAX package variables ``{'params': ...}`` (numpy leaves) -> OpenAI-layout
-    f32 state dict for :class:`~summer_clip_torch.models.clip.modeling.CLIP`."""
+    """JAX package variables ``{'params': ..., 'batch_stats': ...}`` (numpy
+    leaves; ``batch_stats`` only for ResNet towers) -> OpenAI-layout f32 state
+    dict for :class:`~summer_clip_torch.models.clip.modeling.CLIP`. BatchNorm's
+    ``num_batches_tracked`` counters are not part of it: load with
+    ``strict=False`` or through :func:`load_clip`."""
     params = variables["params"]
     v = params["visual"]
-    if "conv1" not in v or "class_embedding" not in v:
-        raise NotImplementedError("only ViT image towers are ported")
     out: tp.Dict[str, torch.Tensor] = {"logit_scale": _f32(params["logit_scale"])}
-    out["visual.conv1.weight"] = _f32(np.asarray(v["conv1"]["kernel"]).transpose(3, 2, 0, 1))
-    out["visual.class_embedding"] = _f32(v["class_embedding"])
-    out["visual.positional_embedding"] = _f32(v["positional_embedding"])
-    _ln(v["ln_pre"], "visual.ln_pre", out)
-    _ln(v["ln_post"], "visual.ln_post", out)
-    out["visual.proj"] = _f32(v["proj"])
-    _transformer(v["transformer"], "visual.transformer", out)
+    if "class_embedding" in v:
+        _conv(v["conv1"], "visual.conv1", out)
+        out["visual.class_embedding"] = _f32(v["class_embedding"])
+        out["visual.positional_embedding"] = _f32(v["positional_embedding"])
+        _ln(v["ln_pre"], "visual.ln_pre", out)
+        _ln(v["ln_post"], "visual.ln_post", out)
+        out["visual.proj"] = _f32(v["proj"])
+        _transformer(v["transformer"], "visual.transformer", out)
+    else:
+        _resnet(v, variables["batch_stats"]["visual"], out)
     t = params["text"]
     out["token_embedding.weight"] = _f32(t["token_embedding"]["embedding"])
     out["positional_embedding"] = _f32(t["positional_embedding"])
@@ -129,5 +166,9 @@ def load_clip(checkpoint_path: tp.Union[str, Path], dtype: torch.dtype = torch.f
     sd = load_torch_state_dict(checkpoint_path)
     cfg = CLIP_CONFIGS[detect_model_name(sd)]
     model = CLIP(cfg)
-    model.load_state_dict(sd)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise RuntimeError(f"checkpoint does not match {cfg.name}: missing {missing}, "
+                           f"unexpected {list(unexpected)}")
     return model.requires_grad_(False).to_compute(dtype).to(device).eval(), cfg

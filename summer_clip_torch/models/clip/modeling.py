@@ -1,7 +1,7 @@
 """CLIP towers as PyTorch modules: ViT image tower, text tower, CLIP head.
 
-Counterpart of ``summer_clip_tpu/models/clip/modeling.py`` (ViT and text
-towers; the ModifiedResNet tower is not ported yet). Parameters use OpenAI's
+Counterpart of ``summer_clip_tpu/models/clip/modeling.py`` (ViT, ModifiedResNet
+and text towers). Parameters use OpenAI's
 ``clip.load`` key layout (``visual.conv1.weight``,
 ``transformer.resblocks.0.attn.in_proj_weight``, ...), so an OpenAI state dict
 loads directly; :mod:`summer_clip_torch.models.clip.convert` carries the JAX
@@ -15,10 +15,21 @@ Conventions kept from the JAX package:
 - the text tower pools at the argmax token id for token inputs and at
   ``len - 1`` for embeddings (:meth:`TextTransformer.from_embeds`).
 
-Every residual block runs through the fused kernels
-(:func:`~summer_clip_torch.ops.block_kernels.fused_ln_attn`, K5, and
-:func:`~summer_clip_torch.ops.block_kernels.fused_ln_mlp`, K6): the kernels on
-a CUDA tensor, their plain versions on a CPU tensor.
+Each half of a residual block picks its route by what the fused kernels take
+(:func:`~summer_clip_torch.ops.block_kernels.fused_attn_ok`,
+:func:`~summer_clip_torch.ops.block_kernels.fused_mlp_ok`; the JAX package's
+``_fuse_attn_ok`` / ``_fuse_mlp_ok`` give the same outcome for the public
+configs). ViT-B/32, ViT-B/16 and every text tower run K5
+(:func:`~summer_clip_torch.ops.block_kernels.fused_ln_attn`) and K6
+(:func:`~summer_clip_torch.ops.block_kernels.fused_ln_mlp`). The ViT-L/14 and
+ViT-L/14@336px image towers (T = 257 / 577, D = 1024) run ``LayerNormF32 ->
+in_proj -> K4 -> out_proj``
+(:func:`~summer_clip_torch.ops.attention.short_attention_packed`) and
+``LayerNormF32 -> c_fc -> QuickGELU -> c_proj`` with ``torch.matmul``, the
+products the JAX package leaves to XLA there. A kernel that refuses its input
+raises; no route is chosen by catching that. The ModifiedResNet tower uses
+stock ``torch.nn.Conv2d`` and runs none of the hand-written kernels, as it
+runs no Pallas kernel in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,9 +43,11 @@ from torch import nn
 
 from summer_clip_torch.models.clip.configs import CLIP_CONFIGS, CLIPConfig
 from summer_clip_torch.ops import block_kernels as bk
+from summer_clip_torch.ops.attention import mha_reference, multi_head_attention
 
 __all__ = ["LayerNormF32", "Attention", "MLP", "ResidualAttentionBlock", "Transformer",
-           "PatchEmbed", "VisionTransformer", "TextTransformer", "CLIP", "build_clip"]
+           "PatchEmbed", "VisionTransformer", "Bottleneck", "AttentionPool2d",
+           "ModifiedResNet", "TextTransformer", "CLIP", "build_clip"]
 
 
 class LayerNormF32(nn.Module):
@@ -82,11 +95,22 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         a, m = self.attn, self.mlp
-        x = bk.fused_ln_attn(x, self.ln_1.weight, self.ln_1.bias, a.in_proj_weight,
-                             a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
-                             num_heads=a.num_heads, causal=causal, eps=self.ln_1.eps)
-        return bk.fused_ln_mlp(x, self.ln_2.weight, self.ln_2.bias, m.c_fc.weight,
-                               m.c_fc.bias, m.c_proj.weight, m.c_proj.bias, eps=self.ln_2.eps)
+        t, d = x.shape[-2], x.shape[-1]
+        if bk.fused_attn_ok(t, d, a.num_heads):
+            x = bk.fused_ln_attn(x, self.ln_1.weight, self.ln_1.bias, a.in_proj_weight,
+                                 a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
+                                 num_heads=a.num_heads, causal=causal, eps=self.ln_1.eps)
+        else:
+            # q, k, v stay views of the fused projection: K4 reads them in place
+            q, k, v = bk.dense(self.ln_1(x), a.in_proj_weight, a.in_proj_bias).split(d, dim=-1)
+            o = multi_head_attention(q, k, v, num_heads=a.num_heads, causal=causal)
+            x = x + bk.dense(o, a.out_proj.weight, a.out_proj.bias)
+        if bk.fused_mlp_ok(d, m.c_fc.out_features):
+            return bk.fused_ln_mlp(x, self.ln_2.weight, self.ln_2.bias, m.c_fc.weight,
+                                   m.c_fc.bias, m.c_proj.weight, m.c_proj.bias,
+                                   eps=self.ln_2.eps)
+        h = bk.quick_gelu(bk.dense(self.ln_2(x), m.c_fc.weight, m.c_fc.bias))
+        return x + bk.dense(h, m.c_proj.weight, m.c_proj.bias)
 
 
 class Transformer(nn.Module):
@@ -144,6 +168,109 @@ class VisionTransformer(nn.Module):
         return x @ self.proj.to(dtype)
 
 
+class Bottleneck(nn.Module):
+    """ResNet bottleneck with CLIP's anti-aliased downsampling: every stride-2
+    convolution is a stride-1 convolution followed by a 2x2 average pool.
+    Module names follow OpenAI's (``downsample`` holds the pool as ``-1``, the
+    convolution as ``0`` and its BatchNorm as ``1``). NCHW inside the tower."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        out_ch = planes * self.expansion
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.avgpool = nn.AvgPool2d(stride) if stride > 1 else nn.Identity()
+        self.conv3 = nn.Conv2d(planes, out_ch, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(out_ch)
+        self.downsample = None
+        if stride > 1 or inplanes != out_ch:
+            self.downsample = nn.Sequential()
+            self.downsample.add_module("-1", nn.AvgPool2d(stride) if stride > 1 else nn.Identity())
+            self.downsample.add_module("0", nn.Conv2d(inplanes, out_ch, 1, bias=False))
+            self.downsample.add_module("1", nn.BatchNorm2d(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(self.avgpool(y)))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + identity)
+
+
+class AttentionPool2d(nn.Module):
+    """Attention pooling head: the mean token queries the feature map. One
+    query against H*W + 1 keys, so it runs the plain attention (as it runs
+    XLA's in the JAX package), not the short-attention kernel."""
+
+    def __init__(self, tokens: int, embed_dim: int, num_heads: int, output_dim: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.positional_embedding = nn.Parameter(torch.empty(tokens + 1, embed_dim))
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.k_proj = nn.Linear(embed_dim, embed_dim)
+        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.c_proj = nn.Linear(embed_dim, output_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[0], x.shape[1]
+        x = x.flatten(2).transpose(1, 2)                         # (B, HW, C)
+        x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1)   # (B, HW+1, C)
+        x = x + self.positional_embedding.to(x.dtype)
+
+        def split(z):
+            return z.reshape(b, z.shape[1], self.num_heads, c // self.num_heads).transpose(1, 2)
+
+        o = mha_reference(split(self.q_proj(x[:, :1])), split(self.k_proj(x)),
+                          split(self.v_proj(x)))
+        return self.c_proj(o.transpose(1, 2).reshape(b, 1, c))[:, 0]
+
+
+class ModifiedResNet(nn.Module):
+    """CLIP's ResNet: 3-conv stem, blur-pool bottlenecks, attention pool.
+    Input (B, H, W, 3) -> (B, output_dim). BatchNorm uses its running
+    statistics (the model is frozen)."""
+
+    def __init__(self, layers: tp.Sequence[int], output_dim: int, num_heads: int,
+                 image_resolution: int, width: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, width // 2, 3, stride=2, padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(width // 2)
+        self.conv2 = nn.Conv2d(width // 2, width // 2, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(width // 2)
+        self.conv3 = nn.Conv2d(width // 2, width, 3, padding=1, bias=False)
+        self.bn3 = nn.BatchNorm2d(width)
+        self.avgpool = nn.AvgPool2d(2)
+        inplanes = width
+        for stage, (blocks, stride) in enumerate(zip(layers, (1, 2, 2, 2)), start=1):
+            planes = width * 2 ** (stage - 1)
+            stack = [Bottleneck(inplanes, planes, stride)]
+            inplanes = planes * Bottleneck.expansion
+            stack += [Bottleneck(inplanes, planes) for _ in range(1, blocks)]
+            setattr(self, f"layer{stage}", nn.Sequential(*stack))
+        self.attnpool = AttentionPool2d((image_resolution // 32) ** 2, width * 32, num_heads,
+                                        output_dim)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = images.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        x = F.relu(self.bn3(self.conv3(x)))
+        x = self.avgpool(x)
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        return self.attnpool(x)
+
+
+def _norm_param_ids(model: nn.Module) -> tp.Set[int]:
+    """Parameters of LayerNorm and BatchNorm modules: they keep their unit
+    and zero initial values and stay f32 in every compute dtype."""
+    return {id(p) for m in model.modules() if isinstance(m, (LayerNormF32, nn.BatchNorm2d))
+            for p in m.parameters()}
+
+
 class TextTransformer(nn.Module):
     """CLIP text tower with two entries: token ids (pool at the argmax id, the
     <eot> token) or spliced embeddings + lengths (pool at ``len - 1``)."""
@@ -181,14 +308,17 @@ class CLIP(TextTransformer):
     level, as in OpenAI's checkpoints; ``visual`` holds the image tower."""
 
     def __init__(self, cfg: CLIPConfig):
-        if cfg.vision_kind != "vit":
-            raise NotImplementedError(f"{cfg.name}: the ResNet image tower is not ported yet")
         super().__init__(cfg.vocab_size, cfg.context_length, cfg.text_width,
                          cfg.text_layers, cfg.text_heads, cfg.embed_dim)
         self.cfg = cfg
-        self.visual = VisionTransformer(cfg.image_resolution, int(cfg.vision_patch_size),
-                                        cfg.vision_width, int(cfg.vision_layers),
-                                        cfg.vision_heads, cfg.embed_dim)
+        if cfg.vision_kind == "vit":
+            self.visual: nn.Module = VisionTransformer(
+                cfg.image_resolution, int(cfg.vision_patch_size), cfg.vision_width,
+                int(cfg.vision_layers), cfg.vision_heads, cfg.embed_dim)
+        else:
+            self.visual = ModifiedResNet(tuple(cfg.vision_layers), cfg.embed_dim,
+                                         cfg.vision_heads, cfg.image_resolution,
+                                         cfg.vision_width)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
     def init_weights(self, generator: torch.Generator) -> "CLIP":
@@ -198,8 +328,7 @@ class CLIP(TextTransformer):
             with torch.no_grad():
                 p.copy_(torch.randn(p.shape, generator=generator) * std)
 
-        ln_params = {id(p) for m in self.modules() if isinstance(m, LayerNormF32)
-                     for p in m.parameters()}
+        ln_params = _norm_param_ids(self)
         for name, p in self.named_parameters():
             if p.dim() == 0 or id(p) in ln_params:
                 continue                                 # log(1/0.07); LN ones and zeros
@@ -210,7 +339,7 @@ class CLIP(TextTransformer):
                 normal_(p, 0.02)
             elif name == "positional_embedding":
                 normal_(p, 0.01)
-            elif p.dim() == 4:                           # patch conv
+            elif p.dim() == 4:                           # patch conv, ResNet convs
                 normal_(p, p[0].numel() ** -0.5)
             elif name.endswith("weight"):                # Linear / in_proj (out, in)
                 normal_(p, p.shape[1] ** -0.5)
@@ -220,10 +349,10 @@ class CLIP(TextTransformer):
         return self
 
     def to_compute(self, dtype: torch.dtype) -> "CLIP":
-        """Cast every parameter to ``dtype`` except the LayerNorm parameters
-        and ``logit_scale``, which stay f32 (the JAX package's policy)."""
-        keep = {id(p) for m in self.modules() if isinstance(m, LayerNormF32)
-                for p in m.parameters()}
+        """Cast every parameter to ``dtype`` except the LayerNorm and
+        BatchNorm parameters and ``logit_scale``, which stay f32 (the JAX
+        package's policy)."""
+        keep = _norm_param_ids(self)
         keep.add(id(self.logit_scale))
         with torch.no_grad():
             for p in self.parameters():

@@ -23,15 +23,18 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from summer_clip_torch.ops import _lib
 
-__all__ = ["quick_gelu", "ln_f32", "ln_attn_reference", "ln_mlp_reference",
-           "fused_ln_attn", "fused_ln_mlp", "HEAD_DIM", "MAX_T", "MAX_D"]
+__all__ = ["quick_gelu", "ln_f32", "dense", "ln_attn_reference", "ln_mlp_reference",
+           "fused_ln_attn", "fused_ln_mlp", "fused_attn_ok", "fused_mlp_ok",
+           "HEAD_DIM", "MAX_T", "MAX_D", "MLP_WIDTHS"]
 
 HEAD_DIM = 64      # the CUDA attention kernel's head width
 MAX_T = 240        # longest sequence whose q/k/v and score rows fit shared memory
 MAX_D = 1024       # widest row the kernels' LayerNorm holds in registers
+MLP_WIDTHS = (512, 768)   # widths whose c_proj accumulators K6 holds in registers
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ln_attn_heads_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
@@ -44,6 +47,20 @@ def _lib_block():
     return _lib.load("block_kernels", _SIGNATURES)
 
 
+def fused_attn_ok(t: int, d: int, num_heads: int) -> bool:
+    """What K5 takes. The one gate between the fused attention half and the
+    LayerNorm -> in_proj -> short attention (K4) -> out_proj route of a
+    residual block; :func:`fused_ln_attn` raises on the same test."""
+    return (num_heads > 0 and d == num_heads * HEAD_DIM and 0 < t <= MAX_T
+            and d % 128 == 0 and d <= MAX_D)
+
+
+def fused_mlp_ok(d: int, hidden: int) -> bool:
+    """What K6 takes; the gate between the fused MLP half and the plain
+    c_fc -> QuickGELU -> c_proj products. :func:`fused_ln_mlp` raises on it."""
+    return d in MLP_WIDTHS and hidden % 64 == 0
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(1.702 x)`` with the JAX package's rounding: the constant
     and the product in x's dtype, the sigmoid in f32 rounded back."""
@@ -54,13 +71,10 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 def ln_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in f32 with f32 scale and bias, rounded to x's dtype."""
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = (x32 - mean).square().mean(-1, keepdim=True)
-    return ((x32 - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()).to(x.dtype)
+    return F.layer_norm(x.float(), x.shape[-1:], weight.float(), bias.float(), eps).to(x.dtype)
 
 
-def _dense(z: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dense(z: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     # f32-accumulated product rounded to z's dtype, then the bias in that dtype
     return torch.matmul(z, w.to(z.dtype).t()) + b.to(z.dtype)
 
@@ -71,7 +85,7 @@ def ln_attn_reference(x, ln_w, ln_b, in_w, in_b, out_w, out_b, *, num_heads: int
     b, t, d = x.shape
     hd = d // num_heads
     y = ln_f32(x, ln_w, ln_b, eps)
-    q, k, v = _dense(y, in_w, in_b).split(d, dim=-1)
+    q, k, v = dense(y, in_w, in_b).split(d, dim=-1)
 
     def split(z):
         return z.reshape(b, t, num_heads, hd).transpose(1, 2)
@@ -82,14 +96,14 @@ def ln_attn_reference(x, ln_w, ln_b, in_w, in_b, out_w, out_b, *, num_heads: int
         s = s.masked_fill(~keep, -1e30)
     p = torch.softmax(s, dim=-1).to(x.dtype)
     o = torch.matmul(p, split(v)).transpose(1, 2).reshape(b, t, d)
-    return x + _dense(o, out_w, out_b)
+    return x + dense(o, out_w, out_b)
 
 
 def ln_mlp_reference(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b,
                      eps: float = 1e-5) -> torch.Tensor:
     """Plain version of K6: ``x + c_proj(quick_gelu(c_fc(LN_f32(x))))``."""
     y = ln_f32(x, ln_w, ln_b, eps)
-    return x + _dense(quick_gelu(_dense(y, fc_w, fc_b)), proj_w, proj_b)
+    return x + dense(quick_gelu(dense(y, fc_w, fc_b)), proj_w, proj_b)
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
@@ -110,11 +124,9 @@ def fused_ln_attn(x, ln_w, ln_b, in_w, in_b, out_w, out_b, *, num_heads: int,
         return ln_attn_reference(x, ln_w, ln_b, in_w, in_b, out_w, out_b,
                                  num_heads=num_heads, causal=causal, eps=eps)
     b, t, d = x.shape
-    if d != num_heads * HEAD_DIM:
-        raise ValueError(f"K5 kernel needs head dim {HEAD_DIM}; got D={d}, heads={num_heads}")
-    if not 0 < t <= MAX_T or d % 128 or d > MAX_D:
-        raise ValueError(f"K5 kernel takes 0 < T <= {MAX_T}, D % 128 == 0 and D <= {MAX_D}; "
-                         f"got T={t}, D={d}")
+    if not fused_attn_ok(t, d, num_heads):
+        raise ValueError(f"K5 kernel takes head dim {HEAD_DIM}, 0 < T <= {MAX_T}, D % 128 == 0 "
+                         f"and D <= {MAX_D}; got T={t}, D={d}, heads={num_heads}")
     bf = torch.bfloat16
     _require(x, "x", bf, (b, t, d))
     _require(ln_w, "ln_w", torch.float32, (d,))
@@ -147,8 +159,8 @@ def fused_ln_mlp(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, *,
         return ln_mlp_reference(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, eps=eps)
     b, t, d = x.shape
     h = fc_w.shape[0]
-    if d not in (512, 768) or h % 64:
-        raise ValueError(f"K6 kernel takes D in (512, 768) and H % 64 == 0; got D={d}, H={h}")
+    if not fused_mlp_ok(d, h):
+        raise ValueError(f"K6 kernel takes D in {MLP_WIDTHS} and H % 64 == 0; got D={d}, H={h}")
     bf = torch.bfloat16
     _require(x, "x", bf, (b, t, d))
     _require(ln_w, "ln_w", torch.float32, (d,))

@@ -1,7 +1,14 @@
-"""Cache attention ``out[b] = exp(-beta_b * (1 - F @ C^T)) @ V`` (K2, K3).
+"""Cache attention ``out[b] = exp(-beta_b * (1 - F @ C^T)) @ V`` (K1, K2, K3).
 
-Counterpart of ``summer_clip_tpu/ops/cache_kernels.py``. Tip-Adapter's values
-are always ``one_hot(labels)``, so its sweep takes the label-driven kernels:
+Counterpart of ``summer_clip_tpu/ops/cache_kernels.py``.
+
+- :func:`cache_attention` -- K1, any value matrix (bf16, or int8 one-hots
+  converted per tile). CUDA source ``csrc/cache_kernels.cu``
+  (``cache_dense``); replaces the TPU kernel ``cache_attention``
+  (ops/cache_kernels.py:103). CLIP-search's Softmax values take it.
+
+Tip-Adapter's values and CLIP-search's Hard values are ``one_hot(labels)``, so
+their sweeps take the label-driven kernels, which never build the matrix:
 
 - :func:`cache_attention_onehot` -- K3, for class-grouped caches. CUDA source
   ``csrc/cache_kernels.cu`` (``onehot_grouped``); replaces the TPU kernel
@@ -12,11 +19,12 @@ are always ``one_hot(labels)``, so its sweep takes the label-driven kernels:
 
 :func:`cache_attention_from_labels` routes between them by the same test as the
 JAX package (``:678-685``): K3 when every ``block_n``-row cache block spans at
-most ``k_limit`` classes, K2 otherwise. The dense K1 ``cache_attention`` is not
-ported yet: on CUDA a call with values and no labels raises.
+most ``k_limit`` classes, K2 otherwise. :func:`cache_attention_auto` sends a
+call with labels there and a call with values only to K1.
 
 On a CPU tensor the wrappers run their plain PyTorch version
-(:func:`cache_attention_labels_reference`); on a CUDA tensor they launch the
+(:func:`cache_attention_dense_reference`,
+:func:`cache_attention_labels_reference`); on a CUDA tensor they launch the
 kernel or raise. The CUDA kernels take bf16 features (the wrappers cast, as the
 JAX package casts to its compute dtype) and return f32.
 """
@@ -31,14 +39,20 @@ import torch
 
 from summer_clip_torch.ops import _lib
 
-__all__ = ["cache_attention_reference", "cache_attention_labels_reference",
+__all__ = ["cache_attention_reference", "cache_attention_dense_reference",
+           "cache_attention_labels_reference", "cache_attention",
            "cache_attention_onehot", "cache_attention_labels",
            "cache_attention_from_labels", "cache_attention_auto",
            "onehot_block_classes", "onehot_k_max", "class_row_table"]
 
 K3_MAX_BETA = 16   # betas per K3 launch (f32 accumulators held in registers)
+K1_MAX_BETA = 8    # betas per K1 launch (their weight tiles share one affinity tile)
+K1_MAX_D = 1152    # widest feature row whose 32-query tile fits K1's shared memory
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_K1_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
+    "cache_dense_bf16": _K1_ARGS,
+    "cache_dense_i8": _K1_ARGS,
     "labels_dense_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "onehot_grouped_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -59,6 +73,26 @@ def cache_attention_reference(test_features: torch.Tensor, cache_features: torch
     aff = test_features.float() @ cache_features.float().t()
     w = torch.exp(-betas.float().reshape(-1, 1, 1) * (1.0 - aff[None]))
     return torch.einsum("bqn,nc->bqc", w, cache_values.float())
+
+
+def cache_attention_dense_reference(test_features: torch.Tensor,
+                                    cache_features: torch.Tensor,
+                                    cache_values: torch.Tensor, betas: torch.Tensor,
+                                    compute_dtype: torch.dtype = torch.float32
+                                    ) -> torch.Tensor:
+    """Plain version of K1 with its rounding points: features and floating
+    values rounded to ``compute_dtype`` (integer values are exact), the
+    affinity in f32, weights rounded to ``compute_dtype``, ``w @ V`` summed in
+    f32, one beta at a time. With ``compute_dtype=float32`` this is
+    :func:`cache_attention_reference`."""
+    f = test_features.to(compute_dtype).float()
+    c = cache_features.to(compute_dtype).float()
+    v = cache_values
+    v = (v.to(compute_dtype) if v.is_floating_point() else v).float()
+    aff = f @ c.t()
+    outs = [torch.exp(-float(b) * (1.0 - aff)).to(compute_dtype).float() @ v
+            for b in betas.float().reshape(-1).tolist()]
+    return torch.stack(outs)
 
 
 def cache_attention_labels_reference(test_features: torch.Tensor,
@@ -85,7 +119,9 @@ def cache_attention_labels_reference(test_features: torch.Tensor,
 def _pick_block_n_onehot(d_p: int, c_p: int, f_bytes: int,
                          budget_bytes: int = 14 * 1024 * 1024) -> int:
     """The cache block size the JAX package's K3 would pick
-    (``_pick_blocks_onehot``); the K3/K2 route is decided on these blocks."""
+    (``_pick_blocks_onehot``, its candidates and budget). It says nothing
+    about the port's own tiling: it is kept only because the K3/K2 route is
+    defined on these blocks, so both packages route a cache alike."""
     candidates = [
         (128, 1024, 8), (128, 512, 8), (128, 512, 4), (128, 256, 4),
         (128, 256, 2), (128, 128, 2), (128, 128, 1),
@@ -175,6 +211,54 @@ def _cuda_features(test_features: torch.Tensor, cache_features: torch.Tensor,
     return f, cf, nt_p, nc_p, d_p
 
 
+def cache_attention(test_features: torch.Tensor, cache_features: torch.Tensor,
+                    cache_values: torch.Tensor, betas: tp.Any) -> torch.Tensor:
+    """K1: dense cache attention, (B, Nt, C) f32. test (Nt, D), cache (Nc, D),
+    values (Nc, C) floating (rounded to bf16 on CUDA) or int8, any number of
+    betas (launched 8 at a time). Takes any Nt, Nc, C and any D <=
+    ``K1_MAX_D``: features pad with zero columns, the cache with zero value
+    rows, all exact."""
+    if test_features.device.type == "cpu":
+        return cache_attention_dense_reference(test_features, cache_features, cache_values,
+                                               _betas(betas, "cpu"))
+    dev = test_features.device
+    nt, d = test_features.shape
+    nc = cache_features.shape[0]
+    if (not cache_values.is_cuda or cache_values.dim() != 2 or cache_values.shape[0] != nc):
+        raise ValueError(f"cache_values: expected a CUDA tensor of {nc} rows, got "
+                         f"{tuple(cache_values.shape)} on {cache_values.device}")
+    if d > K1_MAX_D:
+        raise ValueError(f"K1 kernel takes D <= {K1_MAX_D}, got {d}")
+    c = cache_values.shape[1]
+    as_int8 = not cache_values.is_floating_point()
+    if as_int8 and cache_values.dtype != torch.int8:
+        raise TypeError(f"integer cache_values must be int8, got {cache_values.dtype}")
+    f, cf, nt_p, nc_p, d_p = _cuda_features(test_features, cache_features, 32, 128)
+    vdtype = torch.int8 if as_int8 else torch.bfloat16
+    c_p = _ceil_to(c, 128)
+    if nc_p == nc and c_p == c and cache_values.dtype == vdtype:
+        v = cache_values.contiguous()
+    else:
+        v = torch.zeros(nc_p, c_p, dtype=vdtype, device=dev)
+        v[:nc, :c] = cache_values
+    bet = _betas(betas, dev)
+    out = torch.empty(bet.shape[0], nt, c, dtype=torch.float32, device=dev)
+    lib = _lib_cache()
+    entry = lib.cache_dense_i8 if as_int8 else lib.cache_dense_bf16
+    stream = _lib.torch_stream()
+    for s in range(0, bet.shape[0], K1_MAX_BETA):
+        chunk = bet[s:s + K1_MAX_BETA].contiguous()
+        view = out[s:s + K1_MAX_BETA]
+        _lib.check(entry(f.data_ptr(), cf.data_ptr(), v.data_ptr(), chunk.data_ptr(),
+                         view.data_ptr(), chunk.shape[0], nt, nt_p, nc_p, d_p, c, c_p, stream),
+                   "cache_dense")
+        cache_attention.launches += 1
+    return out
+
+
+cache_attention.launches = 0
+
+
 def cache_attention_onehot(test_features: torch.Tensor, cache_features: torch.Tensor,
                            cache_labels: tp.Any, betas: tp.Any,
                            num_classes: int) -> torch.Tensor:
@@ -256,13 +340,9 @@ def cache_attention_auto(test_features: torch.Tensor, cache_features: torch.Tens
                          cache_values: torch.Tensor, betas: tp.Any,
                          cache_labels: tp.Optional[tp.Any] = None) -> torch.Tensor:
     """(B, Nt, C) cache logits. With ``cache_labels`` (values known to be
-    ``one_hot(labels)``) the label-driven kernels run; without them the dense
-    K1 kernel would, which is not ported yet (CUDA raises, CPU runs the dense
-    oracle)."""
+    ``one_hot(labels)``) the label-driven kernels run (K3 or K2); without
+    them the dense kernel K1."""
     if cache_labels is not None:
         return cache_attention_from_labels(test_features, cache_features, cache_labels,
                                            betas, int(cache_values.shape[1]))
-    if test_features.device.type != "cpu":
-        raise NotImplementedError("K1 cache_attention not ported yet")
-    return cache_attention_reference(test_features, cache_features, cache_values,
-                                     _betas(betas, test_features.device))
+    return cache_attention(test_features, cache_features, cache_values, betas)

@@ -86,8 +86,10 @@ def test_build_clip_is_seeded_and_keeps_layernorm_f32():
         want = torch.float32 if ("ln_" in n or n == "logit_scale") else torch.bfloat16
         assert p.dtype == want, n
     assert float(a.transformer.resblocks[0].attn.out_proj.bias.abs().max()) == 0.0
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        CLIP(CLIP_CONFIGS["RN50"])
+    rn, _ = build_clip("test-rn", torch.Generator().manual_seed(1), dtype=torch.bfloat16)
+    for n, p in rn.visual.named_parameters():
+        is_norm = ".bn" in f".{n}" or "downsample.1" in n
+        assert p.dtype == (torch.float32 if is_norm else torch.bfloat16), n
 
 
 @pytest.mark.parametrize("k", [1, 5])
