@@ -15,8 +15,10 @@
      8 heads, causal) and the ViT-L/14 text tower (B=256, T=77, D=768, 12
      heads, causal);
    - K4 short_attention_packed at the ViT-L/14 image tower (B=32, T=257,
-     D=1024, 16 heads) and at text shapes (B=256, T=77, D=512, 8 heads,
-     causal), K12 short_attention at (512, 257, 64); for both also
+     D=1024, 16 heads), at text shapes (B=256, T=77, D=512, 8 heads, causal)
+     and, for its f32 variant, at gen_gpt's perplexity shape for T = 512 (B=8,
+     D=1280, 20 heads, causal), K12 short_attention at (512, 257, 64); for
+     both also
      ``F.scaled_dot_product_attention`` on the same q/k/v, timed as the
      library yardstick and used nowhere in the port;
    - K3 onehot_grouped on a class-grouped Tip cache (Nt=8192, Nc=16*1000,
@@ -28,6 +30,18 @@
      beta chunk) with bf16 softmax values and with int8 one-hot values, the
      latter also against K2 on the same labels; K1 once more at the pipeline's
      own size (Nt=1000, Nc=2048);
+   - K7 streamed_qmatmul at every matrix a decoded token of ClipGPT on
+     gpt2-large reads ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280),
+     the head (1280, 49408), the adapters (512, 1024) and (1024, 1280)) with
+     R = 1, 3 (the batched sampler's rows) and 8 rows, int8 and bf16 weights;
+     K10 fused_qmlp at D = 1280, H = 5120 with the same rows, also beside the
+     unfused pair through K7; for both, two runs and a row alone against the
+     same row among others must give the same bits. Both are
+     timed as device time in a CUDA graph over copies of the weights (cold,
+     as a decode loop finds them) and as calls of the wrapper from Python;
+   - K11 flash_attention at (160, 1024, 64) causal, at tq = 128 of tk = 1024
+     with q_offset = 896 and non-causal at T = 577, each in bf16 and in f32,
+     beside ``F.scaled_dot_product_attention``;
    - the ViT-B/16 image (B=32) and text (B=256) towers and the ViT-L/14 image
      tower (24 blocks, B=32) through the kernels against the same blocks
      through the plain versions; RN50's image tower (cuDNN, no kernel of the
@@ -36,7 +50,7 @@
    bytes (inputs read once, outputs written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    cores, 67 TFLOP/s f32).
-4. Drives the two main paths through the apps' entry points with random
+4. Drives the three main paths through the apps' entry points with random
    weights (seed 0), each with every launch count set to 0 just before it and
    read just after:
    - Tip-Adapter at ViT-B/16: save_features -> eval_clip -> tip_adapter on
@@ -46,8 +60,8 @@
      against the f32 model on the CPU.
    - CLIP-search at ViT-L/14, full width and depth: save_features ->
      save_image_outs -> image_attention with Hard and with Softmax values on
-     ``synthetic_1k`` (8 selection strategies, the config's beta and alpha
-     lists). A random text tower scores nearly every image for one class (a
+     ``synthetic_1k`` (8 selection strategies at 3 of the config's 6 cache
+     sizes, the config's beta and alpha lists). A random text tower scores nearly every image for one class (a
      prediction-sorted cache of one class: K3), so image_attention runs twice
      more over pseudo-labels that scatter (cosines to the class means of the
      stored features: K2 for Hard values, K1 for Softmax). Then the same three
@@ -57,7 +71,22 @@
      record's saved predictions against predictions rebuilt from the stored
      arrays and the plain version of the cache logits, and the stored
      ViT-L/14 features and zero-shot scores against the f32 model on the CPU.
-5. Prints a JSON line of the kernels of the main paths (K12 runs on neither,
+   - ClipGPT generation at gpt2-large, full width and depth (36 x 1280, 20
+     heads, CLIP vocabulary 49408, adapters 1024): the model is made from seed
+     0, saved as a trainable-only checkpoint, and served by
+     ``apps.gen_gpt.run`` four times: the int8 tree in the device loop (3
+     prompts x 20 tokens) with the perplexity pass over a (16, 1024) token
+     matrix on the default route, the int8 tree batched (K7 at R = 3), the
+     int8 tree with ``SUMMER_CLIP_FUSED_MLP=1`` (K10), and the perplexity pass
+     with ``ops.attention.FLASH_ENABLED`` on (K11). Checks the launch counts
+     exactly (K7 147 a decoded token, K10 36 a token on the opt-in run, K11
+     2 x 36), the perplexity of the two routes, and then, outside the counted
+     run: each route's greedy picks, and the solo routes' teacher-forced
+     logits, against the plain route of the same int8 tree, host loop ==
+     device loop, the int8 tree's logits against the f32 tree's, the K11
+     route's logits against the plain route's; and prints prefill ms, ms a token, tokens/s and the host's share
+     of a token for each sampler.
+5. Prints a JSON line of the kernels of the main paths (K12 runs on none,
    so it has a line of its own), then as its last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 """
@@ -72,7 +101,7 @@ import tempfile
 import time
 from pathlib import Path
 
-KERNEL_SOURCES = ("block_kernels", "cache_kernels", "attention_kernels")
+KERNEL_SOURCES = ("block_kernels", "cache_kernels", "attention_kernels", "gemv_kernels")
 PEAK_BYTES = 3.35e12      # H100 SXM device memory, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 FLOP/s outside the tensor cores
@@ -105,6 +134,15 @@ MIN_PRED_CHANGED = 0.10
 # Zero-shot scores are cosines; a bf16 text classifier at cosine 0.9998 of the
 # f32 one moves a score by at most sqrt(2 (1 - 0.9998)) = 0.02.
 TOL_OUTS_VS_CPU = 0.02
+# K7 / K10 vs their plain versions: the same exact products (bf16 x int8 or bf16
+# is exact in f32), f32 sums in another order. Relative to the largest output.
+TOL_GEMV_REL = 1e-4
+# K10 also rounds the hidden to bf16 between its products: a hidden that differs
+# in its last f32 bit may round to the neighbouring bf16 value (2^-9 relative),
+# one term of 5120 in an output.
+TOL_QMLP_REL = 1e-3
+# K11 f32 vs the plain f32 softmax: other summation order, expf vs torch's exp.
+TOL_FLASH_F32 = 2e-5
 
 
 def log(msg: str) -> None:
@@ -333,30 +371,36 @@ def check_attention_kernels(results: dict) -> None:
 
     gen = torch.Generator().manual_seed(2)
 
-    def run(name, shape_name, kern, plain, library, b, h, t):
+    def run(name, shape_name, kern, plain, library, b, h, t, f32=False):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         err, mean_err = float(diff.max()), float(diff.mean())
         if not torch.isfinite(got.float()).all():
             raise AssertionError(f"{name} {shape_name}: non-finite output")
+        tol_max, tol_mean = (TOL_FLASH_F32, TOL_FLASH_F32) if f32 else (TOL_ATTN_MAX, TOL_ATTN_MEAN)
         ms, plain_ms, lib_ms = cuda_time_ms(kern, 20), cuda_time_ms(plain, 20), cuda_time_ms(library, 20)
-        log(f"{name:25s} {shape_name:16s}: max|d|={err:.3e} (tol {TOL_ATTN_MAX}) "
-            f"mean|d|={mean_err:.3e} (tol {TOL_ATTN_MEAN}) kernel {ms:.4f} ms plain "
+        log(f"{name:25s} {shape_name:16s}: max|d|={err:.3e} (tol {tol_max}) "
+            f"mean|d|={mean_err:.3e} (tol {tol_mean}) kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms SDPA {lib_ms:.4f} ms")
-        if err > TOL_ATTN_MAX or mean_err > TOL_ATTN_MEAN:
+        if err > tol_max or mean_err > tol_mean:
             raise AssertionError(f"{name} {shape_name}: kernel disagrees with its plain version")
         r = results.setdefault(name, {"max_abs_err": 0.0, "shapes": {}})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if not f32:      # the line's error is the bf16 kernel's; the f32 variant's is logged
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        flops = 4 * b * h * t * t * 64 // (2 if f32 else 1)   # the f32 case is causal
         r["shapes"][shape_name] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err,
-            **bound(4 * b * h * t * 64 * 2, 4 * b * h * t * t * 64)}
+            **(bound(4 * b * h * t * 64 * 4, 0, flops) if f32
+               else bound(4 * b * h * t * 64 * 2, flops))}
 
-    for shape_name, (b, t, d, heads, causal) in {
-            "vit_l14_image": (32, 257, 1024, 16, False),
-            "text_causal": (256, 77, 512, 8, True)}.items():
+    for shape_name, (b, t, d, heads, causal, dtype) in {
+            "vit_l14_image": (32, 257, 1024, 16, False, torch.bfloat16),
+            "text_causal": (256, 77, 512, 8, True, torch.bfloat16),
+            # gen_gpt's perplexity pass over an f32 gpt2-large at T = 512: the f32 variant
+            "gpt2_large_t512_f32": (8, 512, 1280, 20, True, torch.float32)}.items():
         # q, k, v as the tower has them: views of one fused projection
-        q, k, v = _randn((b, t, 3 * d), gen).split(d, dim=-1)
+        q, k, v = _randn((b, t, 3 * d), gen, dtype=dtype).split(d, dim=-1)
 
         def heads_view(x):
             return x.view(b, t, heads, d // heads).transpose(1, 2)
@@ -366,7 +410,7 @@ def check_attention_kernels(results: dict) -> None:
             lambda: at.short_attention_packed_reference(q, k, v, num_heads=heads, causal=causal),
             lambda: F.scaled_dot_product_attention(heads_view(q), heads_view(k), heads_view(v),
                                                    is_causal=causal),
-            b, heads, t)
+            b, heads, t, f32=dtype == torch.float32)
     q, k, v = (_randn((512, 257, 64), gen) for _ in range(3))
     run("K12 short_attention", "vit_l14_image", lambda: at.short_attention(q, k, v),
         lambda: at.mha_reference(q, k, v),
@@ -423,6 +467,215 @@ def check_dense_cache_kernel(results: dict) -> None:
             f"(tol {TOL_K3_VS_K2})")
         if e12 > TOL_K3_VS_K2:
             raise AssertionError("K1 with one-hot values disagrees with K2")
+    torch.cuda.synchronize()
+
+
+GPT2_LARGE_GEMVS = {
+    # name: (K, N) of every matrix a decoded token of ClipGPT on gpt2-large reads
+    "c_attn": (1280, 3840), "c_proj": (1280, 1280), "mlp_c_fc": (1280, 5120),
+    "mlp_c_proj": (5120, 1280), "lm_head": (1280, 49408), "adapter_fc1": (512, 1024),
+    "adapter_fc2": (1024, 1280)}
+
+
+# the third main path's prompts: 10, 5 and 17 tokens with the start token, so
+# one of them prefills through K7 (at most 8 rows) and two take the wide route
+GEN_PROMPTS = ("a photo of a", "a dog", "this is a picture of")
+GEN_NEW_TOKENS = 20
+# rows K7 and K10 are held at: one stream, the batched sampler's rows, the most
+GEMV_ROWS = (1, len(GEN_PROMPTS), 8)
+
+COLD_BYTES = 128 * 1024 * 1024   # distinct weight bytes a timed round walks: over twice the 50 MB L2
+
+
+def graph_time_ms(calls, reps: int = 5) -> float:
+    """Mean device time of one call: ``calls`` captured in order into one CUDA
+    graph, which is replayed ``reps`` times between two events. No host code
+    runs between the launches of a replay, so a kernel of a few microseconds
+    is timed and not the Python of its wrapper."""
+    import torch
+
+    for fn in calls:        # workspaces and libraries exist before the capture
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(calls))
+
+
+def _copies(nbytes: int) -> int:
+    return max(2, -(-COLD_BYTES // nbytes))
+
+
+def _quant_cols(wf):
+    """Per-column int8 of an f32 (K, N) matrix on the card: (q, scale (1, N))."""
+    import torch
+
+    scale = (wf.abs().amax(0, keepdim=True) / 127.0).cuda()
+    return torch.round(wf.cuda() / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def check_gemv_kernels(results: dict) -> None:
+    """K7 at every gpt2-large shape with R = 1, 3 (the batched sampler's rows
+    on the third main path) and 8, int8 and bf16 weights, and K10 at D = 1280,
+    H = 5120 with the same rows, against their plain versions.
+
+    Times are device times from a CUDA graph (:func:`graph_time_ms`) whose
+    launches walk copies of the weights, 128 MB in all, so that every launch
+    reads its matrix from device memory as a decode loop does (a token reads
+    773 MB between two reads of the same matrix). ``eager_ms`` is the time of
+    back-to-back calls of the wrapper from Python, which is the host's time."""
+    import torch
+
+    from summer_clip_torch.ops import gemv
+
+    gen = torch.Generator().manual_seed(4)
+    r7 = results.setdefault("K7 streamed_qmatmul", {"max_abs_err": 0.0, "shapes": {},
+                                                    "library_ms": None})
+    for name, (k, n) in GPT2_LARGE_GEMVS.items():
+        wf = torch.randn((k, n), generator=gen) * k ** -0.5
+        w8, scale = _quant_cols(wf)
+        wb = wf.to("cuda", torch.bfloat16)
+        for wname, w, sc in (("int8", w8, scale), ("bf16", wb, None)):
+            ws = [w] + [w.clone() for _ in range(_copies(w.numel() * w.element_size()) - 1)]
+            for rows in GEMV_ROWS:
+                x = _randn((rows, k), gen, dtype=torch.float32)
+                got, want = gemv.streamed_qmatmul(x, w, sc), gemv.matmul_reference(x, w, sc)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                tol = TOL_GEMV_REL * float(want.abs().max())
+                if not torch.equal(got, gemv.streamed_qmatmul(x, w, sc)):
+                    raise AssertionError(f"K7 {name} R={rows} {wname}: two runs differ")
+                if rows > 1 and not torch.equal(got[:1], gemv.streamed_qmatmul(x[:1], w, sc)):
+                    raise AssertionError(f"K7 {name} {wname}: a row's result depends on the "
+                                         f"rows that ride with it")
+                ms = graph_time_ms([lambda c=c: gemv.streamed_qmatmul(x, c, sc) for c in ws])
+                plain_ms = graph_time_ms([lambda c=c: gemv.matmul_reference(x, c, sc) for c in ws[:8]])
+                eager_ms = cuda_time_ms(lambda: gemv.streamed_qmatmul(x, w, sc), 20)
+                b = bound(w.numel() * w.element_size() + 4 * rows * (k + n) + (4 * n if sc is not None else 0),
+                          2 * rows * k * n)
+                log(f"K7 streamed_qmatmul {name:11s} ({k}, {n}) R={rows} {wname}: max|d|={err:.3e} "
+                    f"(tol {tol:.3e}) kernel {ms:.4f} ms (cold, in a graph; {eager_ms:.4f} ms a call "
+                    f"from Python), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+                    f"{b['bound_by']}")
+                if not torch.isfinite(got).all() or err > tol:
+                    raise AssertionError(f"K7 {name} R={rows} {wname}: kernel disagrees with plain")
+                r7["max_abs_err"] = max(r7["max_abs_err"], err)
+                r7["shapes"][f"{name} R={rows} {wname}"] = {
+                    "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "max_abs_err": err, **b}
+            del ws
+    # one decoded token's 147 int8 products at R = 1: 36 blocks of 4, 2 adapters, the head
+    token = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name in GPT2_LARGE_GEMVS:
+        count = 36 if name in ("c_attn", "c_proj", "mlp_c_fc", "mlp_c_proj") else 1
+        for key in token:
+            token[key] += count * r7["shapes"][f"{name} R=1 int8"][key]
+    r7["shapes"]["token R=1 int8"] = {**token, "bound_by": "bytes", "max_abs_err": r7["max_abs_err"]}
+    log(f"K7 one token (147 products, R=1, int8): kernels {token['ms']:.4f} ms on the device, "
+        f"{token['eager_ms']:.4f} ms called from Python, plain {token['plain_ms']:.4f} ms, bound "
+        f"{token['bound_ms']:.4f} ms by bytes")
+
+    d, h = 1280, 5120
+    r10 = results.setdefault("K10 fused_qmlp", {"max_abs_err": 0.0, "shapes": {},
+                                                "library_ms": None})
+    w1, s1 = _quant_cols(torch.randn((d, h), generator=gen) * d ** -0.5)
+    w2, s2 = _quant_cols(torch.randn((h, d), generator=gen) * h ** -0.5)
+    b1, b2 = _randn((h,), gen, 0.1, torch.float32), _randn((d,), gen, 0.1, torch.float32)
+    pairs = [(w1, w2)] + [(w1.clone(), w2.clone()) for _ in range(_copies(2 * d * h) - 1)]
+
+    def unfused(x, a, b):   # the pair through K7, as the block runs it without the opt-in
+        hidden = torch.nn.functional.gelu(gemv.streamed_qmatmul(x, a, s1) + b1, approximate="tanh")
+        return gemv.streamed_qmatmul(hidden, b, s2) + b2
+
+    for rows in GEMV_ROWS:
+        x = _randn((rows, d), gen, dtype=torch.float32)
+        got = gemv.fused_qmlp(x, w1, s1, b1, w2, s2, b2)
+        want = gemv.fused_qmlp_reference(x, w1, s1, b1, w2, s2, b2)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = TOL_QMLP_REL * float(want.abs().max())
+        if not torch.equal(got, gemv.fused_qmlp(x, w1, s1, b1, w2, s2, b2)):
+            raise AssertionError(f"K10 R={rows}: two runs differ")
+        if rows > 1 and not torch.equal(got[:1], gemv.fused_qmlp(x[:1], w1, s1, b1, w2, s2, b2)):
+            raise AssertionError("K10: a row's result depends on the rows that ride with it")
+        ms = graph_time_ms([lambda a=a, b=b: gemv.fused_qmlp(x, a, s1, b1, b, s2, b2) for a, b in pairs])
+        plain_ms = graph_time_ms([lambda a=a, b=b: gemv.fused_qmlp_reference(x, a, s1, b1, b, s2, b2)
+                                  for a, b in pairs[:4]])
+        pair_ms = graph_time_ms([lambda a=a, b=b: unfused(x, a, b) for a, b in pairs])
+        eager_ms = cuda_time_ms(lambda: gemv.fused_qmlp(x, w1, s1, b1, w2, s2, b2), 20)
+        b = bound(2 * d * h + 4 * (2 * rows * d + 2 * h + 2 * d), 4 * rows * d * h)
+        log(f"K10 fused_qmlp D={d} H={h} R={rows}: max|d|={err:.3e} (tol {tol:.3e}) kernel "
+            f"{ms:.4f} ms (cold, in a graph; {eager_ms:.4f} ms a call from Python), plain "
+            f"{plain_ms:.4f} ms, the unfused K7 pair {pair_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"by {b['bound_by']}")
+        if not torch.isfinite(got).all() or err > tol:
+            raise AssertionError(f"K10 R={rows}: kernel disagrees with its plain version")
+        r10["max_abs_err"] = max(r10["max_abs_err"], err)
+        r10["shapes"][f"R={rows}"] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                                      "k7_pair_ms": pair_ms, "max_abs_err": err, **b}
+    torch.cuda.synchronize()
+
+
+def check_flash_kernels(results: dict) -> None:
+    """K11 at the perplexity pass's shape (BH = 8 x 20, T = 1024, causal) in bf16
+    and f32, at a chunked-prefill shape (tq = 128 of tk = 1024 at q_offset 896)
+    and non-causal at T = 577, against its plain version and beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from summer_clip_torch.ops import attention as at
+
+    gen = torch.Generator().manual_seed(5)
+    r = results.setdefault("K11 flash_attention", {"max_abs_err": 0.0, "shapes": {}})
+    cases = {
+        "ppl_causal_bf16": (160, 1024, 1024, True, 0, torch.bfloat16),
+        "ppl_causal_f32": (160, 1024, 1024, True, 0, torch.float32),
+        "chunked_prefill_bf16": (160, 128, 1024, True, 896, torch.bfloat16),
+        "chunked_prefill_f32": (160, 128, 1024, True, 896, torch.float32),
+        "vit_l14_336_bf16": (160, 577, 577, False, 0, torch.bfloat16),
+        "vit_l14_336_f32": (160, 577, 577, False, 0, torch.float32)}
+    for name, (bh, tq, tk, causal, off, dtype) in cases.items():
+        q = _randn((bh, tq, 64), gen, dtype=dtype)
+        k, v = _randn((bh, tk, 64), gen, dtype=dtype), _randn((bh, tk, 64), gen, dtype=dtype)
+        bias = at._causal_bias(tq, tk, off, device="cuda") if causal else None
+        kern = lambda: at.flash_attention(q, k, v, causal=causal, q_offset=off)              # noqa: E731
+        plain = lambda: at.flash_attention_reference(q, k, v, causal=causal, q_offset=off)   # noqa: E731
+        q4, k4, v4 = q[None], k[None], v[None]      # (1, heads, T, 64), SDPA's layout
+        if causal and tq == tk:
+            lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)   # noqa: E731
+        else:
+            lib = lambda: F.scaled_dot_product_attention(                              # noqa: E731
+                q4, k4, v4, attn_mask=None if bias is None else bias.to(dtype))
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err, mean_err = float(diff.max()), float(diff.mean())
+        ms, plain_ms, lib_ms = cuda_time_ms(kern, 5), cuda_time_ms(plain, 3), cuda_time_ms(lib, 5)
+        seen = tq * tk if not causal else sum(min(tk, off + i + 1) for i in range(tq))
+        flops = 4 * bh * seen * 64
+        itemsize = q.element_size()
+        b = (bound(itemsize * bh * 64 * (2 * tq + 2 * tk), flops) if dtype == torch.bfloat16
+             else bound(itemsize * bh * 64 * (2 * tq + 2 * tk), 0, flops))
+        tol_max, tol_mean = ((TOL_ATTN_MAX, TOL_ATTN_MEAN) if dtype == torch.bfloat16
+                             else (TOL_FLASH_F32, TOL_FLASH_F32))
+        log(f"K11 flash_attention {name:22s} BH={bh} tq={tq} tk={tk} causal={causal} "
+            f"q_offset={off}: max|d|={err:.3e} (tol {tol_max}) mean|d|={mean_err:.3e} kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms SDPA {lib_ms:.4f} ms bound {b['bound_ms']:.4f} "
+            f"ms by {b['bound_by']}")
+        if not torch.isfinite(got.float()).all() or err > tol_max or mean_err > tol_mean:
+            raise AssertionError(f"K11 {name}: kernel disagrees with its plain version")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["shapes"][name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "max_abs_err": err, **b}
     torch.cuda.synchronize()
 
 
@@ -524,8 +777,11 @@ def launch_counters():
     from summer_clip_torch.ops import attention as at
     from summer_clip_torch.ops import block_kernels as bk
     from summer_clip_torch.ops import cache_kernels as ck
+    from summer_clip_torch.ops import gemv
 
-    return {"K1 cache_dense": ck.cache_attention,
+    return {"K7 streamed_qmatmul": gemv.streamed_qmatmul, "K10 fused_qmlp": gemv.fused_qmlp,
+            "K11 flash_attention": at.flash_attention,
+            "K1 cache_dense": ck.cache_attention,
             "K2 labels_dense": ck.cache_attention_labels,
             "K3 onehot_grouped": ck.cache_attention_onehot,
             "K4 short_attention_packed": at.short_attention_packed,
@@ -739,6 +995,10 @@ def check_search_predictions(run_root: Path, store: Path, ds: str, tag: str,
     return {"agree_min": worst, "changed_max": changed, "records": n}
 
 
+SEARCH_STRATEGIES = ("topk", "topk_prob", "topk_per_gold", "topk_prob_per_gold",
+                     "per_pred_class_random", "per_gold_class_random", "global_random")
+
+
 def run_clip_search(work: Path) -> dict:
     """CLIP-search at ViT-L/14 on ``synthetic_1k``: save_features ->
     save_image_outs -> image_attention with Hard, then Softmax values; then
@@ -755,9 +1015,15 @@ def run_clip_search(work: Path) -> dict:
              "run_saves.save_preds=true"]
     scattered = {}
 
+    # depth cut: 3 of the 6 cache sizes of each selection strategy (the widths,
+    # the strategies, the value settings and the (beta, alpha) grid are whole)
+    sizes = [f"cache_strategies.{name}.topk=[1,4,32]" for name in SEARCH_STRATEGIES]
+    log(f"clip_search: each of the {len(SEARCH_STRATEGIES)} selection strategies runs at cache "
+        f"sizes 1, 4, 32 (the config has 1, 2, 4, 8, 16, 32), to keep the script short")
+
     def search(ds: str, name: str, outs_key: str, value: str, extra=()):
         return (f"image_attention_{ds}_{name}", image_attention.run,
-                [f"dataset_name={ds}", "dataset=synthetic_test", f"dataset.dataset={ds}",
+                [*sizes, f"dataset_name={ds}", "dataset=synthetic_test", f"dataset.dataset={ds}",
                  "dataset.load_images=false", "dataset@cache.dataset=synthetic_train",
                  f"cache.dataset.dataset={ds}", "cache.dataset.load_images=false",
                  f"data.features_key={ds}_test-{tag}", f"cache.features_key={ds}_train-{tag}",
@@ -792,8 +1058,8 @@ def run_clip_search(work: Path) -> dict:
     if scattered["classes"] < 500:
         raise AssertionError("prototype pseudo-labels do not scatter")
 
-    # 7 strategies x 6 cache sizes + all_logits, x value settings x 8 betas x 7 alphas
-    selections, betas, alphas = 7 * 6 + 1, 8, 7
+    # 7 strategies x 3 cache sizes + all_logits, x value settings x 8 betas x 7 alphas
+    selections, betas, alphas = len(SEARCH_STRATEGIES) * 3 + 1, 8, 7
     for sub, n_values, outs_key in (
             ("image_attention_synthetic_1k_hard_cache", 1, outs_1k),
             ("image_attention_synthetic_1k_softmax_cache", 3, None),
@@ -837,6 +1103,379 @@ def run_clip_search(work: Path) -> dict:
     return {"times_s": times, "store": store}
 
 
+GEN_MODEL_CFG = {"gpt_config": "gpt2-large", "clip_emb_dim": 512,
+                 "adapters": {"emb_hid_dim": 1024, "head_hid_dim": 1024}}
+# perplexity of the flash route against the plain route: the same f32 math,
+# sums in another order
+TOL_PPL_REL = 1e-3
+# ... and their logits: K11 f32 differs from the plain softmax by ~2e-6 a call
+# (sums in another order), carried through 36 blocks of f32 products
+TOL_FLASH_LOGITS_REL = 1e-3
+# greedy logits of the int8 tree against the f32 tree (weight-only int8, ~0.4%
+# relative error a matrix): reported, gated only at this cosine
+MIN_INT8_COSINE = 0.99
+# Greedy ids of two routes of one int8 tree. Each of a token's 147 products
+# rounds its input to bf16, and an input that differs in its last f32 bit
+# between two routes (sums in another order) may round to the neighbouring
+# bf16 value (2^-9 relative). tools/torch_gen_gpt_routes.py follows one decode
+# step block by block: the first rounding flips in block 2, from block 5 on
+# some 500 of a block's 1280 inputs round differently, and the routes' logits
+# end 4.5e-3 of their spread (best minus mean) apart, while K7 alone stays at
+# 1e-6 of the plain version whenever both get the same input. The weights are
+# random, so a step's logits are nearly flat, and two tokens may tie to within
+# that. So equality of the ids is reported, and two readings are gated, each
+# set between what the routes read and what a planted fault reads (one
+# 128-column tile of one block's c_proj scaled by zero; same tool):
+# - a route's picks, teacher forced against the plain route's logits: a pick
+#   may miss the plain route's best by this share of the row's spread (routes
+#   read 0 to 3.3e-3 over two sets of weights, the fault 1.4e-2);
+TOL_GREEDY_TIE = 7e-3
+# - the kernel route's own teacher-forced logits, centred, against the plain
+#   route's, as a share of the same spread (routes 4.5e-3, the fault 7.1e-2).
+TOL_GREEDY_LOGITS = 2e-2
+
+
+def _gen_results(run_dir: Path) -> dict:
+    import yaml
+
+    path, = run_dir.rglob("results.yaml")
+    return yaml.safe_load(path.read_text())
+
+
+def _device_kernels_ms(fn) -> dict:
+    """Device time by kernel name (ms) of one call, from a ``torch.profiler``
+    trace of it; empty where the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:   # host events cost seconds a trace
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:   # an operator's entry repeats its kernels' time
+            continue
+        us = float(getattr(ev, "self_device_time_total", 0.0)
+                   or getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            out[ev.key] = out.get(ev.key, 0.0) + us / 1e3
+    return out
+
+
+def _wall_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_gen_gpt(work: Path, launches_of) -> dict:
+    """The third main path: ClipGPT on gpt2-large (36 x 1280, 20 heads, CLIP
+    vocabulary 49408), random weights from seed 0 (drawn on the host, held on
+    the card), saved as a trainable-only checkpoint and served by ``apps.gen_gpt.run``: int8 device
+    loop with the perplexity pass on the default route, int8 batched, int8 with
+    the fused-MLP opt-in, and the perplexity pass with the flash switch on.
+    ``launches_of()`` reads the launch counts; each run's own are differences."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.apps import gen_gpt
+    from summer_clip_torch.models.tokenizer import get_tokenizer
+    from summer_clip_torch.ops import attention as at
+
+    tok = get_tokenizer()
+    model = gen_gpt.build_clip_gpt(GEN_MODEL_CFG, tok.vocab_size, 0)
+    if not model.clip_emb.is_cuda:
+        raise AssertionError("build_clip_gpt did not pick the card")
+    ckpt_dir = gen_gpt.save_clip_gpt_checkpoint(work / "ckpt", model, GEN_MODEL_CFG, 0, step=0)
+    del model
+    torch.cuda.empty_cache()
+    val = work / "val_tokens.npy"
+    work.mkdir(parents=True, exist_ok=True)
+    np.save(val, np.random.default_rng(0).integers(0, tok.vocab_size, (16, 1024)))
+    prompts = "prompts=[" + ",".join(f'"{p}"' for p in GEN_PROMPTS) + "]"
+    common = [f"model.checkpoint_dir={ckpt_dir}", f"generation.max_new_tokens={GEN_NEW_TOKENS}",
+              "generation.top_k=1"]
+    int8 = common + ["generation.quant_int8=true", prompts]
+    n_prompt = [1 + len(tok.encode(p)) for p in GEN_PROMPTS]
+    layers, steps = 36, GEN_NEW_TOKENS - 1          # decode forwards after the prefill
+    per_token = 4 * layers + 2 + 1                  # K7 a decoded token: blocks, adapters, head
+    per_token_fused = 2 * layers + 2 + 1
+
+    def prefill_k7(fused: bool) -> int:              # prompts of <= 8 tokens prefill through K7
+        return sum((2 if fused else 4) * layers + 2 for n in n_prompt if n <= 8)
+
+    times, deltas = {}, {}
+
+    def run(name, argv, env=None, flash=False):
+        before = launches_of()
+        old_env = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        at.FLASH_ENABLED = flash
+        try:
+            times.update(run_apps([(name, gen_gpt.run, argv)], work))
+        finally:
+            at.FLASH_ENABLED = False
+            for k, v in old_env.items():
+                os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
+        torch.cuda.synchronize()
+        after = launches_of()
+        deltas[name] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        log(f"gen_gpt {name}: {times[name]:.2f} s, launches {json.dumps(deltas[name])}")
+        return _gen_results(work / name)
+
+    res = {
+        "int8_device": run("int8_device", int8 + [f"val.tokens_path={val}"]),
+        "int8_batched": run("int8_batched", int8 + ["generation.batched=true"]),
+        "int8_fused_mlp": run("int8_fused_mlp", int8, env={"SUMMER_CLIP_FUSED_MLP": "1"}),
+        "ppl_flash": run("ppl_flash", common + ["prompts=[]", f"val.tokens_path={val}"], flash=True),
+    }
+    want = {
+        "int8_device": {"K7 streamed_qmatmul": prefill_k7(False) + 3 * steps * per_token},
+        "int8_batched": {"K7 streamed_qmatmul": steps * per_token},
+        "int8_fused_mlp": {"K7 streamed_qmatmul": prefill_k7(True) + 3 * steps * per_token_fused,
+                           "K10 fused_qmlp": layers * (sum(n <= 8 for n in n_prompt) + 3 * steps)},
+        "ppl_flash": {"K11 flash_attention": 2 * layers},
+    }
+    for name, expected in want.items():
+        if deltas[name] != expected:
+            raise AssertionError(f"gen_gpt {name}: launches {deltas[name]}, expected {expected} "
+                                 f"({per_token} K7 a decoded token, {layers} K10 a token with the "
+                                 f"opt-in, 2 x {layers} K11 on the perplexity pass)")
+    for name in ("int8_device", "int8_batched", "int8_fused_mlp"):
+        gens = res[name]["generations"]
+        if len(gens) != 3 or any(len(g["ids"]) != n + GEN_NEW_TOKENS and tok.eot_token not in g["ids"]
+                                 for g, n in zip(gens, n_prompt)):
+            raise AssertionError(f"gen_gpt {name}: bad generations {gens}")
+    ppl_plain, ppl_flash = res["int8_device"]["perplexity"], res["ppl_flash"]["perplexity"]
+    rel = abs(ppl_flash - ppl_plain) / ppl_plain
+    log(f"gen_gpt perplexity over (16, 1024) random tokens: plain route {ppl_plain:.4f}, K11 route "
+        f"{ppl_flash:.4f}, relative difference {rel:.3e} (tol {TOL_PPL_REL})")
+    if not (np.isfinite(ppl_plain) and np.isfinite(ppl_flash)) or rel > TOL_PPL_REL:
+        raise AssertionError("perplexity of the K11 route disagrees with the plain route")
+    return {"times_s": times, "results": res, "deltas": deltas, "ckpt_dir": ckpt_dir,
+            "common": common, "int8": int8, "n_prompt": n_prompt}
+
+
+def _greedy_margin(qmodel, table, ids, n_prompt: int, stepwise: bool = False) -> tuple:
+    """How far a route's greedy picks are from the plain route's, teacher
+    forced: the whole sequence goes through the int8 tree in one forward (more
+    than 8 rows, so every product is the plain version, and the hoisted int8
+    head table through its plain version too). For every generated token:
+    the plain route's best logit minus its logit of the token picked, as a
+    share of the row's spread (best minus mean). (largest share, picks that
+    are not the plain route's argmax, logit share). With ``stepwise`` the
+    sequence also goes token by token through the cache as the device loop
+    runs it (one row: K7, and K10 under its opt-in), and the logit share is the
+    largest |d| of those logits, centred, against the plain route's, as a
+    share of the same spread; else None."""
+    import torch
+
+    from summer_clip_torch.ops import gemv
+
+    with torch.inference_mode():
+        x = torch.tensor([ids[:-1]], device="cuda")
+        hidden = qmodel(x, compute_logits=False)["hidden"][0, n_prompt - 1:]
+        logits = gemv.matmul_reference(hidden, table.q, table.scale)
+        picked = logits.gather(-1, torch.tensor(ids[n_prompt:], device="cuda")[:, None])[:, 0]
+        best = logits.max(-1).values
+        spread = best - logits.mean(-1)
+        share = (best - picked) / spread
+        logit_share = None
+        if stepwise:
+            out = qmodel(x[:, :n_prompt], position_offset=0, cache=qmodel.init_cache(1, len(ids)),
+                         compute_logits=False)
+            rows = [gemv.qdot(out["hidden"][:, -1, :], table, torch.float32)[0]]
+            for pos in range(n_prompt, len(ids) - 1):
+                out = qmodel(x[:, pos:pos + 1], position_offset=pos, cache=out["cache"],
+                             compute_logits=False)
+                rows.append(gemv.qdot(out["hidden"][:, -1, :], table, torch.float32)[0])
+            own = torch.stack(rows)
+            d = (own - own.mean(-1, keepdim=True)) - (logits - logits.mean(-1, keepdim=True))
+            logit_share = float((d.abs().amax(-1) / spread).max())
+    return float(share.max()), int((share > 0).sum()), logit_share
+
+
+def check_gen_gpt(gen: dict) -> None:
+    """What the kernel route gave, held against other routes of the same
+    model (outside the counted run, on one more copy of the model): the int8
+    tree through the plain versions (``SUMMER_CLIP_GEMV=0`` and teacher
+    forced), the host loop against the device loop, the int8 tree's logits
+    against the f32 tree's, the K11 route's logits against the plain route's;
+    and the time of a token."""
+    import os
+
+    import torch
+
+    from summer_clip_torch.apps import gen_gpt
+    from summer_clip_torch.engine.quant import quant_head_table, quantize_tree
+    from summer_clip_torch.models.tokenizer import get_tokenizer
+    from summer_clip_torch.ops import attention as at
+    from summer_clip_torch.ops import gemv
+
+    t0 = time.perf_counter()
+    laps = {}
+
+    def lap(name):           # seconds since the last lap, for the phase line
+        laps[name] = round(time.perf_counter() - t0 - sum(laps.values()), 2)
+
+    tok = get_tokenizer()
+    model = gen_gpt.load_pretrained_clip_gpt(gen["ckpt_dir"], tok)
+    qmodel = model.with_tree(quantize_tree(model.tree())).eval()
+    table = quant_head_table(qmodel)
+    all_ids = [[tok.sot_token] + tok.encode(p) for p in GEN_PROMPTS]
+    ids = all_ids[0]
+    greedy = dict(max_new_tokens=GEN_NEW_TOKENS, top_k=1, eot_id=tok.eot_token)
+
+    lap("load and quantise")
+    os.environ["SUMMER_CLIP_GEMV"] = "0"
+    try:
+        before = gemv.streamed_qmatmul.launches
+        plain_ids = [gen_gpt.generate_device(qmodel, p, quant_int8=True, **greedy) for p in all_ids]
+        if gemv.streamed_qmatmul.launches != before:
+            raise AssertionError("SUMMER_CLIP_GEMV=0 still launched K7")
+    finally:
+        del os.environ["SUMMER_CLIP_GEMV"]
+    routes = {name: [g["ids"] for g in gen["results"][name]["generations"]]
+              for name in ("int8_device", "int8_batched", "int8_fused_mlp")}
+    # K7 gives a row the same bits at R = 3 as at R = 1 (check_gemv_kernels), so
+    # the batched route's arithmetic is the solo route's and its logits are not
+    # walked again
+    stepwise = {"int8_device": {}, "int8_fused_mlp": {"SUMMER_CLIP_FUSED_MLP": "1"}}
+    for name, route_ids in routes.items():
+        same = sum(a == b for seq, ref in zip(route_ids, plain_ids) for a, b in zip(seq, ref))
+        total = sum(len(seq) for seq in route_ids)
+        worst, off, worst_logits = 0.0, 0, None
+        os.environ.update(stepwise.get(name, {}))
+        try:
+            before = gemv.fused_qmlp.launches
+            for seq, n in zip(route_ids, gen["n_prompt"]):
+                share, n_off, logit_share = _greedy_margin(qmodel, table, seq, n, name in stepwise)
+                worst, off = max(worst, share), off + n_off
+                if logit_share is not None:
+                    worst_logits = max(worst_logits or 0.0, logit_share)
+            if (name == "int8_fused_mlp") != (gemv.fused_qmlp.launches > before):
+                raise AssertionError(f"{name}: the teacher-forced walk took the wrong MLP route")
+        finally:
+            for k in stepwise.get(name, {}):
+                del os.environ[k]
+        log(f"gen_gpt greedy ids, int8 tree, {name}: equal to the plain route's "
+            f"(SUMMER_CLIP_GEMV=0): {route_ids == plain_ids} ({same} of {total} ids); teacher forced "
+            f"through the plain route, {off} picks are not its argmax, the farthest by "
+            f"{worst:.3e} of the row's logit spread (tol {TOL_GREEDY_TIE})"
+            + ("" if worst_logits is None else
+               f"; the route's own teacher-forced logits lie up to {worst_logits:.3e} of the spread "
+               f"from the plain route's (tol {TOL_GREEDY_LOGITS})"))
+        if worst > TOL_GREEDY_TIE or (worst_logits or 0.0) > TOL_GREEDY_LOGITS:
+            raise AssertionError(f"{name}: the kernel route disagrees with the plain route "
+                                 f"beyond what the order of the sums explains")
+
+    lap("greedy routes")
+    dev = gen_gpt.generate_device(model, ids, **greedy)
+    host = gen_gpt.generate(model, ids, **greedy)
+    log(f"gen_gpt f32 tree, one prompt: host loop ids == device loop ids: {dev == host}")
+    if dev != host:
+        raise AssertionError(f"host loop ids {host} != device loop ids {dev}")
+
+    with torch.inference_mode():
+        x = torch.tensor([ids], device="cuda")
+        lf = model(x)["logits"][0, -1]
+        lq = qmodel(x)["logits"][0, -1]
+        cos = float(torch.nn.functional.cosine_similarity(lf, lq, dim=0))
+    log(f"gen_gpt int8 tree against f32 tree, last-position logits of one prompt: cosine {cos:.6f} "
+        f"(reported; gated at >= {MIN_INT8_COSINE}), argmax equal: {int(lf.argmax()) == int(lq.argmax())}")
+    if cos < MIN_INT8_COSINE:
+        raise AssertionError("int8 logits disagree with f32 logits")
+
+    lap("host loop, cosine")
+    # one batch of the perplexity pass (8 x 1024 tokens, f32 tree) on either route
+    batch = torch.randint(0, tok.vocab_size, (8, 1024), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(0))
+    ppl_ms, logits = {}, {}
+    with torch.inference_mode():
+        model(batch)                                      # warm-up
+        for route, flash in (("plain", False), ("K11", True)):
+            at.FLASH_ENABLED = flash
+            try:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                logits[route] = model(batch)["logits"]
+                end.record()
+                torch.cuda.synchronize()
+                ppl_ms[route] = start.elapsed_time(end)
+            finally:
+                at.FLASH_ENABLED = False
+        # the perplexity of random weights is ln V whatever attention does, so
+        # the two routes are also held logit by logit, centred over the vocabulary
+        centred = {k: v - v.mean(-1, keepdim=True) for k, v in logits.items()}
+        err = float((centred["K11"] - centred["plain"]).abs().max())
+        spread = float(centred["plain"].abs().max())
+    log("gen_gpt perplexity pass, one (8, 1024) batch through the f32 tree with its logits: "
+        + ", ".join(f"{k} route {v:.2f} ms" for k, v in ppl_ms.items())
+        + f" (36 attention calls of (160, 1024, 64) f32 in each); logits of the K11 route against "
+          f"the plain route: max|d| {err:.3e} of a largest centred logit {spread:.3e} "
+          f"(tol {TOL_FLASH_LOGITS_REL} of it)")
+    if not err <= TOL_FLASH_LOGITS_REL * spread:
+        raise AssertionError("logits of the K11 route disagree with the plain route")
+    del model, batch, logits, centred
+    torch.cuda.empty_cache()
+
+    lap("perplexity batch")
+    # the time of a token: the samplers called as the app calls them. A call
+    # for 1 new token is the prefill, the head table and one pick; a call for
+    # 20 adds 19 decode steps, so the difference is the decode steps alone.
+    with torch.inference_mode():
+        cache = qmodel.init_cache(1, len(ids) + GEN_NEW_TOKENS)
+        prefill = lambda: qmodel(torch.tensor([ids], device="cuda"), position_offset=0,  # noqa: E731
+                                 cache=[dict(c, index=0) for c in cache])
+        prefill_ms = cuda_time_ms(prefill, 3, 1)
+    log(f"gen_gpt prefill of {len(ids)} tokens on the int8 tree (more than 8 rows: the plain "
+        f"route, no kernel of the port): {prefill_ms:.3f} ms")
+    kw = dict(top_k=1, quant_int8=True)
+    cases = {
+        "int8 device loop": (1, {}, lambda n: gen_gpt.generate_device(
+            qmodel, ids, max_new_tokens=n, **kw)),
+        "int8 batched, 3 rows": (3, {}, lambda n: gen_gpt.generate_device_batched(
+            qmodel, all_ids, max_new_tokens=n, **kw)),
+        "int8 device loop, fused-MLP opt-in (K10)": (
+            1, {"SUMMER_CLIP_FUSED_MLP": "1"},
+            lambda n: gen_gpt.generate_device(qmodel, ids, max_new_tokens=n, **kw)),
+    }
+    steps = GEN_NEW_TOKENS - 1
+    for name, (rows, env, fn) in cases.items():
+        os.environ.update(env)
+        try:
+            fn(GEN_NEW_TOKENS)
+            wall = (_wall_ms(lambda: fn(GEN_NEW_TOKENS)) - _wall_ms(lambda: fn(1))) / steps
+            long, short = (_device_kernels_ms(lambda: fn(GEN_NEW_TOKENS)),
+                           _device_kernels_ms(lambda: fn(1)))
+        finally:
+            for k in env:
+                del os.environ[k]
+        by_kernel = {k: (v - short.get(k, 0.0)) / steps for k, v in long.items()}
+        dev_ms = sum(by_kernel.values())
+        if not long:
+            log(f"gen_gpt {name}: {wall:.3f} ms a decode step, {rows / wall * 1e3:.1f} tokens/s; "
+                f"device time not measured (the profiler saw none)")
+            continue
+        log(f"gen_gpt {name}: {wall:.3f} ms a decode step of wall clock ({steps} steps, prefill "
+            f"and head table taken off; one pair of calls), {rows / wall * 1e3:.1f} tokens/s; summed "
+            f"device-kernel time {dev_ms:.3f} ms a step; the host's share of a step "
+            f"{1.0 - min(1.0, dev_ms / wall):.3f}")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        log(f"gen_gpt {name}: device time a step by kernel: "
+            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    lap("token times")
+    log(f"phase check gen_gpt: {time.perf_counter() - t0:.2f} s, {json.dumps(laps)}")
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces, shape whose times stand in the kernels line)
     "K1 cache_dense": ("summer_clip_torch/csrc/cache_kernels.cu",
@@ -853,15 +1492,22 @@ KERNELS = {
                         "summer_clip_tpu/ops/block_kernels.py:75", "vit_b16_image"),
     "K12 short_attention": ("summer_clip_torch/csrc/attention_kernels.cu",
                             "summer_clip_tpu/ops/attention.py:195", "vit_l14_image"),
+    "K7 streamed_qmatmul": ("summer_clip_torch/csrc/gemv_kernels.cu",
+                            "summer_clip_tpu/ops/gemv.py:80", "mlp_c_fc R=1 int8"),
+    "K10 fused_qmlp": ("summer_clip_torch/csrc/gemv_kernels.cu",
+                       "summer_clip_tpu/ops/gemv.py:186", "R=1"),
+    "K11 flash_attention": ("summer_clip_torch/csrc/attention_kernels.cu",
+                            "summer_clip_tpu/ops/attention.py:87", "ppl_causal_f32"),
 }
 TIP_PATH = ("K5 fused_ln_attn", "K6 fused_ln_mlp", "K3 onehot_grouped", "K2 labels_dense")
 SEARCH_PATH = ("K1 cache_dense", "K2 labels_dense", "K3 onehot_grouped",
                "K4 short_attention_packed", "K5 fused_ln_attn", "K6 fused_ln_mlp")
+GEN_PATH = ("K7 streamed_qmatmul", "K10 fused_qmlp", "K11 flash_attention")
 
 
 def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
-    """``launches`` is the count over both main paths; ``launches_by_path``
-    gives each path's own."""
+    """``launches`` is the count over the three main paths;
+    ``launches_by_path`` gives each path's own."""
     src, replaces, shape = KERNELS[name]
     r = results[name]
     at_shape = {**r, **r["shapes"][shape]} if shape else r
@@ -893,6 +1539,8 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
+    check_gemv_kernels(results)
+    check_flash_kernels(results)
     check_block_kernels(results)
     check_attention_kernels(results)
     check_cache_kernels(results)
@@ -924,13 +1572,19 @@ def main() -> int:
         if cos < 0.99 or outs_err > TOL_OUTS_VS_CPU:
             raise AssertionError("stored ViT-L/14 features or scores disagree with the f32 model")
 
-    on_path = [n for n in KERNELS if n in TIP_PATH or n in SEARCH_PATH]
-    by_path = {n: {"tip_adapter": tip_launches[n], "clip_search": search_launches[n]}
-               for n in KERNELS}
+        counters = launch_counters()
+        gen, gen_launches = counted(
+            "gen_gpt gpt2-large int8", GEN_PATH,
+            lambda: run_gen_gpt(Path(tmp) / "gen", lambda: {k: f.launches for k, f in counters.items()}))
+        check_gen_gpt(gen)
+
+    on_path = [n for n in KERNELS if n in TIP_PATH or n in SEARCH_PATH or n in GEN_PATH]
+    by_path = {n: {"tip_adapter": tip_launches[n], "clip_search": search_launches[n],
+                   "gen_gpt": gen_launches[n]} for n in KERNELS}
     kernels = [kernel_entry(n, results, by_path[n]) for n in on_path]
     off_path = [kernel_entry(n, results, by_path[n]) for n in KERNELS if n not in on_path]
     log(f"card: {card}")
-    # ported kernels that neither main path runs: checked and timed above, listed apart
+    # ported kernels that no main path runs: checked and timed above, listed apart
     print(json.dumps({"kernels_off_the_main_paths": off_path}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

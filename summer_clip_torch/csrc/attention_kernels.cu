@@ -1,10 +1,13 @@
-// One-pass softmax attention for short sequences (bf16, head dim 64, sm_90a).
+// Softmax attention kernels (head dim 64, sm_90a): one pass over short
+// sequences in bf16, tile by tile (online softmax) in bf16 and f32.
 //
 // Replaces the TPU kernels of summer_clip_tpu/ops/attention.py:
 //   K4  short_attention_packed -> short_attention, heads read as 64-column
 //       slices of the packed (B, T, H*64) tensors (row stride given by the
 //       caller, so q/k/v may be views of one fused (B, T, 3D) projection);
 //   K12 short_attention        -> the same device code on (BH, T, 64).
+// f32 operands (an f32 model at short T) take short_attention_f32, the f32
+// device code of K11 below on the same addressing.
 // Neither side of the kernel transposes anything in device memory, which is
 // the point of the packed TPU kernel.
 //
@@ -30,6 +33,22 @@
 // sums reduce over the 4 lanes that share a row. Padded keys (T rounded up to
 // 16) are masked to -inf and never enter the maximum or the sum.
 // Next steps: K/V through TMA, 64-query warpgroup tiles with wgmma.
+//
+//
+//   K11 flash_attention        -> flash_attention_bf16 / flash_attention_f32,
+//       online-softmax attention on (BH, T, 64) with Tq != Tk and a causal
+//       mask shifted by q_offset (row i sees keys <= q_offset + i).
+// The TPU kernel keeps all of K and V of a head in VMEM and pads the 64-wide
+// heads to 128 lanes; neither has a counterpart here. A block owns 64 queries
+// of one head (bf16: 4 warps of 16 queries on mma.sync.m16n8k16; f32: 128
+// threads, a query each, plain FMA with true f32 products) and walks the keys
+// in tiles staged in shared memory (K, and V transposed for the bf16 B
+// operand), so scores never reach device memory and a causal block stops at
+// its last visible key. Per tile: s = q k^T / 8 in f32, masked scores -1e30,
+// m, l and the accumulator rescaled as in the TPU kernel, p rounded to the
+// value type before the PV product, out = acc / max(l, 1e-30). At T = 1024
+// the work is bound by operations, not bytes (bf16: 43 GFLOP against 84 MB
+// at BH = 160), so the next step is wgmma on 64-query warpgroup tiles.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -212,6 +231,245 @@ short_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// K11, bf16. Grid: x = query tile of 64, y = head. q, o: (BH, Tq, 64); k, v:
+// (BH, Tk, 64), contiguous.
+// ---------------------------------------------------------------------------
+constexpr int kFlashWarps = 4;
+constexpr int kFlashThreads = kFlashWarps * 32;
+constexpr int kFlashQ = kFlashWarps * 16;   // queries a block
+constexpr int kFlashK = 64;                 // keys a tile
+constexpr int kLdv = kFlashK + kPad;        // V^T rows in shared memory
+constexpr float kMasked = -1e30f;
+
+__global__ void __launch_bounds__(kFlashThreads)
+flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ o, int Tq, int Tk,
+                            int causal, int q_offset, float scale) {
+  __shared__ __align__(16) bf16 k_s[kFlashK * kLdh];     // a key per row
+  __shared__ __align__(16) bf16 vt_s[kHeadDim * kLdv];   // a head column per row
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kFlashQ;
+  const int row0 = q0 + warp * 16;
+  const size_t qbase = (size_t)blockIdx.y * Tq * kHeadDim;
+  const size_t kbase = (size_t)blockIdx.y * Tk * kHeadDim;
+
+  uint32_t qa[kHeadDim / 16][4];
+  {
+    const bool ok0 = row0 + g < Tq, ok1 = row0 + g + 8 < Tq;
+    const bf16* p0 = q + qbase + (size_t)(row0 + g) * kHeadDim + 2 * t;
+    const bf16* p1 = p0 + 8 * kHeadDim;
+#pragma unroll
+    for (int c = 0; c < kHeadDim / 16; ++c) {
+      qa[c][0] = ok0 ? ld4(p0 + c * 16) : 0u;
+      qa[c][1] = ok1 ? ld4(p1 + c * 16) : 0u;
+      qa[c][2] = ok0 ? ld4(p0 + c * 16 + 8) : 0u;
+      qa[c][3] = ok1 ? ld4(p1 + c * 16 + 8) : 0u;
+    }
+  }
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float oacc[kHeadDim / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kHeadDim / 8; ++dt)
+    oacc[dt][0] = oacc[dt][1] = oacc[dt][2] = oacc[dt][3] = 0.f;
+
+  // keys this block can see: all of them, or up to its last query's position
+  int kend = Tk;
+  if (causal) kend = min(Tk, q_offset + min(q0 + kFlashQ, Tq));
+  const int qr0 = q_offset + row0 + g, qr1 = qr0 + 8;   // absolute query positions
+
+  for (int n0 = 0; n0 < kend; n0 += kFlashK) {
+    __syncthreads();   // the previous tile is no longer read
+    for (int idx = tid; idx < kFlashK * (kHeadDim / 8); idx += kFlashThreads) {
+      const int r = idx / (kHeadDim / 8), c = (idx % (kHeadDim / 8)) * 8;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (n0 + r < Tk) {
+        kv = ld16(k + kbase + (size_t)(n0 + r) * kHeadDim + c);
+        vv = ld16(v + kbase + (size_t)(n0 + r) * kHeadDim + c);
+      }
+      *reinterpret_cast<uint4*>(k_s + r * kLdh + c) = kv;
+      const bf16* e = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) vt_s[(c + j) * kLdv + r] = e[j];
+    }
+    __syncthreads();
+
+    float s[kFlashK / 8][4];
+    float mx0 = kMasked, mx1 = kMasked;
+#pragma unroll
+    for (int nt = 0; nt < kFlashK / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      const bf16* krow = k_s + (nt * 8 + g) * kLdh + 2 * t;
+#pragma unroll
+      for (int c = 0; c < kHeadDim / 16; ++c)
+        mma16816(s[nt], qa[c], ld4(krow + c * 16), ld4(krow + c * 16 + 8));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = n0 + nt * 8 + 2 * t + (e & 1);
+        const int qr = (e >> 1) ? qr1 : qr0;
+        const bool ok = key < Tk && (!causal || key <= qr);
+        s[nt][e] = ok ? s[nt][e] * scale : kMasked;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kFlashK / 8; ++nt) {
+      s[nt][0] = expf(s[nt][0] - mn0);
+      s[nt][1] = expf(s[nt][1] - mn0);
+      s[nt][2] = expf(s[nt][2] - mn1);
+      s[nt][3] = expf(s[nt][3] - mn1);
+      rs0 += s[nt][0] + s[nt][1];
+      rs1 += s[nt][2] + s[nt][3];
+    }
+    l0 = l0 * a0 + quad_sum(rs0);
+    l1 = l1 * a1 + quad_sum(rs1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int dt = 0; dt < kHeadDim / 8; ++dt) {
+      oacc[dt][0] *= a0;
+      oacc[dt][1] *= a0;
+      oacc[dt][2] *= a1;
+      oacc[dt][3] *= a1;
+    }
+    // p rounded to bf16; two 8-key score tiles are the A operand of a 16-key step
+#pragma unroll
+    for (int kc = 0; kc < kFlashK / 16; ++kc) {
+      uint32_t pa[4];
+      pa[0] = pack2(s[2 * kc][0], s[2 * kc][1]);
+      pa[1] = pack2(s[2 * kc][2], s[2 * kc][3]);
+      pa[2] = pack2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pa[3] = pack2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      const bf16* vrow = vt_s + g * kLdv + kc * 16 + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < kHeadDim / 8; ++dt)
+        mma16816(oacc[dt], pa, ld4(vrow + dt * 8 * kLdv), ld4(vrow + dt * 8 * kLdv + 8));
+    }
+  }
+
+  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  bf16* o0 = o + qbase + (size_t)(row0 + g) * kHeadDim + 2 * t;
+  bf16* o1 = o0 + 8 * kHeadDim;
+#pragma unroll
+  for (int dt = 0; dt < kHeadDim / 8; ++dt) {
+    if (row0 + g < Tq)
+      *reinterpret_cast<uint32_t*>(o0 + dt * 8) = pack2(oacc[dt][0] * i0, oacc[dt][1] * i0);
+    if (row0 + g + 8 < Tq)
+      *reinterpret_cast<uint32_t*>(o1 + dt * 8) = pack2(oacc[dt][2] * i1, oacc[dt][3] * i1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K11 and K4 / K12, f32: true f32 products on the CUDA cores. A thread owns
+// one query (its 64 features and 64 accumulators in registers); K and V tiles
+// of 32 keys are read from shared memory as broadcasts. Element (b, t, h, j) of
+// q lies at b * qsb + t * sr + h * 64 + j, of k and v at b * ksb + ..., of o at
+// b * ob + t * orow + h * 64 + j; blockIdx.x = b * H + h. So the same code
+// serves (BH, T, 64) tensors (H = 1) and the heads of packed (B, T, H * 64)
+// ones, views of a fused projection included.
+// ---------------------------------------------------------------------------
+constexpr int kF32Threads = 128;   // queries a block
+constexpr int kF32K = 32;          // keys a tile
+
+__global__ void __launch_bounds__(kF32Threads)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int Tq, int Tk, int H,
+                     long long qsb, long long ksb, long long sr, long long ob, long long orow,
+                     int causal, int q_offset, float scale) {
+  __shared__ __align__(16) float k_s[kF32K * kHeadDim];
+  __shared__ __align__(16) float v_s[kF32K * kHeadDim];
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.y * kF32Threads;
+  const int row = q0 + tid;
+  const bool live = row < Tq;
+  const int seq = blockIdx.x / H, head = blockIdx.x % H;
+  const size_t qbase = (size_t)seq * qsb + (size_t)head * kHeadDim;
+  const size_t kbase = (size_t)seq * ksb + (size_t)head * kHeadDim;
+  const size_t obase = (size_t)seq * ob + (size_t)head * kHeadDim;
+
+  float qv[kHeadDim], acc[kHeadDim];
+#pragma unroll
+  for (int d = 0; d < kHeadDim; d += 4) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live) x = *reinterpret_cast<const float4*>(q + qbase + (size_t)row * sr + d);
+    qv[d] = x.x; qv[d + 1] = x.y; qv[d + 2] = x.z; qv[d + 3] = x.w;
+    acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+  int kend = Tk;
+  if (causal) kend = min(Tk, q_offset + min(q0 + kF32Threads, Tq));
+  const int qpos = q_offset + row;
+
+  for (int n0 = 0; n0 < kend; n0 += kF32K) {
+    __syncthreads();
+    for (int idx = tid; idx < kF32K * (kHeadDim / 4); idx += kF32Threads) {
+      const int r = idx / (kHeadDim / 4), c = (idx % (kHeadDim / 4)) * 4;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+      if (n0 + r < Tk) {
+        kv = *reinterpret_cast<const float4*>(k + kbase + (size_t)(n0 + r) * sr + c);
+        vv = *reinterpret_cast<const float4*>(v + kbase + (size_t)(n0 + r) * sr + c);
+      }
+      *reinterpret_cast<float4*>(k_s + r * kHeadDim + c) = kv;
+      *reinterpret_cast<float4*>(v_s + r * kHeadDim + c) = vv;
+    }
+    __syncthreads();
+
+    float s[kF32K];
+    float mx = kMasked;
+#pragma unroll
+    for (int j = 0; j < kF32K; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < kHeadDim; d += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(k_s + j * kHeadDim + d);
+        dot = fmaf(qv[d], kv.x, dot);
+        dot = fmaf(qv[d + 1], kv.y, dot);
+        dot = fmaf(qv[d + 2], kv.z, dot);
+        dot = fmaf(qv[d + 3], kv.w, dot);
+      }
+      const int key = n0 + j;
+      const bool ok = key < Tk && (!causal || key <= qpos);
+      s[j] = ok ? dot * scale : kMasked;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float mn = fmaxf(m, mx);
+    const float alpha = expf(m - mn);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < kF32K; ++j) {
+      s[j] = expf(s[j] - mn);
+      rs += s[j];
+    }
+    l = l * alpha + rs;
+    m = mn;
+#pragma unroll
+    for (int d = 0; d < kHeadDim; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kF32K; ++j) {
+#pragma unroll
+      for (int d = 0; d < kHeadDim; d += 4) {
+        const float4 vv = *reinterpret_cast<const float4*>(v_s + j * kHeadDim + d);
+        acc[d] = fmaf(s[j], vv.x, acc[d]);
+        acc[d + 1] = fmaf(s[j], vv.y, acc[d + 1]);
+        acc[d + 2] = fmaf(s[j], vv.z, acc[d + 2]);
+        acc[d + 3] = fmaf(s[j], vv.w, acc[d + 3]);
+      }
+    }
+  }
+  if (!live) return;
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int d = 0; d < kHeadDim; d += 4)
+    *reinterpret_cast<float4*>(o + obase + (size_t)row * orow + d) =
+        make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv, acc[d + 3] * inv);
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,6 +499,43 @@ int short_attention_bf16(const void* q, const void* k, const void* v, void* o, i
   short_attention_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, T, Tp, H, sb, sr, ob, orow,
       causal, scale, nsplit);
+  return (int)cudaGetLastError();
+}
+
+// q, o: (BH, Tq, 64); k, v: (BH, Tk, 64); contiguous, 16-byte aligned. With
+// causal, query row i sees keys <= q_offset + i.
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int BH, int Tq,
+                         int Tk, int causal, int q_offset, void* stream) {
+  if (BH < 1 || BH > 65535 || Tq < 1 || Tk < 1 || q_offset < 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)((Tq + kFlashQ - 1) / kFlashQ), (unsigned)BH);
+  flash_attention_bf16_kernel<<<grid, kFlashThreads, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, Tq, Tk, causal, q_offset,
+      1.0f / sqrtf((float)kHeadDim));
+  return (int)cudaGetLastError();
+}
+
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int BH, int Tq,
+                        int Tk, int causal, int q_offset, void* stream) {
+  if (BH < 1 || BH > 65535 || Tq < 1 || Tk < 1 || q_offset < 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)BH, (unsigned)((Tq + kF32Threads - 1) / kF32Threads));
+  attention_f32_kernel<<<grid, kF32Threads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Tq, Tk, 1,
+      (long long)Tq * kHeadDim, (long long)Tk * kHeadDim, kHeadDim, (long long)Tq * kHeadDim,
+      kHeadDim, causal, q_offset, 1.0f / sqrtf((float)kHeadDim));
+  return (int)cudaGetLastError();
+}
+
+// The f32 variant of short_attention_bf16: the same addressing (sb and sr
+// multiples of 4 here), the softmax taken tile by tile over the T <= 640 keys.
+int short_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int T,
+                        long long sb, long long sr, long long ob, long long orow, int causal,
+                        void* stream) {
+  const long long bh = (long long)B * H;
+  if (T < 1 || T > kMaxT || B < 1 || H < 1 || bh > 2147483647LL) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)bh, (unsigned)((T + kF32Threads - 1) / kF32Threads));
+  attention_f32_kernel<<<grid, kF32Threads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, T, T, H, sb, sb, sr, ob, orow,
+      causal, 0, 1.0f / sqrtf((float)kHeadDim));
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Attention ops: plain PyTorch reference + hand-written short-sequence kernels.
+"""Attention ops: plain PyTorch reference + hand-written CUDA kernels.
 
 Counterpart of ``summer_clip_tpu/ops/attention.py``:
 
@@ -11,15 +11,24 @@ Counterpart of ``summer_clip_tpu/ops/attention.py``:
   (ops/attention.py:248).
 - :func:`short_attention` -- K12, the same device code on (BH, T, hd);
   replaces the TPU kernel ``short_attention`` (ops/attention.py:195).
+- :func:`flash_attention` -- K11, online-softmax attention on (BH, T, hd) with
+  ``tq != tk`` and a causal mask shifted by ``q_offset``
+  (``flash_attention_bf16`` / ``flash_attention_f32`` of the same source);
+  replaces the TPU kernel ``flash_attention`` (ops/attention.py:87). Its plain
+  version is :func:`flash_attention_reference`.
 - :func:`multi_head_attention` -- split heads, attend, merge, with the JAX
-  package's selection rule (``ops/attention.py:420-426``).
+  package's selection rule (``ops/attention.py:404-452``): K4, K11, or the
+  plain route (:func:`mha_reference` with mask, ``causal`` and ``q_offset``
+  folded into one bias) for every call the JAX package leaves to XLA.
 
-On a CPU tensor the wrappers run their plain version; on a CUDA tensor they
-launch the kernel or raise, never the plain version. The kernels take bf16,
-head dim 64 and T <= :data:`SHORT_MAX_T`; they have no backward yet (the JAX
-package recomputes it in XLA, ``:338-361``), so inputs that require grad raise
-on CUDA. ``flash_attention`` (K11) is not ported: where the JAX package would
-pick it, :func:`multi_head_attention` raises ``NotImplementedError`` on CUDA.
+On a CPU tensor the kernel wrappers run their plain version; on a CUDA tensor
+they launch the kernel or raise, never the plain version. K4 and K12 take
+T <= :data:`SHORT_MAX_T`; all three take bf16 (tensor cores) or f32 (true f32
+products: ``short_attention_f32`` / ``flash_attention_f32`` share their device
+code) and head dim 64. None has a backward yet (the JAX package recomputes it in XLA,
+``:302-401``), so inputs that require grad raise on CUDA.
+:data:`FLASH_ENABLED` and :data:`FLASH_MIN_KV` are the JAX package's switches
+with its defaults, so both packages route alike.
 """
 
 from __future__ import annotations
@@ -32,14 +41,24 @@ import torch
 from summer_clip_torch.ops import _lib
 
 __all__ = ["mha_reference", "short_attention", "short_attention_packed",
-           "short_attention_packed_reference", "multi_head_attention",
-           "SHORT_MAX_T", "HEAD_DIM"]
+           "short_attention_packed_reference", "flash_attention", "flash_attention_reference",
+           "multi_head_attention", "attention_route", "SHORT_MAX_T", "HEAD_DIM",
+           "FLASH_ENABLED", "FLASH_MIN_KV"]
+
+# Auto-selection of K11: off by default, the JAX package's setting. Whether it
+# should be on for this card is an open question (PERF.md); ``use_flash=True``
+# or flipping the switch selects the kernel.
+FLASH_ENABLED = False
+FLASH_MIN_KV = 1024
 
 SHORT_MAX_T = 640   # one computing warp's score rows still fit beside K and V of a head
 HEAD_DIM = 64       # the only head width of the public CLIP towers
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "short_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+    "short_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -84,21 +103,24 @@ def short_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.
 
 
 def _kernel_inputs(q, k, v, shape) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """bf16 CUDA q/k/v of one shape whose rows the kernel can read 16 bytes at
-    a time with one (batch, row) stride pair: views of a fused projection pass
-    through untouched, anything else is made contiguous."""
+    """bf16 or f32 CUDA q/k/v of one shape whose rows the kernel can read 16
+    bytes at a time with one (batch, row) stride pair: views of a fused
+    projection pass through untouched, anything else is made contiguous."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got {x.dtype}")
+        if x.dtype not in (torch.bfloat16, torch.float32) or x.dtype != q.dtype:
+            raise TypeError(f"{name}: the kernel takes bfloat16 or float32 (one type for q, k "
+                            f"and v), got {x.dtype}")
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
         if x.requires_grad:
             raise NotImplementedError("the short-attention kernels have no backward yet")
 
+    group = 16 // q.element_size()
+
     def ok(x):
-        return (x.stride(2) == 1 and x.stride(0) % 8 == 0 and x.stride(1) % 8 == 0
+        return (x.stride(2) == 1 and x.stride(0) % group == 0 and x.stride(1) % group == 0
                 and x.data_ptr() % 16 == 0)
 
     if not (ok(q) and ok(k) and ok(v) and q.stride() == k.stride() == v.stride()):
@@ -107,7 +129,8 @@ def _kernel_inputs(q, k, v, shape) -> tp.Tuple[torch.Tensor, torch.Tensor, torch
 
 
 def _launch(q, k, v, out, batch: int, heads: int, t: int, causal: bool) -> None:
-    _lib.check(_lib_attention().short_attention_bf16(
+    entry = "short_attention_bf16" if q.dtype == torch.bfloat16 else "short_attention_f32"
+    _lib.check(getattr(_lib_attention(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, heads, t,
         q.stride(0), q.stride(1), out.stride(0), out.stride(1), int(causal),
         _lib.torch_stream()), "short_attention")
@@ -158,35 +181,98 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 short_attention.launches = 0
 
 
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              causal: bool = False, q_offset: int = 0) -> torch.Tensor:
+    """Plain version of K11: :func:`mha_reference` with the causal mask of a
+    query block at ``q_offset`` folded into one bias."""
+    mask = _causal_bias(q.shape[-2], k.shape[-2], q_offset, device=q.device) if causal else None
+    return mha_reference(q, k, v, mask=mask)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, q_offset: int = 0) -> torch.Tensor:
+    """K11. q (BH, Tq, 64), k/v (BH, Tk, 64), bf16 or f32 -> (BH, Tq, 64).
+    With ``causal``, query row i sees keys <= ``q_offset + i`` (the chunked-
+    prefill shape: q a late chunk, k/v the whole history). The products run in
+    the operand type: tensor cores for bf16, true f32 FMA for f32."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal, q_offset=q_offset)
+    bh, tq, hd = q.shape
+    tk = k.shape[1]
+    if hd != HEAD_DIM:
+        raise ValueError(f"flash_attention takes head dim {HEAD_DIM}, got {hd}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_attention takes bfloat16 or float32, got {q.dtype}")
+    if q_offset < 0 or bh > 65535:
+        raise ValueError(f"flash_attention takes q_offset >= 0 and BH <= 65535, got "
+                         f"q_offset={q_offset} BH={bh}")
+    for name, x, shape in (("q", q, (bh, tq, hd)), ("k", k, (bh, tk, hd)), ("v", v, (bh, tk, hd))):
+        if not x.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+        if x.dtype != q.dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected {q.dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
+        if x.requires_grad:
+            raise NotImplementedError("flash_attention has no backward yet")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    entry = "flash_attention_bf16" if q.dtype == torch.bfloat16 else "flash_attention_f32"
+    _lib.check(getattr(_lib_attention(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, tq, tk, int(causal),
+        int(q_offset), _lib.torch_stream()), "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def attention_route(*, on_card: bool, tq: int, tk: int, has_mask: bool, q_offset: int,
+                    use_flash: tp.Optional[bool]) -> str:
+    """Which of ``"short_packed"`` (K4), ``"flash"`` (K11) or ``"plain"``
+    :func:`multi_head_attention` takes: the JAX package's rule with "on the
+    card" for "on the TPU". The rule does not look at the type or the head
+    width: a call it sends to a kernel that the kernel cannot take raises."""
+    if (use_flash is None and not has_mask and q_offset == 0 and tq == tk
+            and tk <= SHORT_MAX_T and on_card):
+        return "short_packed"
+    if use_flash is None:
+        use_flash = FLASH_ENABLED and not has_mask and on_card and tk >= FLASH_MIN_KV
+    return "flash" if use_flash and not has_mask else "plain"
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          num_heads: int, mask: tp.Optional[torch.Tensor] = None,
                          causal: bool = False, use_flash: tp.Optional[bool] = None,
                          q_offset: int = 0) -> torch.Tensor:
     """Split heads, attend, merge. q/k/v: (B, T, D) with D = H * head_dim.
 
-    On CUDA the JAX package's rule picks the kernel: no explicit ``mask``,
-    ``q_offset == 0`` and ``tq == tk <= SHORT_MAX_T`` run K4; every other
-    call is one the JAX package sends to XLA or to ``flash_attention``
-    (K11), which is not ported, and raises. On a CPU tensor the plain version
-    runs with the mask, ``causal`` and ``q_offset`` folded into one bias.
+    :func:`attention_route` picks K4, K11 or the plain route. The plain route
+    is :func:`mha_reference` with ``mask``, ``causal`` and ``q_offset`` folded
+    into one additive bias; it serves every call the JAX package leaves to XLA
+    (an explicit mask, ``tq != tk``, long sequences with the flash switch
+    off), on the CPU and on the card alike. An explicit additive ``mask``
+    always takes it: the kernels know causal and validity masking only.
     """
     b, tq, dm = q.shape
     tk = k.shape[1]
     hd = dm // num_heads
-    if q.device.type != "cpu":
-        if (use_flash is None and mask is None and q_offset == 0 and tq == tk
-                and tk <= SHORT_MAX_T and dm == num_heads * hd):
-            return short_attention_packed(q, k, v, num_heads=num_heads, causal=causal)
-        raise NotImplementedError(
-            "multi_head_attention on CUDA runs only the short packed kernel (no mask, "
-            f"q_offset 0, tq == tk <= {SHORT_MAX_T}); flash_attention is not ported")
+    route = attention_route(on_card=q.device.type != "cpu", tq=tq, tk=tk,
+                            has_mask=mask is not None, q_offset=q_offset, use_flash=use_flash)
+    if route == "short_packed":
+        return short_attention_packed(q, k, v, num_heads=num_heads, causal=causal)
 
     def split(x, t):
         return x.reshape(b, t, num_heads, hd).transpose(1, 2)
 
-    attn_mask = mask
-    if causal:
-        cmask = _causal_bias(tq, tk, q_offset, device=q.device)
-        attn_mask = cmask if attn_mask is None else attn_mask + cmask
-    o = mha_reference(split(q, tq), split(k, tk), split(v, tk), mask=attn_mask)
+    qh, kh, vh = split(q, tq), split(k, tk), split(v, tk)
+    if route == "flash":
+        o = flash_attention(qh.reshape(b * num_heads, tq, hd), kh.reshape(b * num_heads, tk, hd),
+                            vh.reshape(b * num_heads, tk, hd), causal=causal,
+                            q_offset=q_offset).reshape(b, num_heads, tq, hd)
+    else:
+        attn_mask = mask
+        if causal:
+            cmask = _causal_bias(tq, tk, q_offset, device=q.device)
+            attn_mask = cmask if attn_mask is None else attn_mask + cmask
+        o = mha_reference(qh, kh, vh, mask=attn_mask)
     return o.transpose(1, 2).reshape(b, tq, dm)

@@ -100,8 +100,10 @@ def test_bf16_plain_version_rounds_probabilities_like_jax():
 
 def test_wrappers_launch_or_raise_off_the_cpu():
     """No plain version for a tensor that is not on the CPU: the meta device
-    reaches the kernel path's checks and raises; unsupported geometry, an
-    explicit mask and the flash route raise too."""
+    reaches the kernel path's checks and raises, as does unsupported geometry.
+    ``use_flash=True`` routes to K11, which raises off the card too; an
+    explicit mask, a cross-length call and a long call with the flash switch
+    off take the plain route, which runs wherever the tensors lie."""
     x = torch.empty(2, 50, 2 * HD, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         at.short_attention_packed(x, x, x, num_heads=2)
@@ -112,13 +114,29 @@ def test_wrappers_launch_or_raise_off_the_cpu():
     long = torch.empty(1, at.SHORT_MAX_T + 1, HD, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="T <="):
         at.short_attention(long, long, long)
-    with pytest.raises(NotImplementedError, match="flash_attention is not ported"):
-        at.multi_head_attention(long, long, long, num_heads=1)
-    with pytest.raises(NotImplementedError):
-        at.multi_head_attention(x, x, x, num_heads=2, mask=torch.zeros(50, 50, device="meta"))
-    with pytest.raises(NotImplementedError):
-        at.multi_head_attention(x, x, x, num_heads=2, causal=True, q_offset=2)
-    assert at.short_attention_packed.launches == 0 and at.short_attention.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        at.flash_attention(long, long, long, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):    # use_flash=True picks K11
+        at.multi_head_attention(long, long, long, num_heads=1, use_flash=True)
+    # the plain route: the flash switch off, an explicit mask, a shifted query block
+    assert at.multi_head_attention(long, long, long, num_heads=1).shape == long.shape
+    assert at.multi_head_attention(x, x, x, num_heads=2,
+                                   mask=torch.zeros(50, 50, device="meta")).shape == x.shape
+    assert at.multi_head_attention(x[:, :8], x, x, num_heads=2, causal=True,
+                                   q_offset=42).shape == (2, 8, 2 * HD)
+    # ... and on the CPU it computes mha_reference with the folded bias
+    q, k, v = (torch.from_numpy(a) for a in _qkv(11, (2, 12, 2 * HD)))
+    mask = torch.from_numpy(np.random.default_rng(12).standard_normal((5, 12)).astype(np.float32))
+
+    def split(a):
+        return a.reshape(2, -1, 2, HD).transpose(1, 2)
+
+    got = at.multi_head_attention(q[:, :5], k, v, num_heads=2, mask=mask, causal=True, q_offset=7)
+    want = at.mha_reference(split(q[:, :5]), split(k), split(v),
+                            mask=mask + at._causal_bias(5, 12, 7))
+    assert torch.equal(got, want.transpose(1, 2).reshape(2, 5, 2 * HD))
+    assert (at.short_attention_packed.launches == 0 and at.short_attention.launches == 0
+            and at.flash_attention.launches == 0)
 
 
 def test_limits_match_the_jax_package():
@@ -187,4 +205,30 @@ def test_cuda_kernel_refuses_grad_and_other_dtypes():
     with pytest.raises(NotImplementedError, match="backward"):
         at.short_attention(x.requires_grad_(), x, x)
     with pytest.raises(TypeError, match="bfloat16"):
-        at.short_attention(x.detach().float(), x.detach().float(), x.detach().float())
+        at.short_attention(x.detach().half(), x.detach().half(), x.detach().half())
+    with pytest.raises(TypeError, match="one type"):
+        at.short_attention(x.detach(), x.detach().float(), x.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,causal,fused_qkv", [(50, False, True), (77, True, True),
+                                                (257, False, False), (640, True, True)])
+def test_cuda_k4_f32_matches_plain(t, causal, fused_qkv):
+    """f32 operands: true f32 products, so only the order of the sums differs."""
+    _cuda()
+    gen = torch.Generator().manual_seed(t)
+    heads, d = 3, 3 * HD
+    qkv = torch.randn(2, t, 3 * d, generator=gen).to("cuda")
+    q, k, v = qkv.split(d, dim=-1)           # strided views of one projection
+    if not fused_qkv:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    before = at.short_attention_packed.launches
+    got = at.multi_head_attention(q, k, v, num_heads=heads, causal=causal)   # the rule picks K4
+    torch.cuda.synchronize()
+    assert at.short_attention_packed.launches == before + 1
+    want = at.short_attention_packed_reference(q, k, v, num_heads=heads, causal=causal)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 2e-5
+    one = at.short_attention(q[..., :HD].contiguous(), k[..., :HD].contiguous(),
+                             v[..., :HD].contiguous(), causal=causal)        # K12, head 0
+    assert torch.equal(one, got[..., :HD])

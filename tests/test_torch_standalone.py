@@ -18,7 +18,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "summer_clip_torch"
 APPS = ["save_features", "eval_clip", "tip_adapter", "image_attention", "save_image_outs",
-        "save_image_labels"]
+        "save_image_labels", "gen_gpt"]
 
 _WALK = """
 import importlib, pkgutil, sys
