@@ -24,11 +24,19 @@ the loop, and ``SUMMER_CLIP_FUSED_MLP=1`` sends each block's MLP pair through
 K10. ``torch.multinomial`` cannot reproduce ``jax.random.categorical``: greedy
 (``top_k=1``) ids equal the JAX package's, sampled ids do not.
 
-Not ported yet: ``generation.continuous`` (``engine/serving``),
-``generation.speculative`` (``engine/speculative``), ``generation.tp > 1`` and
-``generation.megakernel=true`` (K8, ``ops/decode_block``) raise
-``NotImplementedError``; ``megakernel=auto`` resolves to false.
-``approx_top_k`` is accepted and runs the exact top-k.
+``generation.megakernel`` sends the decode steps of the device loop and of the
+batched sampler through K8 (``ops/decode_block``): prefill by the standard wide
+forward, the cache converted once into int8 rings, then a token is embed (+
+adapters) -> K8 -> ring update -> ``ln_f`` -> hoisted head table -> pick.
+``auto`` resolves by the JAX package's rule: an int8 tree, the device loop, at
+least 24 blocks and a legal geometry (batched: at most 8 prompts too).
+``megakernel=true`` without ``quant_int8`` stores weights and rings in bf16.
+``generation.continuous=true`` drains the prompts through the
+continuous-batching engine (``engine/serving``), ``generation.speculative=true``
+through draft-model speculation (``engine/speculative``; with ``quant_int8``
+both trees are quantised). ``generation.tp > 1`` raises
+``NotImplementedError`` (ROADMAP Queue 1 item 11). ``approx_top_k`` is accepted
+and runs the exact top-k.
 
 Run: ``python -m summer_clip_torch.apps.gen_gpt model.checkpoint_dir=<dir>
 generation.quant_int8=true`` (``meta.device=cpu`` for the CPU).
@@ -51,7 +59,8 @@ from summer_clip_torch.engine.quant import quant_head_table, quantize_tree
 from summer_clip_torch.engine.trainer import BaseTrainer, resolve_device, run_trainer
 from summer_clip_torch.models import gpt2 as gpt2_mod
 from summer_clip_torch.models.tokenizer import get_tokenizer
-from summer_clip_torch.ops.gemv import qdot
+from summer_clip_torch.ops import decode_block as DB
+from summer_clip_torch.ops.gemv import is_qleaf, matmul_reference, qdot
 from summer_clip_torch.store import load_array
 
 __all__ = ["build_clip_gpt", "save_clip_gpt_checkpoint", "load_pretrained_clip_gpt", "generate",
@@ -167,6 +176,28 @@ def _head(model, quant_int8: bool) -> tp.Callable[[torch.Tensor], torch.Tensor]:
     return model.head_logits
 
 
+def _mega_state(model, what: str):
+    """What the megakernel loops build once before the loop: the packed block
+    parameters (int8 as stored on an int8 tree, else bf16), the final
+    LayerNorm as a function of K8's output, and the head: the int8 table
+    through K7, else a bf16 table (bf16 operands, f32 sums)."""
+    cfg = model.config
+    if not DB.mega_legal(cfg.n_embd, 4 * cfg.n_embd, cfg.n_head):
+        raise ValueError(f"the megakernel does not support {cfg.name} geometry ({what})")
+    tree = model.tree()
+    store = "int8" if is_qleaf(tree["core"]["h_0"]["attn"]["c_attn"]["kernel"]) else "bf16"
+    packed = DB.pack_core_params(tree["core"], cfg.n_layer, store=store)
+    lnf = model.core.ln_f
+    if store == "int8":
+        table = quant_head_table(model)
+        head = lambda h: qdot(h, table, torch.float32)   # noqa: E731
+    else:
+        wide = (model.lm_head_table() if isinstance(model, gpt2_mod.ClipGPT)
+                else model.wte.embedding).t().contiguous()
+        head = lambda h: matmul_reference(h, wide)       # noqa: E731
+    return packed, (lambda y: head(DB._ln_rows(y, lnf.scale[None], lnf.bias[None])))
+
+
 def _device_of(model) -> torch.device:
     return model.core.ln_f.scale.device
 
@@ -223,11 +254,13 @@ def generate_device(model, prompt_ids: tp.Sequence[int], *, max_new_tokens: int 
     :func:`generate`, so the same generator seed gives the same ids. After an
     ``eot_id`` the row freezes (emits eot), which matches the host loop's
     early break once the result is cut at the first eot. ``quant_int8``:
-    ``model`` holds an int8 tree (``engine.quant.quantize_tree``)."""
+    ``model`` holds an int8 tree (``engine.quant.quantize_tree``).
+
+    ``megakernel``: after the wide prefill the cache becomes K8's rings (int8
+    with ``quant_int8``, else bf16) and every decode step runs the whole block
+    stack in one launch; the position is a device tensor, so nothing is read
+    back here either."""
     del approx_top_k   # the exact top-k runs
-    if megakernel:
-        raise NotImplementedError("generation.megakernel needs the decode megakernel (K8, "
-                                  "ops/decode_block), which is not ported yet")
     device = _device_of(model)
     generator = _generator_for(generator, device)
     n_prompt = len(prompt_ids)
@@ -240,7 +273,13 @@ def generate_device(model, prompt_ids: tp.Sequence[int], *, max_new_tokens: int 
     ids = torch.tensor([list(prompt_ids)], dtype=torch.long, device=device)
     out = model(ids, position_offset=0, cache=cache)
     last, cache = out["logits"][:, -1, :], out["cache"]
-    head = _head(model, quant_int8)
+    if megakernel:
+        packed, mega_head = _mega_state(model, "generate_device")
+        kv = DB.cache_to_mega(cache, n_prompt + max_new_tokens,
+                              torch.int8 if quant_int8 else torch.bfloat16)
+        offset = torch.full((1,), n_prompt, dtype=torch.long, device=device)
+    else:
+        head = _head(model, quant_int8)
     done = torch.zeros((), dtype=torch.bool, device=device)
     toks = []
     for step in range(max_new_tokens):
@@ -250,6 +289,12 @@ def generate_device(model, prompt_ids: tp.Sequence[int], *, max_new_tokens: int 
         toks.append(nxt)
         if step + 1 == max_new_tokens:
             break   # the logits after the last token would be dropped
+        if megakernel:
+            x = gpt2_mod.decode_inputs(model, nxt[None], offset)
+            y, *fresh = DB.decode_block(x, packed, kv, offset, nh=model.config.n_head)
+            DB.mega_update_kv(kv, *fresh, offset)
+            last, offset = mega_head(y), offset + 1
+            continue
         out = model(nxt[None, None], position_offset=n_prompt + step, cache=cache,
                     compute_logits=False)
         last, cache = head(out["hidden"][:, -1, :]), out["cache"]
@@ -269,11 +314,13 @@ def generate_device_batched(model, prompts: tp.Sequence[tp.Sequence[int]], *,
     the same cache slot; per-row position offsets (``position_offset`` as a
     (B, 1) tensor) put position 0 at each row's first real token, and
     ``key_pad`` masks the pad slots out of attention for good. Rows freeze
-    independently on ``eot_id``. One generator drives the whole batch."""
+    independently on ``eot_id``. One generator drives the whole batch.
+
+    ``megakernel`` (at most 8 prompts): the decode steps run the whole block
+    stack for the batch in one launch of K8 each, so the weight read of a token
+    is shared by the rows; the prefill goes into a short cache that becomes the
+    rings, and the left pads ride K8's ``pad`` mask."""
     del approx_top_k
-    if megakernel:
-        raise NotImplementedError("generation.megakernel needs the decode megakernel (K8, "
-                                  "ops/decode_block), which is not ported yet")
     device = _device_of(model)
     generator = _generator_for(generator, device)
     lens = [len(p) for p in prompts]
@@ -292,11 +339,21 @@ def generate_device_batched(model, prompts: tp.Sequence[tp.Sequence[int]], *,
     pad = torch.tensor([l_max - n for n in lens], dtype=torch.long, device=device)
     temp = max(float(temperature), 1e-6)
     eot = -1 if eot_id is None else int(eot_id)
-    cache = model.init_cache(len(prompts), l_max + max_new_tokens)
+    if megakernel and len(prompts) > DB.MAX_STREAMS:
+        raise ValueError(f"the megakernel carries at most {DB.MAX_STREAMS} streams, got "
+                         f"{len(prompts)} prompts")
+    # the megakernel's prefill needs the prompt window only: the rings own the rest
+    cache = model.init_cache(len(prompts), l_max if megakernel else l_max + max_new_tokens)
     out = model(torch.from_numpy(ids).to(device), position_offset=(-pad)[:, None], cache=cache,
                 key_pad=pad)
     last, cache = out["logits"][:, -1, :], out["cache"]
-    head = _head(model, quant_int8)
+    if megakernel:
+        packed, mega_head = _mega_state(model, "generate_device_batched")
+        kv = DB.cache_to_mega(cache, l_max + max_new_tokens,
+                              torch.int8 if quant_int8 else torch.bfloat16, batched=True)
+        slot = torch.full((len(prompts),), l_max, dtype=torch.long, device=device)
+    else:
+        head = _head(model, quant_int8)
     done = torch.zeros(len(prompts), dtype=torch.bool, device=device)
     toks = []
     for step in range(max_new_tokens):
@@ -306,6 +363,12 @@ def generate_device_batched(model, prompts: tp.Sequence[tp.Sequence[int]], *,
         toks.append(nxt)
         if step + 1 == max_new_tokens:
             break
+        if megakernel:
+            x = gpt2_mod.decode_inputs(model, nxt, slot - pad)
+            y, *fresh = DB.decode_block(x, packed, kv, slot, nh=model.config.n_head, pad=pad)
+            DB.mega_update_kv(kv, *fresh, slot)
+            last, slot = mega_head(y), slot + 1
+            continue
         out = model(nxt[:, None], position_offset=(l_max + step - pad)[:, None], cache=cache,
                     key_pad=pad, compute_logits=False)
         last, cache = head(out["hidden"][:, -1, :]), out["cache"]
@@ -346,25 +409,77 @@ class GptGenerator(BaseTrainer):
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _check_ported(self, gcfg) -> None:
-        later = {
-            "continuous": "generation.continuous needs engine/serving (the continuous-batching "
-                          "engine), which is not ported yet",
-            "speculative": "generation.speculative needs engine/speculative, which is not "
-                           "ported yet",
-        }
-        for key, msg in later.items():
-            if bool(gcfg.get(key, False)):
-                raise NotImplementedError(msg)
         if int(gcfg.get("tp", 1)) > 1:
             raise NotImplementedError("generation.tp > 1 needs the tensor-parallel decode "
-                                      "(parallel/tp), which is not ported yet")
+                                      "(parallel/tp), which is not ported yet: ROADMAP Queue 1 "
+                                      "item 11")
+
+    def _megakernel(self, gcfg, quant: bool, fits: bool) -> bool:
+        """``generation.megakernel``: true, false, or ``auto``, which rides the
+        int8 tree only (the megakernel stores bf16 otherwise, which would
+        demote an f32 run's numerics; an explicit true opts into that), a
+        stack of at least 24 blocks and a legal geometry; ``fits``: what the
+        caller adds (the device loop; at most 8 rows)."""
         mk = gcfg.get("megakernel", "auto")
-        if mk == "auto":
-            self.logger.log_info("generation.megakernel=auto resolves to false: the decode "
-                                 "megakernel (K8) is not ported yet")
-        elif bool(mk):
-            raise NotImplementedError("generation.megakernel=true needs the decode megakernel "
-                                      "(K8, ops/decode_block), which is not ported yet")
+        if mk != "auto":
+            return bool(mk)
+        cfg = self.model.config
+        return (quant and fits and cfg.n_layer >= 24
+                and DB.mega_legal(cfg.n_embd, 4 * cfg.n_embd, cfg.n_head))
+
+    def _serve_continuous(self, gcfg, ids_all, quant: bool) -> tp.List[tp.List[int]]:
+        """The continuous-batching engine: here it drains the prompt list, but
+        the same engine serves a live request stream."""
+        from summer_clip_torch.engine.serving import ContinuousBatcher
+
+        max_new = int(gcfg.max_new_tokens)
+        slots = int(gcfg.get("batch_slots", 8))
+        mk = self._megakernel(gcfg, quant, slots <= DB.MAX_STREAMS)
+        l_top = max(len(i) for i in ids_all)
+        if mk:   # the megakernel admits through the bucketed prefill: capacity
+            l_top = -(-l_top // ContinuousBatcher.PREFILL_BUCKET) * ContinuousBatcher.PREFILL_BUCKET
+        eng = ContinuousBatcher(
+            self.model, batch_slots=slots,
+            max_len=min(self.model.config.n_positions, l_top + max_new),
+            temperature=float(gcfg.temperature), top_k=int(gcfg.top_k),
+            top_p=float(gcfg.get("top_p", 1.0)), burst=int(gcfg.get("burst", 16)),
+            pipeline=int(gcfg.get("pipeline", 4)), wave=bool(gcfg.get("wave", True)),
+            quant_int8=quant, megakernel=mk, eot_id=self.tokenizer.eot_token,
+            generator=self._prompt_generator())
+        reqs = [eng.submit(ids, max_new_tokens=max_new) for ids in ids_all]
+        eng.run()
+        return [ids + r.out_ids for ids, r in zip(ids_all, reqs)]
+
+    def _serve_speculative(self, gcfg, ids_all, quant: bool, n_ret: int) -> tp.List[tp.List[int]]:
+        """Greedy speculative decoding: a smaller ClipGPT over the same CLIP
+        vocabulary drafts k tokens per verify forward of the target."""
+        from summer_clip_torch.engine.speculative import generate_device_speculative
+
+        draft_dir = gcfg.get("draft_checkpoint_dir")
+        if not draft_dir:
+            raise ValueError("generation.speculative needs generation.draft_checkpoint_dir")
+        seed = int(self.cfg.get("meta", {}).get("random_state", 42))
+        draft = load_pretrained_clip_gpt(draft_dir, self.tokenizer, seed=seed, device=self.device)
+        if int(gcfg.top_k) != 1 or float(gcfg.get("top_p", 1.0)) < 1.0:
+            self.logger.log_info("speculative decoding is greedy: top_k, top_p and temperature "
+                                 "are ignored")
+        if n_ret > 1:
+            self.logger.log_info("speculative decoding is deterministic: "
+                                 f"num_return_sequences={n_ret} repeats identical samples")
+        model = self.model
+        if quant:
+            model = model.with_tree(quantize_tree(model.tree())).eval()
+            draft = draft.with_tree(quantize_tree(draft.tree())).eval()
+        outs, stats = [], []
+        for ids in ids_all:
+            out, st = generate_device_speculative(
+                model, draft, ids, max_new_tokens=int(gcfg.max_new_tokens),
+                k=int(gcfg.get("speculative_k", 4)), eot_id=self.tokenizer.eot_token,
+                quant_int8=quant, draft_quant_int8=quant, return_stats=True)
+            outs.append(out), stats.append(st)
+        self.logger.log_info({"type": "speculative", "verify_iters": [s["verify_iters"] for s in stats],
+                              "emitted": [s["emitted"] for s in stats]})
+        return outs
 
     def train_loop(self):
         results: dict = {"generations": []}
@@ -384,21 +499,29 @@ class GptGenerator(BaseTrainer):
                       temperature=float(gcfg.temperature), top_k=int(gcfg.top_k),
                       eot_id=self.tokenizer.eot_token, top_p=float(gcfg.get("top_p", 1.0)))
         quant = bool(gcfg.get("quant_int8", False))
-        model = self.model
-        if prompts and quant:   # the stored-int8 tree through the streaming kernels
-            model = model.with_tree(quantize_tree(model.tree())).eval()
         ids_all = [[self.tokenizer.sot_token] + self.tokenizer.encode(p) for p in prompts]
         outs: tp.List[tp.List[int]] = []
-        if prompts and bool(gcfg.get("batched", False)):
+        model = self.model
+        engine = bool(gcfg.get("continuous", False)) or bool(gcfg.get("speculative", False))
+        if prompts and quant and not engine:   # the stored-int8 tree through the kernels
+            model = model.with_tree(quantize_tree(model.tree())).eval()
+        if prompts and bool(gcfg.get("continuous", False)):
+            outs = self._serve_continuous(gcfg, ids_all, quant)
+        elif prompts and bool(gcfg.get("speculative", False)):
+            outs = self._serve_speculative(gcfg, ids_all, quant, n_ret)
+        elif prompts and bool(gcfg.get("batched", False)):
             outs = generate_device_batched(
                 model, ids_all, generator=self._prompt_generator(), quant_int8=quant,
+                megakernel=self._megakernel(gcfg, quant, len(ids_all) <= DB.MAX_STREAMS),
                 approx_top_k=bool(gcfg.get("approx_top_k", False)), **common)
         else:
             device_loop = bool(gcfg.get("device_loop", True))
+            mk = self._megakernel(gcfg, quant, device_loop) if device_loop else False
             for ids in ids_all:
                 if device_loop:
                     outs.append(generate_device(
                         model, ids, generator=self._prompt_generator(), quant_int8=quant,
+                        megakernel=mk,
                         approx_top_k=bool(gcfg.get("approx_top_k", False)), **common))
                 else:
                     outs.append(generate(model, ids, generator=self._prompt_generator(),

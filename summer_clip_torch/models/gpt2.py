@@ -48,7 +48,7 @@ from summer_clip_torch.ops.gemv import QLeaf, gather_rows, is_qleaf, qdot, qmlp
 __all__ = [
     "GPT2Config", "GPT2", "GPT2_CONFIGS", "build_gpt2", "convert_hf_gpt2", "from_flax_variables",
     "ClipGPT", "clip_gpt_trainable_mask", "clip_gpt_full_trainable_mask",
-    "Adapter", "QDense", "LayerNormF32", "GPT2Attention", "GPT2Block", "GPT2Core",
+    "Adapter", "QDense", "LayerNormF32", "GPT2Attention", "GPT2Block", "GPT2Core", "decode_inputs",
 ]
 
 Tree = tp.Dict[str, tp.Any]
@@ -281,7 +281,10 @@ class GPT2Attention(nn.Module):
         kc, vc = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
         if isinstance(idx, torch.Tensor) and idx.dim() == 1:
             rows = torch.arange(q.shape[0], device=q.device)[:, None]
-            slots = idx[:, None] + torch.arange(s_new, device=q.device)[None, :]
+            # a row past the cache's end writes its last slots (the serving
+            # engine advances free and retired rows too; their rows are junk)
+            start = idx.clamp(max=cache["k"].shape[1] - s_new)
+            slots = start[:, None] + torch.arange(s_new, device=q.device)[None, :]
             cache["k"][rows, slots] = kc
             cache["v"][rows, slots] = vc
         else:
@@ -494,6 +497,19 @@ class ClipGPT(_TreeModule):
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
         return _init_cache(self.config, self.dtype, self.core.ln_f.scale.device, batch, max_len)
+
+
+def decode_inputs(model: tp.Union[GPT2, ClipGPT], tokens: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """The block stack's input for one token a row: token embedding (through
+    the emb adapter for a ClipGPT) plus position embedding, (B, D) f32.
+    ``tokens`` and ``positions`` are (B,); positions clamp to the table."""
+    if isinstance(model, ClipGPT):
+        x = model.adapt_embeds(model.embed(tokens[:, None]))[:, 0]
+    else:
+        x = gather_rows(model.wte.embedding, tokens)
+    pos = positions.clamp(0, model.config.n_positions - 1)
+    return x.to(torch.float32) + gather_rows(model.core.wpe, pos).to(torch.float32)
 
 
 def clip_gpt_trainable_mask(path: tp.Sequence[str], leaf=None) -> bool:

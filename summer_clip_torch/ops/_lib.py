@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared library
-with a plain C interface and loaded through ``ctypes``. Nothing here runs at
+with a plain C interface and loaded through ``ctypes`` (``csrc/*.cuh`` holds
+device functions that several sources include). Nothing here runs at
 import time: the first CUDA launch of a wrapper calls :func:`load`. The build
 goes into ``summer_clip_torch/build/`` (listed in ``.gitignore``), named by a
 hash of the source and flags, so an edited source is rebuilt.
@@ -48,7 +49,9 @@ def _nvcc() -> str:
 def build(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` into ``build/lib<name>-<hash>.so`` (cached)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))   # shared device code
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out

@@ -136,18 +136,18 @@ def test_vanishing_nucleus_is_greedy_and_eot_cuts():
     assert cut == greedy[:greedy.index(greedy[5], 3) + 1]
     with pytest.raises(ValueError, match="positions"):
         tgen.generate_device(tm, [1] * 90, max_new_tokens=12)
-    with pytest.raises(NotImplementedError, match="K8"):
+    with pytest.raises(ValueError, match="geometry"):   # width 32: not a megakernel geometry
         tgen.generate_device(tm, [1], megakernel=True)
 
 
-def _checkpoint(tmp_path, seed=5):
-    model_cfg = {"gpt_config": "test-gpt", "clip_emb_dim": 16,
+def _checkpoint(tmp_path, seed=5, gpt_config="test-gpt", name="ckpt"):
+    model_cfg = {"gpt_config": gpt_config, "clip_emb_dim": 16,
                  "adapters": {"emb_hid_dim": 24, "head_hid_dim": 24}}
     vocab = tgen.get_tokenizer().vocab_size
     model = tgen.build_clip_gpt(model_cfg, vocab, seed, device="cpu")
     with torch.no_grad():   # "trained" adapters: not what the seed gives
         model.adapter_emb.fc1.kernel.mul_(1.5)
-    return tgen.save_clip_gpt_checkpoint(tmp_path / "ckpt", model, model_cfg, seed, step=3), model
+    return tgen.save_clip_gpt_checkpoint(tmp_path / name, model, model_cfg, seed, step=3), model
 
 
 def test_checkpoint_holds_the_trainable_subset_and_rebuilds_the_model(tmp_path):
@@ -238,16 +238,81 @@ def test_app_end_to_end_writes_results(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("generation.continuous=true", "engine/serving"),
-    ("generation.speculative=true", "engine/speculative"),
-    ("generation.tp=2", "tensor-parallel"),
-    ("generation.megakernel=true", "K8")])
+    ("generation.tp=2", "tensor-parallel")])
 def test_switches_not_ported_yet_raise(tmp_path, monkeypatch, override, match):
     path, _ = _checkpoint(tmp_path)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         tgen.run(argv=[f"model.checkpoint_dir={path}", "meta.device=cpu", override,
                        'prompts=["a"]'])
+
+
+SERVING_SWITCHES = {
+    # name: (overrides, the run whose greedy ids it must equal or None)
+    "continuous": (["generation.continuous=true", "generation.batch_slots=2"], "device"),
+    "continuous_legacy": (["generation.continuous=true", "generation.wave=false",
+                           "generation.burst=1"], "device"),
+    "continuous_int8_megakernel": (["generation.continuous=true", "generation.quant_int8=true",
+                                    "generation.megakernel=true", "generation.batch_slots=2"],
+                                   "int8_megakernel"),
+    "speculative": (["generation.speculative=true", "generation.speculative_k=3"], "device"),
+    "speculative_int8": (["generation.speculative=true", "generation.quant_int8=true"], None),
+    "megakernel_bf16": (["generation.megakernel=true"], None),
+    "int8_megakernel": (["generation.quant_int8=true", "generation.megakernel=true"], None),
+    "int8_megakernel_batched": (["generation.quant_int8=true", "generation.megakernel=true",
+                                 "generation.batched=true"], "int8_megakernel"),
+}
+
+
+@pytest.fixture(scope="module")
+def serving_app(tmp_path_factory):
+    """A target (width 256: a megakernel geometry) and a draft checkpoint, and
+    a function that runs the app on the CPU and returns ``results.yaml``."""
+    root = tmp_path_factory.mktemp("serving_app")
+    target, _ = _checkpoint(root, gpt_config="test-gpt-mega")
+    draft, _ = _checkpoint(root, seed=6, gpt_config="test-gpt", name="draft")
+    cache = {}
+
+    def run(name, extra):
+        if name not in cache:
+            import os
+
+            work = root / name
+            work.mkdir()
+            cwd = os.getcwd()
+            os.chdir(work)
+            try:
+                tgen.run(argv=[f"model.checkpoint_dir={target}", "meta.device=cpu",
+                               "generation.max_new_tokens=5", "generation.top_k=1",
+                               f"generation.draft_checkpoint_dir={draft}",
+                               'prompts=["a photo of","a","this is"]'] + extra)
+            finally:
+                os.chdir(cwd)
+            cache[name] = yaml.safe_load(sorted(work.rglob("results.yaml"))[-1].read_text())
+        return cache[name]
+
+    return run
+
+
+@pytest.mark.parametrize("name", sorted(SERVING_SWITCHES))
+def test_serving_switches_run_through_the_app(serving_app, name):
+    """``continuous``, ``speculative`` and ``megakernel=true`` through
+    ``gen_gpt.run`` on the CPU: every prompt gets its continuation in
+    ``results.yaml``, and greedy ids equal the route they must equal (an engine
+    or a speculative run the device loop; megakernel routes one another)."""
+    extra, same_as = SERVING_SWITCHES[name]
+    results = serving_app(name, extra)
+    tok = tgen.get_tokenizer()
+    prompts = ["a photo of", "a", "this is"]
+    gens = results["generations"]
+    assert [g["prompt"] for g in gens] == prompts
+    for g, p in zip(gens, prompts):
+        n_prompt = 1 + len(tok.encode(p))
+        assert g["ids"][:n_prompt] == [tok.sot_token] + tok.encode(p)
+        assert len(g["ids"]) == n_prompt + 5 or g["ids"][-1] == tok.eot_token
+    if same_as is not None:
+        other = serving_app(same_as, [] if same_as == "device" else SERVING_SWITCHES[same_as][0])
+        assert [g["ids"] for g in gens] == [g["ids"] for g in other["generations"]]
 
 
 def test_perplexity_matches_the_jax_loss():

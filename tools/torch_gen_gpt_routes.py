@@ -1,7 +1,7 @@
 """Why two routes of one int8 ClipGPT pick different greedy tokens on the card.
 
 Runs on a CUDA card: ``python tools/torch_gen_gpt_routes.py [--out FILE]``
-(about three minutes on an H100). It builds ClipGPT on gpt2-large from seed 0 as
+(about four minutes on an H100). It builds ClipGPT on gpt2-large from seed 0 as
 ``chip_smoke.py`` does, quantises it to the int8 tree and reads:
 
 ``layers``
@@ -14,7 +14,8 @@ Runs on a CUDA card: ``python tools/torch_gen_gpt_routes.py [--out FILE]``
     local). A kernel that is right stays at the f32 sum-order level layer
     locally; the free-running gap grows where roundings flip.
 ``greedy``
-    For each of a few model seeds, greedy ids of the three prompts: solo and batched, through K7, through the
+    For each of a few model seeds, greedy ids of the three prompts: solo and
+    batched, through K7, through the megakernel (K8 over int8 rings), through the
     plain route, and through the plain route with every matrix product and
     softmax summed in f64 (the same functions, no last-bit differences from the
     order of f32 sums). Left padding and ``key_pad`` are right if batched rows
@@ -26,7 +27,13 @@ Runs on a CUDA card: ``python tools/torch_gen_gpt_routes.py [--out FILE]``
     forced against the plain route's logits, as the share of the row's logit
     spread (best minus mean) by which a pick misses the plain route's best; and
     max |d| of the route's own teacher-forced logits against the plain
-    route's, as a share of the same spread.
+    route's, as a share of the same spread. The same for the megakernel route,
+    whose int8 rings move its logits for a reason that is no fault, and for the
+    same fault planted into K8's packed parameters.
+``k8_block``
+    What ``chip_smoke.py`` gates K8 on block by block: max |d| over max |y| of
+    one block against the plain version on equal inputs, for each block of the
+    model, and for the faulted block with the fault planted.
 ``host``
     Wall clock of a decode step in the host loop and in the device loop.
 """
@@ -134,13 +141,18 @@ def layer_probe(qmodel, ids):
     return rows
 
 
-def forced_logits(qmodel, table, ids, n_prompt, solo_steps: bool):
+def forced_logits(qmodel, table, ids, n_prompt, solo_steps):
     """Logits of every generated position of ``ids``, teacher forced: in one
     wide forward (more than 8 rows: the plain versions), or with
     ``solo_steps`` token by token through the cache, as the device loop runs
-    (one row: K7 unless the environment says otherwise)."""
+    (one row: K7 unless the environment says otherwise), or with
+    ``solo_steps="mega"`` through the megakernel route (wide prefill, the cache
+    as int8 rings, K8 a token; packed after any fault was planted)."""
     import torch
 
+    from summer_clip_torch.apps.gen_gpt import _mega_state
+    from summer_clip_torch.models.gpt2 import decode_inputs
+    from summer_clip_torch.ops import decode_block as DB
     from summer_clip_torch.ops import gemv
 
     with torch.inference_mode():
@@ -152,6 +164,16 @@ def forced_logits(qmodel, table, ids, n_prompt, solo_steps: bool):
         out = qmodel(torch.tensor([ids[:n_prompt]], device=DEVICE), position_offset=0, cache=cache,
                      compute_logits=False)
         rows = [gemv.qdot(out["hidden"][:, -1, :], table, torch.float32)[0]]
+        if solo_steps == "mega":
+            packed, head = _mega_state(qmodel, "forced_logits")
+            kv = DB.cache_to_mega(out["cache"], len(ids), torch.int8)
+            for pos in range(n_prompt, len(ids) - 1):
+                offset = torch.full((1,), pos, dtype=torch.long, device=DEVICE)
+                x = decode_inputs(qmodel, torch.tensor([ids[pos]], device=DEVICE), offset)
+                y, *fresh = DB.decode_block(x, packed, kv, offset, nh=qmodel.config.n_head)
+                DB.mega_update_kv(kv, *fresh, offset)
+                rows.append(head(y)[0])
+            return torch.stack(rows)
         for pos in range(n_prompt, len(ids) - 1):
             out = qmodel(torch.tensor([[ids[pos]]], device=DEVICE), position_offset=pos,
                          cache=out["cache"], compute_logits=False)
@@ -159,14 +181,49 @@ def forced_logits(qmodel, table, ids, n_prompt, solo_steps: bool):
         return torch.stack(rows)
 
 
-def reading(qmodel, table, ids, n_prompt, fault=None):
+def k8_block_gate(qmodel, fault, fault_block: int) -> dict:
+    """max |d| / max |y| of K8 against the plain version, one block at a time
+    on the plain version's input (one stream, a ring of 256 rows filled to 179),
+    without and with the fault planted into the packed parameters."""
+    import torch
+
+    from summer_clip_torch.ops import decode_block as DB
+
+    cfg = qmodel.config
+    good = DB.pack_core_params(qmodel.tree()["core"], cfg.n_layer, store="int8")
+    with fault():
+        bad = DB.pack_core_params(qmodel.tree()["core"], cfg.n_layer, store="int8")
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    idx = torch.tensor([179], dtype=torch.int32, device=DEVICE)
+    x = torch.randn((1, cfg.n_embd), device=DEVICE, generator=g)
+    rel, rel_fault = [], None
+    for lay in range(cfg.n_layer):
+        rows = torch.randn((2, 1, 1, 256, cfg.n_embd), device=DEVICE, generator=g)
+        k, ks = DB._quant_rows(rows[0], torch.int8)
+        v, vs = DB._quant_rows(rows[1] * 0.5, torch.int8)
+        kv = {"k": k, "v": v, "ks": ks, "vs": vs}
+        one = {key: val[lay:lay + 1] for key, val in good.items()}
+        want = DB.decode_block_reference(x, one, kv, idx, nh=cfg.n_head)
+        got = DB.decode_block(x, one, kv, idx, nh=cfg.n_head)
+        rel.append(float((got[0] - want[0]).abs().max() / want[0].abs().max()))
+        if lay == fault_block:
+            broken = DB.decode_block(x, {key: val[lay:lay + 1] for key, val in bad.items()}, kv, idx,
+                                     nh=cfg.n_head)
+            rel_fault = float((broken[0] - want[0]).abs().max() / want[0].abs().max())
+        x = want[0]
+    return {"block_rel_max": max(rel), "block_rel_of_the_faulted_block": rel[fault_block],
+            "with_the_fault_planted": rel_fault}
+
+
+def reading(qmodel, table, ids, n_prompt, fault=None, steps=True):
     """(pick share, logit share) of one generated sequence; ``fault`` is a
-    context manager that plants a fault into the K7 route."""
+    context manager that plants a fault into the route walked (``steps``: True
+    for K7's, "mega" for the megakernel's)."""
     import torch
 
     plain = forced_logits(qmodel, table, ids, n_prompt, solo_steps=False)
     with (fault() if fault else contextlib.nullcontext()):
-        own = forced_logits(qmodel, table, ids, n_prompt, solo_steps=True)
+        own = forced_logits(qmodel, table, ids, n_prompt, solo_steps=steps)
     picked = plain.gather(-1, torch.tensor(ids[n_prompt:], device=DEVICE)[:, None])[:, 0]
     best = plain.max(-1).values
     spread = best - plain.mean(-1)
@@ -222,13 +279,17 @@ def main() -> int:
             return gen_gpt.generate_device_batched(qmodel, prompts, **kw)
 
         ids = {"k7 solo": solo(), "k7 batched": batched()}
+        kw["megakernel"] = True
+        ids["k8 solo"], ids["k8 batched"] = solo(), batched()
+        del kw["megakernel"]
         with env(SUMMER_CLIP_GEMV="0"):
             ids["plain solo"], ids["plain batched"] = solo(), batched()
         with sums_in_f64():
             ids["f64 solo"], ids["f64 batched"] = solo(), batched()
         out["greedy"][f"seed {seed}"] = {f"{a} == {b}": same(ids[a], ids[b]) for a, b in (
             ("k7 solo", "plain solo"), ("k7 batched", "k7 solo"), ("plain batched", "plain solo"),
-            ("f64 batched", "f64 solo"), ("plain solo", "f64 solo"), ("k7 solo", "f64 solo"))}
+            ("f64 batched", "f64 solo"), ("plain solo", "f64 solo"), ("k7 solo", "f64 solo"),
+            ("k8 solo", "k7 solo"), ("k8 batched", "k8 solo"), ("k8 solo", "plain solo"))}
         print(f"greedy ids, seed {seed}: " + json.dumps(out["greedy"][f"seed {seed}"]), flush=True)
     table = quant_head_table(qmodel)
     fault_block = min(FAULT_BLOCK, qmodel.config.n_layer - 1)
@@ -249,15 +310,25 @@ def main() -> int:
 
     with fault():
         ids["fault solo"] = solo()
+        kw["megakernel"] = True
+        ids["k8 fault solo"] = solo()
+        del kw["megakernel"]
     n_prompt = [len(p) for p in prompts]
     out["readings"] = {}
-    for name, planted in (("k7 solo", None), ("k7 batched", None),
-                          ("plain solo", lambda: env(SUMMER_CLIP_GEMV="0")), ("fault solo", fault)):
-        shares = [reading(qmodel, table, seq, n, planted) for seq, n in zip(ids[name], n_prompt)]
+    for name, planted, steps in (
+            ("k7 solo", None, True), ("k7 batched", None, True),
+            ("plain solo", lambda: env(SUMMER_CLIP_GEMV="0"), True), ("fault solo", fault, True),
+            ("k8 solo", None, "mega"), ("k8 batched", None, "mega"),
+            ("k8 fault solo", fault, "mega")):
+        shares = [reading(qmodel, table, seq, n, planted, steps)
+                  for seq, n in zip(ids[name], n_prompt)]
         out["readings"][name] = {"pick_share_max": max(s[0] for s in shares),
                                  "logit_share_max": max(s[1] for s in shares),
                                  "ids == plain solo": same(ids[name], ids["plain solo"])}
         print(f"readings {name}: " + json.dumps(out["readings"][name]), flush=True)
+
+    out["k8_block"] = k8_block_gate(qmodel, fault, fault_block)
+    print("k8_block " + json.dumps(out["k8_block"]), flush=True)
 
     def wall(fn):
         sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
@@ -270,6 +341,9 @@ def main() -> int:
     out["host"] = {}
     for name, fn in (("device loop", lambda n: gen_gpt.generate_device(
             qmodel, prompts[0], max_new_tokens=n, top_k=1, quant_int8=True)),
+                     ("device loop, megakernel", lambda n: gen_gpt.generate_device(
+                         qmodel, prompts[0], max_new_tokens=n, top_k=1, quant_int8=True,
+                         megakernel=True)),
                      ("host loop", lambda n: gen_gpt.generate(
                          qmodel, prompts[0], max_new_tokens=n, top_k=1))):
         fn(NEW_TOKENS)
