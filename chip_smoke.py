@@ -13,7 +13,9 @@
    - K5 fused_ln_attn and K6 fused_ln_mlp at the ViT-B/16 image tower
      (B=32, T=197, D=768, 12 heads), its text tower (B=256, T=77, D=512,
      8 heads, causal) and the ViT-L/14 text tower (B=256, T=77, D=768, 12
-     heads, causal);
+     heads, causal); K9 fused_ln_mlp_chunked at the ViT-L/14 image tower
+     (B=32, T=257, D=1024, H=4096), also two runs bit for bit and a sequence
+     alone against the same sequence among others;
    - K4 short_attention_packed at the ViT-L/14 image tower (B=32, T=257,
      D=1024, 16 heads), at text shapes (B=256, T=77, D=512, 8 heads, causal)
      and, for its f32 variant, at gen_gpt's perplexity shape for T = 512 (B=8,
@@ -52,13 +54,14 @@
      beside ``F.scaled_dot_product_attention``;
    - the ViT-B/16 image (B=32) and text (B=256) towers and the ViT-L/14 image
      tower (24 blocks, B=32) through the kernels against the same blocks
-     through the plain versions; RN50's image tower (cuDNN, no kernel of the
-     port) in bf16 against f32.
+     through the plain versions, the ViT-L/14 image tower also in
+     ``FUSED_BLOCK_MODE="mlp"`` (K4 + K9); RN50's image tower (cuDNN, no
+     kernel of the port) in bf16 against f32.
    Each kernel's bound is worked out from these shapes: the larger of its
    bytes (inputs read once, outputs written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    cores, 67 TFLOP/s f32).
-4. Drives the three main paths through the apps' entry points with random
+4. Drives the four main paths through the apps' entry points with random
    weights (seed 0), each with every launch count set to 0 just before it and
    read just after:
    - Tip-Adapter at ViT-B/16: save_features -> eval_clip -> tip_adapter on
@@ -105,6 +108,24 @@
      plain route's; and prints prefill ms, ms a token, tokens/s and the host's
      share of a token for each sampler, the engine's drain time and aggregate
      tokens/s, and the speculative runs' verify iterations and tokens/s.
+   - Training through the frozen towers at ViT-L/14 (``train_coop``): (a)
+     save_features on ``synthetic_1k`` (2000 + 1000 images, batch 32) with
+     ``FUSED_BLOCK_MODE="mlp"`` (K4 and K9 each 24 x 95 launches), the stored
+     rows held against the "block"-mode store of the CLIP-search path (min
+     cosine 0.999) and the f32 CPU model; (b) train_coop with CoOp over those
+     features, 1000 classes, 1 shot, batch 32, a 16-token prompt, one epoch
+     (31 steps) and validation on the test features (K5 and K6 12 times a
+     text-tower forward: 33 forwards); (d) eval_prompt on the learned prompt;
+     (e) train_coop with Gumbel v1a1, the suffix fluency loss and
+     ``loss.fluency=0.5`` through the gpt2-large ClipGPT checkpoint of the
+     gen_gpt path (K4 36 times an LM forward) at ViT-B/16 on ``synthetic``;
+     (f) train_adapter -> eval_adapter over (a)'s features (the zero-shot
+     classifier through K5 / K6). Then, outside the counted run, (c) the
+     gradient gate: one batch's loss and prompt gradient through the kernel
+     route against the route that launches no kernel (``FUSED_BLOCK_MODE=
+     "xla"``, ``SHORT_FUSED_ENABLED=False``), ``loss.backward()`` launching no
+     kernel, a planted fault's readings beside the limits, and the ms of a
+     CoOp step (forward and backward apart, both routes) and its peak memory.
 5. Prints a JSON line of the kernels of the main paths (K12 runs on none,
    so it has a line of its own), then as its last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -163,6 +184,22 @@ TOL_GEMV_REL = 1e-4
 TOL_QMLP_REL = 1e-3
 # K11 f32 vs the plain f32 softmax: other summation order, expf vs torch's exp.
 TOL_FLASH_F32 = 2e-5
+# The gradient gate of the training path: one CoOp batch through the kernel
+# route (K5 / K6 forwards, plain recompute backwards) against the route that
+# launches no kernel, both bf16. The routes' forwards differ by bf16 roundings
+# of intermediates, which the backward sees through its inputs. Limits set
+# between the routes' readings and a planted fault's (64 of block 5's 3072
+# hidden units zeroed in c_fc), both printed by the script. Two runs on the
+# H100 (the trained prompt differs between runs): routes 4.9e-5 and 9.1e-5 /
+# 9.4e-3 and 7.5e-3 / 1 - 4e-5 and 1 - 3e-5, the fault 3.5e-4 and 3.4e-4 /
+# 3.7e-2 and 3.5e-2 / 1 - 7.0e-4 and 1 - 6.3e-4 (PERF.md section 6). The
+# cosine separates them best; any one reading past its limit fails the gate.
+TOL_GATE_LOSS = 2.5e-4      # |loss_kernel - loss_plain| / |loss_plain|
+TOL_GATE_GRAD_REL = 2e-2    # |g_kernel - g_plain| / |g_plain|, the prompt gradient
+TOL_GATE_GRAD_COS = 0.9998  # cosine of the two prompt gradients
+# save_features in "mlp" mode (K9) against the "block" mode store (plain MLP):
+# the same function in bf16, sums in another order
+TOL_MODE_STORE_COS = 0.999
 
 
 def log(msg: str) -> None:
@@ -248,7 +285,8 @@ def check_block_kernels(results: dict) -> None:
     for tower, (b, t, d, heads, causal) in {
             "vit_b16_image": (32, 197, 768, 12, False),
             "vit_b16_text": (256, 77, 512, 8, True),
-            "vit_l14_text": (256, 77, 768, 12, True)}.items():
+            "vit_l14_text": (256, 77, 768, 12, True),
+            "vit_l14_image": (32, 257, 1024, 16, False)}.items():
         p = block_params(d, gen)
         x = _randn((b, t, d), gen)
         attn_args = (x, p["ln_w"], p["ln_b"], p["in_w"], p["in_b"], p["out_w"], p["out_b"])
@@ -260,6 +298,9 @@ def check_block_kernels(results: dict) -> None:
             "K6 fused_ln_mlp": (lambda: bk.fused_ln_mlp(*mlp_args),
                                 lambda: bk.ln_mlp_reference(*mlp_args)),
         }
+        if tower == "vit_l14_image":
+            cases = {"K9 fused_ln_mlp_chunked": (lambda: bk.fused_ln_mlp_chunked(*mlp_args),
+                                                 lambda: bk.ln_mlp_reference(*mlp_args))}
         for name, (kern, plain) in cases.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -273,8 +314,19 @@ def check_block_kernels(results: dict) -> None:
                 f"(tol {TOL_BLOCK_MEAN}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
             if err > TOL_BLOCK_MAX or mean_err > TOL_BLOCK_MEAN:
                 raise AssertionError(f"{name} {tower}: kernel disagrees with its plain version")
+            if name.startswith("K9"):
+                # sums in one fixed order: the same bits twice, a sequence alone as among others
+                again = kern()
+                alone = bk.fused_ln_mlp_chunked(x[7:8].contiguous(), *mlp_args[1:])
+                torch.cuda.synchronize()
+                log(f"K9 two runs bit for bit: {torch.equal(got, again)}; sequence 7 alone == "
+                    f"among 32: {torch.equal(alone[0], got[7])}")
+                if not (torch.equal(got, again) and torch.equal(alone[0], got[7])):
+                    raise AssertionError("K9 is not deterministic or a row depends on others")
             m = b * t
             weights = 4 * d * d if name.startswith("K5") else 8 * d * d
+            # K9 recomputes its tile's c_fc in each of its two column blocks; the
+            # bound counts the MLP's own operations once
             flops = (2 * m * d * 4 * d + 4 * b * heads * t * t * (d // heads)
                      if name.startswith("K5") else 2 * 2 * m * d * 4 * d)
             r = results.setdefault(name, {"max_abs_err": 0.0, "shapes": {}, "library_ms": None})
@@ -896,8 +948,10 @@ def time_towers(results: dict) -> None:
     text (K5 + K6); the ViT-L/14 image tower's 24 blocks (K4 + cuBLAS)."""
     import torch
 
+    from summer_clip_torch.models.clip import modeling
     from summer_clip_torch.models.clip.configs import CLIP_CONFIGS
     from summer_clip_torch.models.clip.modeling import Transformer
+    from summer_clip_torch.ops import block_kernels as bk
 
     gen = torch.Generator().manual_seed(1)
 
@@ -937,6 +991,26 @@ def time_towers(results: dict) -> None:
         if cos < 0.999:
             raise AssertionError(f"tower {name}: kernels disagree with the plain blocks")
         results[f"tower {name}"] = {"ms": ms, "plain_ms": plain_ms}
+        if name.startswith("ViT-L/14"):
+            # the "mlp" mode of the same blocks: K4 + K9, against "block" (K4 + cuBLAS MLP)
+            modeling.FUSED_BLOCK_MODE = "mlp"
+            try:
+                with torch.inference_mode():
+                    k9 = bk.fused_ln_mlp_chunked.launches
+                    got_mlp = mod(x, causal)
+                    ran = bk.fused_ln_mlp_chunked.launches - k9
+                    cos_mlp = float(torch.nn.functional.cosine_similarity(
+                        got_mlp.float().flatten(1), want.float().flatten(1), dim=1).min())
+                    mlp_ms = cuda_time_ms(lambda: mod(x, causal), 5)
+            finally:
+                modeling.FUSED_BLOCK_MODE = "block"
+            log(f"tower {name:20s} FUSED_BLOCK_MODE=mlp (K4 + K9, {ran} K9 launches): "
+                f"{mlp_ms:.3f} ms ({b / mlp_ms * 1e3:.1f} rows/s) against block mode {ms:.3f} ms, "
+                f"min cosine vs plain {cos_mlp:.6f} (tol >= 0.999)")
+            if ran != cfg_t[1] or cos_mlp < 0.999:
+                raise AssertionError(f"tower {name} in mlp mode: K9 did not run on every block "
+                                     f"or disagrees with the plain blocks")
+            results[f"tower {name} mlp mode"] = {"ms": mlp_ms, "block_ms": ms}
         del mod
     torch.cuda.synchronize()
 
@@ -984,6 +1058,7 @@ def launch_counters():
             "K3 onehot_grouped": ck.cache_attention_onehot,
             "K4 short_attention_packed": at.short_attention_packed,
             "K5 fused_ln_attn": bk.fused_ln_attn, "K6 fused_ln_mlp": bk.fused_ln_mlp,
+            "K9 fused_ln_mlp_chunked": bk.fused_ln_mlp_chunked,
             "K12 short_attention": at.short_attention}
 
 
@@ -1081,8 +1156,9 @@ def run_pipeline(work: Path, clip: str = "vit_b16", batch: int = 32,
     return {"times_s": times, "store": store}
 
 
-def check_against_cpu(store: Path, model_name: str, n: int, outs: bool = False):
-    """What the card's bf16 kernel route stored for ``synthetic`` against the
+def check_against_cpu(store: Path, model_name: str, n: int, outs: bool = False,
+                      ds_name: str = "synthetic"):
+    """What the card's bf16 kernel route stored for ``ds_name`` against the
     same random model in f32 on the CPU (plain versions): the first ``n`` test
     features (min cosine), and with ``outs`` the zero-shot scores that
     ``save_image_outs`` stored for the train split against the stored features
@@ -1090,18 +1166,19 @@ def check_against_cpu(store: Path, model_name: str, n: int, outs: bool = False):
     import numpy as np
     import torch
 
-    from summer_clip_torch.data.datasets import SyntheticDataset
+    from summer_clip_torch.data.datasets import SyntheticDataset, SyntheticImageNetScale
     from summer_clip_torch.methods.zeroshot import clip_logits, zeroshot_classifier
     from summer_clip_torch.models.clip import build_clip
     from summer_clip_torch.store import FeatureStore
 
     model, cfg = build_clip(model_name, torch.Generator().manual_seed(0))
-    ds, fs, tag = SyntheticDataset(), FeatureStore(store), model_name.replace("/", "")
+    ds = {"synthetic": SyntheticDataset, "synthetic_1k": SyntheticImageNetScale}[ds_name]()
+    fs, tag = FeatureStore(store), model_name.replace("/", "")
     images = np.stack([SyntheticDataset.render(i.impath, cfg.image_resolution)
                        for i in ds.test[:n]])
     with torch.inference_mode():
         ref = model.encode_image(torch.from_numpy(images)).numpy()
-        got = fs.load(f"synthetic_test-{tag}", "features")[:n]
+        got = fs.load(f"{ds_name}_test-{tag}", "features")[:n]
         cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
         if not outs:
             return float(cos.min()), None
@@ -1879,6 +1956,263 @@ def check_gen_gpt(gen: dict) -> None:
     log(f"phase check gen_gpt: {time.perf_counter() - t0:.2f} s, {json.dumps(laps)}")
 
 
+# --------------------------------------------------------------------------- #
+# the training path: through the frozen towers
+# --------------------------------------------------------------------------- #
+TRAIN_STEPS = 1000 // 32                  # synthetic_1k, 1 shot of 1000 classes, batch 32
+TEXT_FORWARDS = TRAIN_STEPS + 2           # the steps, then the train and val accuracy passes
+IMAGE_BATCHES_1K = -(-2000 // 32) + -(-1000 // 32)
+GUMBEL_STEPS = 32 // 8                    # synthetic: 32 train images, batch 8
+
+
+def _store_cosine(store_a: Path, store_b: Path, key: str) -> float:
+    import numpy as np
+
+    from summer_clip_torch.store import FeatureStore
+
+    a = np.array(FeatureStore(store_a).load(key, "features"), np.float64)
+    b = np.array(FeatureStore(store_b).load(key, "features"), np.float64)
+    if a.shape != b.shape or not np.isfinite(a).all():
+        raise AssertionError(f"{key}: stores of {a.shape} and {b.shape}, or non-finite rows")
+    return float(((a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))).min())
+
+
+def run_training(work: Path, search_store: Path, tip_store: Path, gpt_ckpt: Path,
+                 launches_of) -> dict:
+    """The fourth main path (module docstring, step 4): (a) save_features at
+    ViT-L/14 in "mlp" mode, (b) train_coop with CoOp over 1000 classes, (d)
+    eval_prompt, (e) train_coop with Gumbel and fluency through gpt2-large,
+    (f) train_adapter -> eval_adapter. Returns the times, the (b) trainer (for
+    the gradient gate) and each app's own launch counts."""
+    import yaml
+
+    from summer_clip_torch.apps import (eval_adapter, eval_prompt, save_features, train_adapter,
+                                        train_coop)
+    from summer_clip_torch.models.clip import modeling
+
+    store = work / "features"
+    tag, ds = "ViT-L14", "synthetic_1k"
+    views = [f"dataset_name={ds}", "dataset=synthetic_train", f"dataset.dataset={ds}",
+             "dataset.load_images=false"]
+    captured = {}
+    real_run_trainer = train_coop.run_trainer
+
+    def capture(cls, cfg):
+        captured.setdefault("trainer", real_run_trainer(cls, cfg))
+        return captured["trainer"]
+
+    per_app, last = {}, launches_of()
+
+    def counted_app(name, fn):
+        def run(argv):
+            nonlocal last
+            fn(argv=argv)
+            now = launches_of()
+            per_app[name] = {k: now[k] - last[k] for k in now if now[k] != last[k]}
+            last = now
+        return run
+
+    def mlp_mode(argv):
+        modeling.FUSED_BLOCK_MODE = "mlp"
+        try:
+            save_features.run(argv=argv)
+        finally:
+            modeling.FUSED_BLOCK_MODE = "block"
+
+    train_coop.run_trainer = capture
+    try:
+        times = run_apps([
+            ("a_save_features_mlp_mode", counted_app("a", mlp_mode), [
+                "clip=vit_l14", f"store.root={store}", f"dataset_name={ds}",
+                "dataset@train_dataset=synthetic_train", "dataset@test_dataset=synthetic_test",
+                f"train_dataset.dataset={ds}", f"test_dataset.dataset={ds}",
+                "save_train_outs=false"]),
+            ("b_train_coop", counted_app("b", train_coop.run), [
+                "clip=vit_l14", f"store.root={store}", *views,
+                "dataset@val_dataset=synthetic_test", f"val_dataset.dataset={ds}",
+                "val_dataset.load_images=false", f"data.features_key={ds}_train-{tag}",
+                f"data.val_features_key={ds}_test-{tag}", "data.batch_size=32",
+                "dataset_info.k_shots=1", "prompt.length=16", "training.epochs_num=1"]),
+        ], work)
+        coop_dir, = (work / "b_train_coop").rglob("checkpoints/epoch_1")
+        learned = yaml.safe_load((coop_dir / "prompt.yaml").read_text())["ids"]
+        times.update(run_apps([
+            ("d_eval_prompt", counted_app("d", eval_prompt.run), [
+                "clip=vit_l14", f"store.root={store}", f"dataset_name={ds}",
+                "dataset=synthetic_test", f"dataset.dataset={ds}", "dataset.load_images=false",
+                f"clip_data.features_key={ds}_test-{tag}", f"prompts_ids=[{learned}]"]),
+            ("e_train_coop_gumbel_fluency", counted_app("e", train_coop.run), [
+                "clip=vit_b16", f"store.root={tip_store}", "dataset_name=synthetic",
+                "dataset=synthetic_train", "dataset.load_images=false", "val_dataset=null",
+                "data.features_key=synthetic_train-ViT-B16", "data.batch_size=8",
+                "training.epochs_num=1", "prompt.length=8", "prompt_model=gumbel_v1a1",
+                "temp_scheduler=linear", f"temp_scheduler.steps_num={GUMBEL_STEPS}",
+                "lm_loss=suffix", "loss.fluency=0.5", f"+gpt.checkpoint_dir={gpt_ckpt}"]),
+            ("f_train_adapter", counted_app("f_train", train_adapter.run), [
+                "clip=vit_l14", f"store.root={store}", *views,
+                f"data.features_key={ds}_train-{tag}", "data.batch_size=32",
+                "training.epochs_num=2", "training.adam_params.lr=0.001"]),
+        ], work))
+        adapter_dir, = (work / "f_train_adapter").rglob("checkpoints/epoch_2")
+        times.update(run_apps([
+            ("f_eval_adapter", counted_app("f_eval", eval_adapter.run), [
+                "clip=vit_l14", f"store.root={store}", f"dataset_name={ds}",
+                "dataset=synthetic_test", f"dataset.dataset={ds}", "dataset.load_images=false",
+                f"eval.checkpoint_dir={adapter_dir}", f"eval.features_key={ds}_test-{tag}"]),
+        ], work))
+    finally:
+        train_coop.run_trainer = real_run_trainer
+
+    # (a) the "mlp" mode store against the "block" mode store of the same model
+    for split in ("train", "test"):
+        cos = _store_cosine(store, search_store, f"{ds}_{split}-{tag}")
+        log(f"train_coop (a): {ds}_{split}-{tag} stored in mlp mode (K9) vs block mode: "
+            f"min cosine {cos:.6f} (tol >= {TOL_MODE_STORE_COS})")
+        if cos < TOL_MODE_STORE_COS:
+            raise AssertionError("mlp-mode features disagree with the block-mode store")
+    # (b) records and files
+    recs = records(work / "b_train_coop", "prompt")
+    if len(recs) != 1 or len(recs[0]["prompt_ids"]) != 16:
+        raise AssertionError(f"train_coop: expected one 16-token prompt record, got {recs}")
+    if not {"model.ckpt", "meta.yaml", "prompt.yaml"} <= {p.name for p in coop_dir.iterdir()}:
+        raise AssertionError(f"train_coop: {coop_dir} lacks the checkpoint files")
+    epoch = _epoch_record(work / "b_train_coop")
+    log(f"train_coop (b): {TRAIN_STEPS} steps, loss/clip {epoch['loss/clip']:.4f}, train acc1 "
+        f"{epoch['train/acc1']:.2f}, val acc1 {epoch['val/acc1']:.2f}, prompt "
+        f"{recs[0]['prompt_text']!r}")
+    # (d), (e), (f)
+    for sub, kind in (("d_eval_prompt", "eval_prompt"), ("f_eval_adapter", "eval_adapter")):
+        rec = records(work / sub, kind)
+        if len(rec) != 1 or not 0 <= rec[0]["acc1"] <= 100:
+            raise AssertionError(f"{sub}: expected one {kind} record in range, got {rec}")
+        log(f"train_coop ({sub[0]}): {kind} acc1 {rec[0]['acc1']:.2f} acc5 {rec[0]['acc5']:.2f}")
+    gumbel = _epoch_record(work / "e_train_coop_gumbel_fluency")
+    norms = [v for k, v in gumbel.items() if k.startswith("prompt_grad_norm/")]
+    log(f"train_coop (e): loss/clip {gumbel['loss/clip']:.4f} loss/fluency "
+        f"{gumbel['loss/fluency']:.4f}, prompt_embs gradient norms {min(norms):.3e} .. "
+        f"{max(norms):.3e}")
+    if len(norms) != 8 or not all(0 < v < float("inf") for v in norms):
+        raise AssertionError("train_coop (e): the prompt_embs gradient is not finite and non-zero")
+
+    # each app's own launches: exact where the path fixes them
+    want = {"a": {"K4 short_attention_packed": 24 * IMAGE_BATCHES_1K,
+                  "K9 fused_ln_mlp_chunked": 24 * IMAGE_BATCHES_1K},
+            "b": {"K5 fused_ln_attn": 12 * TEXT_FORWARDS, "K6 fused_ln_mlp": 12 * TEXT_FORWARDS},
+            "e": {"K4 short_attention_packed": 36 * GUMBEL_STEPS}}
+    log(f"train_coop launches by app: {json.dumps(per_app)}")
+    for app, counts in want.items():
+        for k, n in counts.items():
+            if per_app[app].get(k, 0) != n:
+                raise AssertionError(f"train_coop ({app}): {k} launched {per_app[app].get(k, 0)} "
+                                     f"times, expected {n}")
+    for app in ("d", "f_train", "f_eval"):
+        if not (per_app[app].get("K5 fused_ln_attn", 0) > 0 and per_app[app].get("K6 fused_ln_mlp", 0) > 0):
+            raise AssertionError(f"train_coop ({app}): the text tower did not run K5 and K6")
+    return {"times_s": times, "store": store, "trainer": captured["trainer"]}
+
+
+def _epoch_record(run_root: Path) -> dict:
+    rec_file, = run_root.rglob("records.jsonl")
+    recs = [json.loads(line) for line in rec_file.read_text().splitlines()]
+    return [r for r in recs if "epoch" in r and "loss/total" in r][-1]
+
+
+def check_training(trainer) -> None:
+    """(c) The gradient gate on one CoOp batch of the (b) trainer, the planted
+    fault's readings, and the step's time and peak memory."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.models.clip import modeling
+    from summer_clip_torch.ops import attention as at
+
+    counters = launch_counters()
+    counts = lambda: {k: f.launches for k, f in counters.items()}   # noqa: E731
+    idx = torch.from_numpy(trainer.train_indices[:32]).to(trainer.device)
+    labels = torch.from_numpy(trainer.labels).to(trainer.device)[idx]
+    feats = trainer.image_features[idx]
+    lm_idx = trainer.labels[trainer.train_indices[:32]]
+    prompt0 = {k: v.detach().clone() for k, v in trainer.prompt_params.items()}
+
+    def step(timed=False):
+        params = {k: v.clone().requires_grad_() for k, v in prompt0.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.loss_fn(params, feats, labels, lm_idx, 1.0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        before = counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        return float(loss), params["prompt_embs"].grad.float(), launched, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    def routes(name):
+        before = counts()
+        out = step()
+        fwd = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        if out[2]:
+            raise AssertionError(f"gate ({name}): loss.backward() launched {out[2]}")
+        return out, fwd
+
+    def plain_route(fn):
+        modeling.FUSED_BLOCK_MODE, at.SHORT_FUSED_ENABLED = "xla", False
+        try:
+            return fn()
+        finally:
+            modeling.FUSED_BLOCK_MODE, at.SHORT_FUSED_ENABLED = "block", True
+
+    def readings(a, b):
+        return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]),
+                "grad_rel": float((a[1] - b[1]).norm() / b[1].norm()),
+                "grad_cos": float(torch.nn.functional.cosine_similarity(
+                    a[1].flatten(), b[1].flatten(), dim=0))}
+
+    (kern, kern_fwd), (plain, plain_fwd) = routes("kernels"), plain_route(lambda: routes("plain"))
+    if kern_fwd != {"K5 fused_ln_attn": 12, "K6 fused_ln_mlp": 12} or plain_fwd:
+        raise AssertionError(f"gate: kernel route launched {kern_fwd}, plain route {plain_fwd}")
+    gate = readings(kern, plain)
+    # the planted fault: 64 hidden units of block 5's c_fc zeroed on the kernel route
+    mlp = trainer.session.model.transformer.resblocks[5].mlp
+    saved = mlp.c_fc.weight[:64].clone(), mlp.c_fc.bias[:64].clone()
+    with torch.no_grad():
+        mlp.c_fc.weight[:64] = 0
+        mlp.c_fc.bias[:64] = 0
+    try:
+        fault = readings(routes("fault")[0], plain)
+    finally:
+        with torch.no_grad():
+            mlp.c_fc.weight[:64], mlp.c_fc.bias[:64] = saved
+    fmt = lambda r: ", ".join(f"{k} {v:.4e}" for k, v in r.items())   # noqa: E731
+    log(f"gate: kernel route vs plain route on one batch of 32 (loss {plain[0]:.6f}, |g| "
+        f"{float(plain[1].norm()):.4e}): {fmt(gate)}; limits loss_rel <= {TOL_GATE_LOSS}, "
+        f"grad_rel <= {TOL_GATE_GRAD_REL}, grad_cos >= {TOL_GATE_GRAD_COS}; planted fault "
+        f"(block 5, c_fc hidden 0..63 zeroed): {fmt(fault)}")
+    if not (float(kern[1].norm()) > 0 and np.isfinite(kern[0])):
+        raise AssertionError("gate: the kernel route's prompt gradient is zero or not finite")
+    if (gate["loss_rel"] > TOL_GATE_LOSS or gate["grad_rel"] > TOL_GATE_GRAD_REL
+            or gate["grad_cos"] < TOL_GATE_GRAD_COS):
+        raise AssertionError("gate: the kernel route's loss or gradient disagrees with plain")
+    if not (fault["loss_rel"] > TOL_GATE_LOSS or fault["grad_rel"] > TOL_GATE_GRAD_REL
+            or fault["grad_cos"] < TOL_GATE_GRAD_COS):
+        raise AssertionError("gate: the limits do not catch the planted fault")
+
+    # a CoOp step's time, forward and backward apart, both routes, and its peak memory
+    for name, run in (("kernels", step), ("plain", lambda: plain_route(step)),
+                      ("kernels", step), ("plain", lambda: plain_route(step))):
+        run()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = [run()[3:] for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated() - base
+        fwd, bwd = (float(np.median([t[i] for t in times])) for i in (0, 1))
+        log(f"CoOp step, {len(trainer.classes)} classes x 77 tokens, ViT-L/14 text tower, "
+            f"{name} route: forward {fwd:.2f} ms, backward {bwd:.2f} ms, step {fwd + bwd:.2f} ms, "
+            f"peak memory of a step {peak / 2 ** 30:.3f} GiB above the resident "
+            f"{base / 2 ** 30:.3f} GiB")
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces, shape whose times stand in the kernels line)
     "K1 cache_dense": ("summer_clip_torch/csrc/cache_kernels.cu",
@@ -1893,6 +2227,8 @@ KERNELS = {
                          "summer_clip_tpu/ops/block_kernels.py:255", "vit_b16_image"),
     "K6 fused_ln_mlp": ("summer_clip_torch/csrc/block_kernels.cu",
                         "summer_clip_tpu/ops/block_kernels.py:75", "vit_b16_image"),
+    "K9 fused_ln_mlp_chunked": ("summer_clip_torch/csrc/block_kernels.cu",
+                                "summer_clip_tpu/ops/block_kernels.py:132", "vit_l14_image"),
     "K12 short_attention": ("summer_clip_torch/csrc/attention_kernels.cu",
                             "summer_clip_tpu/ops/attention.py:195", "vit_l14_image"),
     "K7 streamed_qmatmul": ("summer_clip_torch/csrc/gemv_kernels.cu",
@@ -1908,10 +2244,12 @@ TIP_PATH = ("K5 fused_ln_attn", "K6 fused_ln_mlp", "K3 onehot_grouped", "K2 labe
 SEARCH_PATH = ("K1 cache_dense", "K2 labels_dense", "K3 onehot_grouped",
                "K4 short_attention_packed", "K5 fused_ln_attn", "K6 fused_ln_mlp")
 GEN_PATH = ("K7 streamed_qmatmul", "K8 decode_block", "K10 fused_qmlp", "K11 flash_attention")
+TRAIN_PATH = ("K4 short_attention_packed", "K5 fused_ln_attn", "K6 fused_ln_mlp",
+              "K9 fused_ln_mlp_chunked")
 
 
 def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
-    """``launches`` is the count over the three main paths;
+    """``launches`` is the count over the four main paths;
     ``launches_by_path`` gives each path's own."""
     src, replaces, shape = KERNELS[name]
     r = results[name]
@@ -1984,9 +2322,25 @@ def main() -> int:
             lambda: run_gen_gpt(Path(tmp) / "gen", lambda: {k: f.launches for k, f in counters.items()}))
         check_gen_gpt(gen)
 
-    on_path = [n for n in KERNELS if n in TIP_PATH or n in SEARCH_PATH or n in GEN_PATH]
+        train, train_launches = counted(
+            "train_coop ViT-L/14", TRAIN_PATH,
+            lambda: run_training(Path(tmp) / "train", search["store"], pipe["store"],
+                                 Path(tmp) / "gen" / "ckpt" / "step_0",
+                                 lambda: {k: f.launches for k, f in counters.items()}))
+        t0 = time.perf_counter()
+        cos, _ = check_against_cpu(train["store"], "ViT-L/14", n=2, ds_name="synthetic_1k")
+        log(f"stored ViT-L/14 features in mlp mode vs f32 CPU model: min cosine {cos:.6f} "
+            f"(tol >= 0.99), {time.perf_counter() - t0:.2f} s")
+        if cos < 0.99:
+            raise AssertionError("stored mlp-mode ViT-L/14 features disagree with the f32 model")
+        t0 = time.perf_counter()
+        check_training(train.pop("trainer"))
+        log(f"phase check train_coop: {time.perf_counter() - t0:.2f} s")
+
+    paths = (TIP_PATH, SEARCH_PATH, GEN_PATH, TRAIN_PATH)
+    on_path = [n for n in KERNELS if any(n in path for path in paths)]
     by_path = {n: {"tip_adapter": tip_launches[n], "clip_search": search_launches[n],
-                   "gen_gpt": gen_launches[n]} for n in KERNELS}
+                   "gen_gpt": gen_launches[n], "train_coop": train_launches[n]} for n in KERNELS}
     kernels = [kernel_entry(n, results, by_path[n]) for n in on_path]
     off_path = [kernel_entry(n, results, by_path[n]) for n in KERNELS if n not in on_path]
     log(f"card: {card}")

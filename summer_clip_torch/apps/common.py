@@ -1,9 +1,11 @@
 """Shared app plumbing: CLIP sessions on one device + feature extraction.
 
 Counterpart of ``summer_clip_tpu/apps/common.py``. A :class:`ClipSession`
-holds a frozen CLIP on an explicit device in the compute dtype and encodes
-under ``torch.inference_mode()``; uint8 image batches are normalized on the
-device. There is no mesh: one device per session.
+holds a frozen CLIP on an explicit device in the compute dtype. Its image and
+token encoders run under ``torch.inference_mode()``; uint8 image batches are
+normalized on the device. :meth:`ClipSession.encode_text_embeds` runs with
+autograd, so prompt learning differentiates through the frozen text tower
+with respect to the embeddings. There is no mesh: one device per session.
 """
 
 from __future__ import annotations
@@ -57,6 +59,22 @@ class ClipSession:
     def encode_text(self, tokens) -> torch.Tensor:
         return self.model.encode_text(torch.as_tensor(tokens).to(self.device).long())
 
+    def encode_text_embeds(self, embeds: torch.Tensor, lens) -> torch.Tensor:
+        """Text features of (B, T, width) token embeddings pooled at
+        ``lens - 1``; differentiable with respect to ``embeds`` (not under
+        ``inference_mode``: the tower's parameters stay frozen)."""
+        return self.model.encode_text_embeds(embeds.to(self.device),
+                                             torch.as_tensor(lens).to(self.device))
+
+    def token_embedding_table(self) -> np.ndarray:
+        """(vocab, width) CLIP token embeddings in f32 (the prompt-learning
+        substrate)."""
+        return self.model.token_embedding.weight.detach().float().cpu().numpy()
+
+    @property
+    def logit_scale(self) -> float:
+        return float(self.model.logit_scale.detach().float().exp())
+
     @property
     def input_size(self) -> int:
         return self.cfg.image_resolution
@@ -67,10 +85,13 @@ def create_clip_session(model_name: str, checkpoint_path: tp.Optional[str] = Non
                         device: tp.Optional[tp.Union[str, torch.device]] = None,
                         logger: tp.Optional[tp.Any] = None,
                         proj_path: tp.Optional[str] = None,
-                        quant: tp.Optional[str] = None, seed: int = 0) -> ClipSession:
+                        quant: tp.Optional[str] = None, seed: int = 0,
+                        remat: tp.Optional[bool] = None) -> ClipSession:
     """A session from a converted checkpoint when ``checkpoint_path`` exists,
     otherwise random towers drawn from ``torch.Generator().manual_seed(seed)``.
-    ``proj_path``: optional ``.npy`` (width, embed_dim) vision projection."""
+    ``proj_path``: optional ``.npy`` (width, embed_dim) vision projection.
+    ``remat``: checkpoint every residual block's activations when a gradient
+    flows through the towers (config ``clip.remat``)."""
     if quant is not None:
         raise NotImplementedError(f"clip.quant={quant!r}: int8 towers are not ported yet")
     device = torch.device(device) if device is not None else resolve_device()
@@ -93,7 +114,7 @@ def create_clip_session(model_name: str, checkpoint_path: tp.Optional[str] = Non
             old.copy_(w.to(old.dtype))
         if logger:
             logger.log_info(f"Swapped vision projection from {proj_path}")
-    return ClipSession(model, cfg, device)
+    return ClipSession(model.set_remat(bool(remat)), cfg, device)
 
 
 def resolve_prompting(cfg, view) -> tp.Tuple[tp.Sequence[str], tp.Sequence[str]]:

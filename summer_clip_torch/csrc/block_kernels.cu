@@ -4,6 +4,8 @@
 //   K5 fused_ln_attn  ->  ln_attn_heads (one block per (sequence, head))
 //                         + linear_residual (out_proj + bias + residual)
 //   K6 fused_ln_mlp   ->  ln_mlp (one block per 32- or 48-row tile, all D columns)
+//   K9 fused_ln_mlp_chunked -> ln_mlp at D = 1024 (one block per 32-row tile and
+//                         512-column half of the output; see below)
 //
 // What bounds them on Hopper. The TPU keeps all four attention weights
 // (4*D^2 bf16 = 4.7 MB at ViT-B) and both MLP weights resident in 16 MB of
@@ -19,6 +21,20 @@
 //     at a time and consumed at once by c_proj, whose MR x D f32 accumulators
 //     stay in registers (so D is 512 or 768). Next step: wgmma + TMA with a
 //     larger row tile.
+//   - K9 (the ViT-L/14 width, D = 1024, H = 4096): a 32-row tile's 32 x 1024
+//     f32 accumulators would be 128 registers a thread before any fragment, so
+//     a block owns the tile's rows and one 512-column half of the output. Each
+//     of the two blocks of a row tile makes the tile's whole hidden (c_fc over
+//     all D inputs), 64 columns at a time, and keeps only its half of c_proj:
+//     1.5x the MLP's operations. On the TPU the hidden chunks are a
+//     sequential grid axis summed in VMEM scratch; here one block walks all
+//     4096 hidden columns in order, so every output is summed in f32 across
+//     the chunks in one fixed order (two runs agree bit for bit, a row does
+//     not depend on the rows beside it). Bound on the card: operations (138
+//     GFLOP of the unrecomputed MLP at B = 32, T = 257). Alternatives for the
+//     speed work: a hidden-chunk grid axis with f32 partials added in a fixed
+//     order by the last block to arrive (K7's ticket), or a 2-CTA cluster
+//     that splits the hidden and adds the halves over distributed shared memory.
 // Weights and activations are staged 16 bytes a thread, and the next weight
 // slices are in flight (in registers, or by cp.async into a 3-stage ring)
 // while the current one is multiplied.
@@ -454,39 +470,44 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-template <int D, int MR, int KS>
+// NC: output columns a block owns (blockIdx.y picks which NC of the D); K6
+// takes all D, K9 half of them.
+template <int D, int MR, int KS, int NC = D>
 struct MlpTile {
-  static constexpr int kD = D, kMR = MR, kKS = KS;
+  static constexpr int kD = D, kMR = MR, kKS = KS, kNC = NC;
   static constexpr int kWarps = MR / 16 * (kHc / 16);  // one c_fc tile per warp
   static constexpr int kThreads = kWarps * 32;
   static constexpr int kRowTiles = MR / 16;
-  static constexpr int kNcf = D / 16 / kWarps;         // c_proj column tiles per warp
-  static_assert(D % (16 * kWarps) == 0 && D % KS == 0, "tile does not divide D");
+  static constexpr int kNcf = NC / 16 / kWarps;        // c_proj column tiles per warp
+  static_assert(NC % (16 * kWarps) == 0 && D % NC == 0 && D % KS == 0,
+                "tile does not divide D");
   static constexpr int kSmemBytes =
-      (MR * (D + kPad) + kStages * kHc * (KS + kPad) + MR * (kHc + kPad) + D * (kHc + kPad)) * 2
+      (MR * (D + kPad) + kStages * kHc * (KS + kPad) + MR * (kHc + kPad) + NC * (kHc + kPad)) * 2
       + kWarps * 256 * 4;
 };
-typedef MlpTile<512, 32, 128> MlpText;   // ViT-B text width
-typedef MlpTile<768, 48, 64> MlpImage;   // ViT-B image width
+typedef MlpTile<512, 32, 128> MlpText;          // ViT-B text width
+typedef MlpTile<768, 48, 64> MlpImage;          // ViT-B image width
+typedef MlpTile<1024, 32, 64, 512> MlpWide;     // ViT-L/14 image width (K9)
 
-template <int D, int MR, int KS>
-__global__ void __launch_bounds__(MlpTile<D, MR, KS>::kThreads)
+template <int D, int MR, int KS, int NC>
+__global__ void __launch_bounds__(MlpTile<D, MR, KS, NC>::kThreads)
 ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
               const float* __restrict__ lnb, const bf16* __restrict__ w1,
               const bf16* __restrict__ b1, const bf16* __restrict__ w2,
               const bf16* __restrict__ b2, bf16* __restrict__ out, int M, int Hd, float eps) {
-  typedef MlpTile<D, MR, KS> Tile;
+  typedef MlpTile<D, MR, KS, NC> Tile;
   constexpr int kNw = Tile::kWarps, kNt = Tile::kThreads, kRt = Tile::kRowTiles;
   constexpr int kNcf = Tile::kNcf;
   constexpr int ldy = D + kPad, ldk = KS + kPad, ldh = kHc + kPad;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.x * MR;
+  const int n0 = blockIdx.y * NC;                      // first output column of the block
   bf16* y_s = reinterpret_cast<bf16*>(smem);          // MR x ldy
   bf16* w1_s = y_s + MR * ldy;                         // kStages x kHc x ldk (hidden, k)
   bf16* h_s = w1_s + kStages * kHc * ldk;              // MR x ldh
-  bf16* w2_s = h_s + MR * ldh;                         // D x ldh    (out rows, hidden)
-  float* scratch = reinterpret_cast<float*>(w2_s + D * ldh);  // 256 floats / warp
+  bf16* w2_s = h_s + MR * ldh;                         // NC x ldh   (out rows, hidden)
+  float* scratch = reinterpret_cast<float*>(w2_s + NC * ldh);  // 256 floats / warp
   float* my = scratch + warp * 256;
 
   constexpr int nk = D / KS;
@@ -498,9 +519,9 @@ ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
                  w1 + (size_t)(hc0 + g / (KS / 8)) * D + k0 + (g % (KS / 8)) * 8);
   };
   auto issue_w2 = [&](int hc0) {
-    for (int g = tid; g < D * kHc / 8; g += kNt)
+    for (int g = tid; g < NC * kHc / 8; g += kNt)
       cp_async16(w2_s + (g / (kHc / 8)) * ldh + (g % (kHc / 8)) * 8,
-                 w2 + (size_t)(g / (kHc / 8)) * Hd + hc0 + (g % (kHc / 8)) * 8);
+                 w2 + (size_t)(n0 + g / (kHc / 8)) * Hd + hc0 + (g % (kHc / 8)) * 8);
   };
   issue_w1(0);
   cp_async_commit();
@@ -525,7 +546,7 @@ ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
 
   const float gelu_c = __bfloat162float(__float2bfloat16(1.702f));
   const int hw_r = warp / (kHc / 16), hw_c = warp % (kHc / 16);  // this warp's c_fc tile
-  FragC oacc[kRt][kNcf];                               // c_proj: all rows, kNcf col tiles
+  FragC oacc[kRt][kNcf];                               // c_proj: all rows, kNcf col tiles of NC
 #pragma unroll
   for (int i = 0; i < kRt; ++i)
 #pragma unroll
@@ -587,7 +608,7 @@ ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int m = m0 + i * 16 + e / 16;
-        const int n = (warp * kNcf + c) * 16 + e % 16;
+        const int n = n0 + (warp * kNcf + c) * 16 + e % 16;
         if (m < M) {
           const float v = round_bf16(round_bf16(my[e]) + __bfloat162float(b2[n]));
           out[(size_t)m * D + n] =
@@ -602,9 +623,10 @@ template <class Tile>
 int launch_ln_mlp(const void* x, const void* lnw, const void* lnb, const void* w1,
                   const void* b1, const void* w2, const void* b2, void* out, int M, int Hd,
                   float eps, cudaStream_t stream) {
-  auto kernel = ln_mlp_kernel<Tile::kD, Tile::kMR, Tile::kKS>;
+  auto kernel = ln_mlp_kernel<Tile::kD, Tile::kMR, Tile::kKS, Tile::kNC>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmemBytes);
-  kernel<<<(M + Tile::kMR - 1) / Tile::kMR, Tile::kThreads, Tile::kSmemBytes, stream>>>(
+  const dim3 grid((M + Tile::kMR - 1) / Tile::kMR, Tile::kD / Tile::kNC);
+  kernel<<<grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(
       (const bf16*)x, (const float*)lnw, (const float*)lnb, (const bf16*)w1, (const bf16*)b1,
       (const bf16*)w2, (const bf16*)b2, (bf16*)out, M, Hd, eps);
   return (int)cudaGetLastError();
@@ -657,6 +679,16 @@ int ln_mlp_bf16(const void* x, const void* lnw, const void* lnb, const void* w1,
     return launch_ln_mlp<MlpText>(x, lnw, lnb, w1, b1, w2, b2, out, M, Hd, eps, s);
   if (D == 768)
     return launch_ln_mlp<MlpImage>(x, lnw, lnb, w1, b1, w2, b2, out, M, Hd, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K9. D = 1024 (the ViT-L/14 image width); Hd % 64 == 0 (the wrapper checks)
+int ln_mlp_chunked_bf16(const void* x, const void* lnw, const void* lnb, const void* w1,
+                        const void* b1, const void* w2, const void* b2, void* out, int M,
+                        int D, int Hd, float eps, void* stream) {
+  if (D == 1024)
+    return launch_ln_mlp<MlpWide>(x, lnw, lnb, w1, b1, w2, b2, out, M, Hd, eps,
+                                  (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,9 +3,11 @@
 Counterpart of ``summer_clip_tpu/engine/trainer.py`` with the same hooks:
 ``setup()`` chains the setup hooks, ``train_loop()`` iterates epochs with
 timed train/val phases, metric logging and per-epoch checkpoints; one-shot
-evaluators override ``train_loop``. There is no device mesh and no preemption
-guard yet. The device comes from the config (``meta.device``) or is CUDA when
-present; seeding covers python, numpy and torch, and ``self.generator`` is the
+evaluators override ``train_loop``. :func:`run_trainer` guards the whole run
+with a SIGTERM preemption guard (``engine/preemption.py``): after the first
+signal the epoch in flight finishes, its checkpoint is written, and the loop
+stops. There is no device mesh. The device comes from the config
+(``meta.device``) or is CUDA when present; seeding covers python, numpy and torch, and ``self.generator`` is the
 run's explicit ``torch.Generator``.
 """
 
@@ -128,6 +130,25 @@ class BaseTrainer:
     def save_epoch_model(self, epoch_num: int):
         pass
 
+    def _install_preemption_guard(self):
+        """SIGTERM -> graceful stop (engine/preemption.py). SIGTERM only:
+        trapping SIGINT would swallow the first Ctrl-C in apps whose own
+        train_loop never polls the flag. Signal handlers are main-thread-only;
+        a trainer driven from another thread runs unguarded."""
+        import signal
+
+        from summer_clip_torch.engine.preemption import PreemptionGuard
+
+        try:
+            self.preempt = PreemptionGuard(signals=(signal.SIGTERM,)).install()
+        except ValueError:  # not the main thread
+            self.preempt = None
+        return self.preempt
+
+    def preempted(self) -> bool:
+        guard = getattr(self, "preempt", None)
+        return guard is not None and guard.triggered
+
     def train_loop(self):
         epochs_num = int(self.cfg.training.epochs_num)
         calculate_every = int(self.cfg.get("log", {}).get("calculate_every", 1))
@@ -143,12 +164,22 @@ class BaseTrainer:
             self.logger.log_epoch(epoch_num, epoch_info)
             self.save_epoch_model(epoch_num)
             time_log.now(epoch_num)
+            if self.preempted():
+                self.logger.log_info({"type": "preempted", "epoch": epoch_num})
+                break
         time_log.end()
 
 
 def run_trainer(trainer_cls: tp.Type[BaseTrainer], cfg: ConfigNode) -> BaseTrainer:
     print(to_yaml(cfg))
     trainer = trainer_cls(cfg)
-    trainer.setup()
-    trainer.train_loop()
+    # guard the whole run, setup included: an eviction does not wait for the
+    # first epoch
+    guard = trainer._install_preemption_guard()
+    try:
+        trainer.setup()
+        trainer.train_loop()
+    finally:
+        if guard is not None:
+            guard.restore()
     return trainer

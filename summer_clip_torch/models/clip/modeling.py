@@ -15,21 +15,27 @@ Conventions kept from the JAX package:
 - the text tower pools at the argmax token id for token inputs and at
   ``len - 1`` for embeddings (:meth:`TextTransformer.from_embeds`).
 
-Each half of a residual block picks its route by what the fused kernels take
-(:func:`~summer_clip_torch.ops.block_kernels.fused_attn_ok`,
-:func:`~summer_clip_torch.ops.block_kernels.fused_mlp_ok`; the JAX package's
-``_fuse_attn_ok`` / ``_fuse_mlp_ok`` give the same outcome for the public
-configs). ViT-B/32, ViT-B/16 and every text tower run K5
-(:func:`~summer_clip_torch.ops.block_kernels.fused_ln_attn`) and K6
-(:func:`~summer_clip_torch.ops.block_kernels.fused_ln_mlp`). The ViT-L/14 and
-ViT-L/14@336px image towers (T = 257 / 577, D = 1024) run ``LayerNormF32 ->
-in_proj -> K4 -> out_proj``
-(:func:`~summer_clip_torch.ops.attention.short_attention_packed`) and
+Each half of a residual block picks its route by :func:`attn_route` and
+:func:`mlp_route`: the JAX package's ``_fuse_attn_ok`` / ``_fuse_mlp_ok`` and
+``_mlp_dispatch`` under :data:`FUSED_BLOCK_MODE` (its modes and its default,
+``"block"``), at the kernels' bf16 item size, and what the kernels take
+(:func:`~summer_clip_torch.ops.block_kernels.fused_attn_ok` and its MLP
+siblings; the two agree for every public geometry). In ``"block"`` mode
+ViT-B/32, ViT-B/16 and every text tower run K5
+(:func:`~summer_clip_torch.ops.block_kernels.fused_ln_attn_ad`) and K6; the
+ViT-L/14 and ViT-L/14@336px image towers (T = 257 / 577, D = 1024) run
+``LayerNormF32 -> in_proj -> multi_head_attention (K4) -> out_proj`` and
 ``LayerNormF32 -> c_fc -> QuickGELU -> c_proj`` with ``torch.matmul``, the
-products the JAX package leaves to XLA there. A kernel that refuses its input
-raises; no route is chosen by catching that. The ModifiedResNet tower uses
-stock ``torch.nn.Conv2d`` and runs none of the hand-written kernels, as it
-runs no Pallas kernel in the JAX package.
+products the JAX package leaves to XLA there. In ``"mlp"`` mode the ViT-L/14
+image tower's MLP half takes K9 (:func:`~summer_clip_torch.ops.block_kernels.
+fused_ln_mlp_ad` dispatches it by weight size) and every other tower the
+plain MLP; ``"attn"`` and ``"xla"`` fuse no half. Every kernel is reached
+through its ``_ad`` wrapper, so a gradient flows through any route. A kernel
+that refuses its input raises; no route is chosen by catching that.
+``remat=True`` runs each residual block under ``torch.utils.checkpoint``, the
+JAX package's ``nn.remat``. The ModifiedResNet tower uses stock
+``torch.nn.Conv2d`` and runs none of the hand-written kernels, as it runs no
+Pallas kernel in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,15 +45,58 @@ import typing as tp
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from summer_clip_torch.models.clip.configs import CLIP_CONFIGS, CLIPConfig
 from summer_clip_torch.ops import block_kernels as bk
-from summer_clip_torch.ops.attention import mha_reference, multi_head_attention
+from summer_clip_torch.ops.attention import SHORT_MAX_T, mha_reference, multi_head_attention
 
 __all__ = ["LayerNormF32", "Attention", "MLP", "ResidualAttentionBlock", "Transformer",
            "PatchEmbed", "VisionTransformer", "Bottleneck", "AttentionPool2d",
-           "ModifiedResNet", "TextTransformer", "CLIP", "build_clip"]
+           "ModifiedResNet", "TextTransformer", "CLIP", "build_clip", "attn_route",
+           "mlp_route", "FUSED_BLOCK_MODE"]
+
+# Which halves of a residual block take a fused kernel: the JAX package's
+# policy and default. "block": both halves where the gates allow; "attn": no
+# fused half (the attention core still auto-selects K4); "mlp": only the MLP
+# half through the hidden-chunked kernel K9 (the ViT-L/14 image tower) beside
+# the K4 attention route; "xla": no fused half.
+FUSED_BLOCK_MODE = "block"
+_ITEMSIZE = 2   # the kernels' bf16: the gates are worked out at their item size
+
+
+def _fuse_base_ok(d: int, t: int, num_heads: int, modes: tp.Tuple[str, ...] = ("block",)) -> bool:
+    return FUSED_BLOCK_MODE in modes and d % num_heads == 0 and t <= SHORT_MAX_T
+
+
+def attn_route(d: int, t: int, num_heads: int) -> str:
+    """``"k5"`` (the fused attention half) or ``"module"`` (LayerNorm ->
+    in_proj -> :func:`multi_head_attention` -> out_proj): the JAX package's
+    ``_fuse_attn_ok`` (weights and one sequence's activations within its 12 MB
+    budget), and what K5 takes."""
+    total = (4 * d * d + 9 * t * d) * _ITEMSIZE + 4 * t * t
+    ok = _fuse_base_ok(d, t, num_heads) and total <= 12 * 1024 * 1024
+    return "k5" if ok and bk.fused_attn_ok(t, d, num_heads) else "module"
+
+
+def mlp_route(d: int, t: int, num_heads: int, hidden: int) -> str:
+    """``"k6"``, ``"k9"`` or ``"plain"``: the JAX package's ``_fuse_mlp_ok``
+    (the resident-weight kernel in "block" mode where the weights and one
+    sequence fit 14 MB; the hidden-chunked kernel in "mlp" mode where a
+    streamed weight-chunk pair and the activations do), then its
+    ``_mlp_dispatch`` (K9 above ``FUSED_MLP_MAX_WEIGHT_BYTES`` of weights,
+    else K6), and what that kernel takes."""
+    if (8 * d * d + 8 * t * d) * _ITEMSIZE <= 14 * 1024 * 1024:
+        ok = _fuse_base_ok(d, t, num_heads)
+    else:
+        chunked = 8 * 1024 * 1024 + 5 * t * d * _ITEMSIZE + 4 * t * d
+        ok = _fuse_base_ok(d, t, num_heads, modes=("mlp",)) and chunked <= 14 * 1024 * 1024
+    if not ok:
+        return "plain"
+    if 2 * d * hidden * _ITEMSIZE > bk.FUSED_MLP_MAX_WEIGHT_BYTES:
+        return "k9" if bk.fused_mlp_chunked_ok(d, hidden) else "plain"
+    return "k6" if bk.fused_mlp_ok(d, hidden) else "plain"
 
 
 class LayerNormF32(nn.Module):
@@ -96,19 +145,20 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         a, m = self.attn, self.mlp
         t, d = x.shape[-2], x.shape[-1]
-        if bk.fused_attn_ok(t, d, a.num_heads):
-            x = bk.fused_ln_attn(x, self.ln_1.weight, self.ln_1.bias, a.in_proj_weight,
-                                 a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
-                                 num_heads=a.num_heads, causal=causal, eps=self.ln_1.eps)
+        if attn_route(d, t, a.num_heads) == "k5":
+            x = bk.fused_ln_attn_ad(x, self.ln_1.weight, self.ln_1.bias, a.in_proj_weight,
+                                    a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
+                                    num_heads=a.num_heads, causal=causal, eps=self.ln_1.eps)
         else:
             # q, k, v stay views of the fused projection: K4 reads them in place
             q, k, v = bk.dense(self.ln_1(x), a.in_proj_weight, a.in_proj_bias).split(d, dim=-1)
             o = multi_head_attention(q, k, v, num_heads=a.num_heads, causal=causal)
             x = x + bk.dense(o, a.out_proj.weight, a.out_proj.bias)
-        if bk.fused_mlp_ok(d, m.c_fc.out_features):
-            return bk.fused_ln_mlp(x, self.ln_2.weight, self.ln_2.bias, m.c_fc.weight,
-                                   m.c_fc.bias, m.c_proj.weight, m.c_proj.bias,
-                                   eps=self.ln_2.eps)
+        if mlp_route(d, t, a.num_heads, m.c_fc.out_features) != "plain":
+            # K6 or K9, by the weight size (bk.mlp_kernel)
+            return bk.fused_ln_mlp_ad(x, self.ln_2.weight, self.ln_2.bias, m.c_fc.weight,
+                                      m.c_fc.bias, m.c_proj.weight, m.c_proj.bias,
+                                      eps=self.ln_2.eps)
         h = bk.quick_gelu(bk.dense(self.ln_2(x), m.c_fc.weight, m.c_fc.bias))
         return x + bk.dense(h, m.c_proj.weight, m.c_proj.bias)
 
@@ -118,10 +168,14 @@ class Transformer(nn.Module):
         super().__init__()
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, num_heads) for _ in range(num_layers))
+        self.remat = False   # recompute each block's activations in the backward
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         for block in self.resblocks:
-            x = block(x, causal)
+            if self.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(block, x, causal, use_reentrant=False)
+            else:
+                x = block(x, causal)
         return x
 
 
@@ -358,6 +412,14 @@ class CLIP(TextTransformer):
             for p in self.parameters():
                 if id(p) not in keep:
                     p.data = p.data.to(dtype)
+        return self
+
+    def set_remat(self, remat: bool) -> "CLIP":
+        """Run every residual block of both towers under activation
+        checkpointing (config ``clip.remat``)."""
+        for m in self.modules():
+            if isinstance(m, Transformer):
+                m.remat = bool(remat)
         return self
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:

@@ -16,19 +16,24 @@ Counterpart of ``summer_clip_tpu/ops/attention.py``:
   (``flash_attention_bf16`` / ``flash_attention_f32`` of the same source);
   replaces the TPU kernel ``flash_attention`` (ops/attention.py:87). Its plain
   version is :func:`flash_attention_reference`.
+- :func:`short_attention_packed_ad`, :func:`short_attention_ad`,
+  :func:`flash_attention_ad` -- the differentiable wrappers of K4, K12 and
+  K11: the kernel forward, the plain version recomputed for the backward
+  (the JAX package's ``custom_vjp`` pairs, ``ops/attention.py:302-401``).
 - :func:`multi_head_attention` -- split heads, attend, merge, with the JAX
-  package's selection rule (``ops/attention.py:404-452``): K4, K11, or the
-  plain route (:func:`mha_reference` with mask, ``causal`` and ``q_offset``
-  folded into one bias) for every call the JAX package leaves to XLA.
+  package's selection rule (``ops/attention.py:404-452``): K4 or K11 through
+  their ``_ad`` wrappers, or the plain route (:func:`mha_reference` with mask,
+  ``causal`` and ``q_offset`` folded into one bias) for every call the JAX
+  package leaves to XLA.
 
 On a CPU tensor the kernel wrappers run their plain version; on a CUDA tensor
 they launch the kernel or raise, never the plain version. K4 and K12 take
 T <= :data:`SHORT_MAX_T`; all three take bf16 (tensor cores) or f32 (true f32
 products: ``short_attention_f32`` / ``flash_attention_f32`` share their device
-code) and head dim 64. None has a backward yet (the JAX package recomputes it in XLA,
-``:302-401``), so inputs that require grad raise on CUDA.
-:data:`FLASH_ENABLED` and :data:`FLASH_MIN_KV` are the JAX package's switches
-with its defaults, so both packages route alike.
+code) and head dim 64. The raw kernels are forward-only and refuse inputs
+that require grad on CUDA; a gradient goes through the ``_ad`` wrappers.
+:data:`FLASH_ENABLED`, :data:`FLASH_MIN_KV` and :data:`SHORT_FUSED_ENABLED`
+are the JAX package's switches with its defaults, so both packages route alike.
 """
 
 from __future__ import annotations
@@ -39,17 +44,22 @@ import typing as tp
 import torch
 
 from summer_clip_torch.ops import _lib
+from summer_clip_torch.ops.autograd import recompute_backward
 
 __all__ = ["mha_reference", "short_attention", "short_attention_packed",
-           "short_attention_packed_reference", "flash_attention", "flash_attention_reference",
-           "multi_head_attention", "attention_route", "SHORT_MAX_T", "HEAD_DIM",
-           "FLASH_ENABLED", "FLASH_MIN_KV"]
+           "short_attention_packed_reference", "short_attention_reference", "flash_attention",
+           "flash_attention_reference", "short_attention_packed_ad", "short_attention_ad",
+           "flash_attention_ad", "multi_head_attention", "attention_route", "SHORT_MAX_T",
+           "HEAD_DIM", "FLASH_ENABLED", "FLASH_MIN_KV", "SHORT_FUSED_ENABLED"]
 
 # Auto-selection of K11: off by default, the JAX package's setting. Whether it
 # should be on for this card is an open question (PERF.md); ``use_flash=True``
 # or flipping the switch selects the kernel.
 FLASH_ENABLED = False
 FLASH_MIN_KV = 1024
+# Auto-selection of K4 for tq == tk <= SHORT_MAX_T: on by default, the JAX
+# package's setting; off, every such call takes the plain route.
+SHORT_FUSED_ENABLED = True
 
 SHORT_MAX_T = 640   # one computing warp's score rows still fit beside K and V of a head
 HEAD_DIM = 64       # the only head width of the public CLIP towers
@@ -102,6 +112,13 @@ def short_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.
     return o.transpose(1, 2).reshape(b, t, dm)
 
 
+def short_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              causal: bool = False) -> torch.Tensor:
+    """Plain version of K12: :func:`mha_reference` on (BH, T, hd)."""
+    mask = _causal_bias(q.shape[1], q.shape[1], device=q.device) if causal else None
+    return mha_reference(q, k, v, mask=mask)
+
+
 def _kernel_inputs(q, k, v, shape) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """bf16 or f32 CUDA q/k/v of one shape whose rows the kernel can read 16
     bytes at a time with one (batch, row) stride pair: views of a fused
@@ -115,7 +132,8 @@ def _kernel_inputs(q, k, v, shape) -> tp.Tuple[torch.Tensor, torch.Tensor, torch
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
         if x.requires_grad:
-            raise NotImplementedError("the short-attention kernels have no backward yet")
+            raise NotImplementedError("the short-attention kernels have no backward; use "
+                                      "short_attention_ad / short_attention_packed_ad")
 
     group = 16 // q.element_size()
 
@@ -167,8 +185,7 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False) -> torch.Tensor:
     """K12. q/k/v (BH, T, 64) -> (BH, T, 64)."""
     if q.device.type == "cpu":
-        mask = _causal_bias(q.shape[1], q.shape[1]) if causal else None
-        return mha_reference(q, k, v, mask=mask)
+        return short_attention_reference(q, k, v, causal=causal)
     bh, t, hd = q.shape
     _check_geometry(t, hd)
     q, k, v = _kernel_inputs(q, k, v, (bh, t, hd))
@@ -212,7 +229,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if x.dtype != q.dtype or tuple(x.shape) != shape:
             raise ValueError(f"{name}: expected {q.dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
         if x.requires_grad:
-            raise NotImplementedError("flash_attention has no backward yet")
+            raise NotImplementedError("flash_attention has no backward; use flash_attention_ad")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     entry = "flash_attention_bf16" if q.dtype == torch.bfloat16 else "flash_attention_f32"
@@ -226,14 +243,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+def short_attention_packed_ad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              num_heads: int, causal: bool = False) -> torch.Tensor:
+    """Differentiable K4: the kernel forward, the plain version recomputed for
+    the backward. The plain version itself on the CPU."""
+    kw = dict(num_heads=num_heads, causal=causal)
+    if q.device.type == "cpu":
+        return short_attention_packed(q, k, v, **kw)
+    return recompute_backward(short_attention_packed, short_attention_packed_reference,
+                              (q, k, v), kw)
+
+
+def short_attention_ad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = False) -> torch.Tensor:
+    """Differentiable K12 (see :func:`short_attention_packed_ad`)."""
+    if q.device.type == "cpu":
+        return short_attention(q, k, v, causal=causal)
+    return recompute_backward(short_attention, short_attention_reference, (q, k, v),
+                              {"causal": causal})
+
+
+def flash_attention_ad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = False, q_offset: int = 0) -> torch.Tensor:
+    """Differentiable K11 (see :func:`short_attention_packed_ad`); the
+    backward recomputes the scores in full, as the JAX package's does."""
+    kw = dict(causal=causal, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_attention(q, k, v, **kw)
+    return recompute_backward(flash_attention, flash_attention_reference, (q, k, v), kw)
+
+
 def attention_route(*, on_card: bool, tq: int, tk: int, has_mask: bool, q_offset: int,
                     use_flash: tp.Optional[bool]) -> str:
     """Which of ``"short_packed"`` (K4), ``"flash"`` (K11) or ``"plain"``
     :func:`multi_head_attention` takes: the JAX package's rule with "on the
     card" for "on the TPU". The rule does not look at the type or the head
     width: a call it sends to a kernel that the kernel cannot take raises."""
-    if (use_flash is None and not has_mask and q_offset == 0 and tq == tk
-            and tk <= SHORT_MAX_T and on_card):
+    if (use_flash is None and SHORT_FUSED_ENABLED and not has_mask and q_offset == 0
+            and tq == tk and tk <= SHORT_MAX_T and on_card):
         return "short_packed"
     if use_flash is None:
         use_flash = FLASH_ENABLED and not has_mask and on_card and tk >= FLASH_MIN_KV
@@ -259,16 +306,17 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     route = attention_route(on_card=q.device.type != "cpu", tq=tq, tk=tk,
                             has_mask=mask is not None, q_offset=q_offset, use_flash=use_flash)
     if route == "short_packed":
-        return short_attention_packed(q, k, v, num_heads=num_heads, causal=causal)
+        return short_attention_packed_ad(q, k, v, num_heads=num_heads, causal=causal)
 
     def split(x, t):
         return x.reshape(b, t, num_heads, hd).transpose(1, 2)
 
     qh, kh, vh = split(q, tq), split(k, tk), split(v, tk)
     if route == "flash":
-        o = flash_attention(qh.reshape(b * num_heads, tq, hd), kh.reshape(b * num_heads, tk, hd),
-                            vh.reshape(b * num_heads, tk, hd), causal=causal,
-                            q_offset=q_offset).reshape(b, num_heads, tq, hd)
+        o = flash_attention_ad(qh.reshape(b * num_heads, tq, hd),
+                               kh.reshape(b * num_heads, tk, hd),
+                               vh.reshape(b * num_heads, tk, hd), causal=causal,
+                               q_offset=q_offset).reshape(b, num_heads, tq, hd)
     else:
         attn_mask = mask
         if causal:

@@ -10,12 +10,25 @@ attention q/k/v ride one ``in_proj_weight`` of shape (3D, D)):
 - :func:`fused_ln_mlp` -- K6, ``x + c_proj(QuickGELU(c_fc(LN_f32(x))))``.
   CUDA source ``csrc/block_kernels.cu`` (``ln_mlp``); replaces the TPU kernel
   ``fused_ln_mlp`` (ops/block_kernels.py:75).
+- :func:`fused_ln_mlp_chunked` -- K9, the same function at the ViT-L/14 width
+  (D = 1024), whose MLP weights the JAX package streams in hidden chunks. CUDA
+  source ``csrc/block_kernels.cu`` (``ln_mlp_chunked``); replaces the TPU
+  kernel ``fused_ln_mlp_chunked`` (ops/block_kernels.py:132). Its plain
+  version is :func:`ln_mlp_reference` (the same function up to the order of
+  the f32 sums).
+- :func:`fused_ln_attn_ad`, :func:`fused_ln_mlp_ad` -- the differentiable
+  wrappers: the kernel forward, the plain version recomputed for the backward
+  (the JAX package's ``custom_vjp`` pattern, ops/block_kernels.py:322-376).
+  :func:`fused_ln_mlp_ad` picks K9 or K6 by :func:`mlp_kernel`, the JAX
+  package's ``_mlp_dispatch`` rule.
 
 On a CPU tensor a wrapper runs its plain PyTorch version
 (:func:`ln_attn_reference`, :func:`ln_mlp_reference`). On a CUDA tensor it
-launches the kernel or raises; it never falls back. The CUDA kernels take
-bf16 activations and weights with f32 LayerNorm parameters; what bounds them
-on the card is described at the top of the CUDA source.
+launches the kernel or raises; it never falls back. The raw kernel wrappers
+are forward-only: on the card they refuse inputs that require grad, and every
+route that may carry a gradient goes through the ``_ad`` wrappers. The CUDA
+kernels take bf16 activations and weights with f32 LayerNorm parameters; what
+bounds them on the card is described at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -26,20 +39,28 @@ import torch
 import torch.nn.functional as F
 
 from summer_clip_torch.ops import _lib
+from summer_clip_torch.ops.autograd import recompute_backward
 
 __all__ = ["quick_gelu", "ln_f32", "dense", "ln_attn_reference", "ln_mlp_reference",
-           "fused_ln_attn", "fused_ln_mlp", "fused_attn_ok", "fused_mlp_ok",
-           "HEAD_DIM", "MAX_T", "MAX_D", "MLP_WIDTHS"]
+           "fused_ln_attn", "fused_ln_mlp", "fused_ln_mlp_chunked", "fused_ln_attn_ad",
+           "fused_ln_mlp_ad", "mlp_kernel", "fused_attn_ok", "fused_mlp_ok",
+           "fused_mlp_chunked_ok", "HEAD_DIM", "MAX_T", "MAX_D", "MLP_WIDTHS",
+           "CHUNKED_MLP_WIDTHS", "FUSED_MLP_MAX_WEIGHT_BYTES"]
 
 HEAD_DIM = 64      # the CUDA attention kernel's head width
 MAX_T = 240        # longest sequence whose q/k/v and score rows fit shared memory
 MAX_D = 1024       # widest row the kernels' LayerNorm holds in registers
 MLP_WIDTHS = (512, 768)   # widths whose c_proj accumulators K6 holds in registers
+CHUNKED_MLP_WIDTHS = (1024,)   # K9: a block holds half of them
+# The JAX package's _mlp_dispatch threshold: MLP weights above it (ViT-L/14:
+# 16.8 MB in bf16) go to the hidden-chunked kernel.
+FUSED_MLP_MAX_WEIGHT_BYTES = 12 * 1024 * 1024
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ln_attn_heads_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "linear_residual_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ln_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "ln_mlp_chunked_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 
@@ -59,6 +80,11 @@ def fused_mlp_ok(d: int, hidden: int) -> bool:
     """What K6 takes; the gate between the fused MLP half and the plain
     c_fc -> QuickGELU -> c_proj products. :func:`fused_ln_mlp` raises on it."""
     return d in MLP_WIDTHS and hidden % 64 == 0
+
+
+def fused_mlp_chunked_ok(d: int, hidden: int) -> bool:
+    """What K9 takes; :func:`fused_ln_mlp_chunked` raises on it."""
+    return d in CHUNKED_MLP_WIDTHS and hidden % 64 == 0
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -107,6 +133,9 @@ def ln_mlp_reference(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b,
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    if t.requires_grad:
+        raise NotImplementedError(f"{name} requires grad: the kernel has no backward; "
+                                  f"use the _ad wrapper")
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -152,15 +181,9 @@ def fused_ln_attn(x, ln_w, ln_b, in_w, in_b, out_w, out_b, *, num_heads: int,
 fused_ln_attn.launches = 0
 
 
-def fused_ln_mlp(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, *,
-                 eps: float = 1e-5) -> torch.Tensor:
-    """K6. x (B, T, D); fc_w (H, D), fc_b (H,); proj_w (D, H), proj_b (D,)."""
-    if x.device.type == "cpu":
-        return ln_mlp_reference(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, eps=eps)
+def _launch_mlp(entry: str, x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, eps) -> torch.Tensor:
     b, t, d = x.shape
     h = fc_w.shape[0]
-    if not fused_mlp_ok(d, h):
-        raise ValueError(f"K6 kernel takes D in {MLP_WIDTHS} and H % 64 == 0; got D={d}, H={h}")
     bf = torch.bfloat16
     _require(x, "x", bf, (b, t, d))
     _require(ln_w, "ln_w", torch.float32, (d,))
@@ -169,14 +192,74 @@ def fused_ln_mlp(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, *,
     _require(fc_b, "fc_b", bf, (h,))
     _require(proj_w, "proj_w", bf, (d, h))
     _require(proj_b, "proj_b", bf, (d,))
-    lib = _lib_block()
     out = torch.empty_like(x)
-    _lib.check(lib.ln_mlp_bf16(
+    _lib.check(getattr(_lib_block(), entry)(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(),
         proj_w.data_ptr(), proj_b.data_ptr(), out.data_ptr(), b * t, d, h, eps,
-        _lib.torch_stream()), "ln_mlp")
+        _lib.torch_stream()), entry)
+    return out
+
+
+def fused_ln_mlp(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, *,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """K6. x (B, T, D); fc_w (H, D), fc_b (H,); proj_w (D, H), proj_b (D,)."""
+    if x.device.type == "cpu":
+        return ln_mlp_reference(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, eps=eps)
+    d, h = x.shape[-1], fc_w.shape[0]
+    if not fused_mlp_ok(d, h):
+        raise ValueError(f"K6 kernel takes D in {MLP_WIDTHS} and H % 64 == 0; got D={d}, H={h}")
+    out = _launch_mlp("ln_mlp_bf16", x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, eps)
     fused_ln_mlp.launches += 1
     return out
 
 
 fused_ln_mlp.launches = 0
+
+
+def fused_ln_mlp_chunked(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, *,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """K9. K6's function at D = 1024: x (B, T, D); fc_w (H, D), fc_b (H,);
+    proj_w (D, H), proj_b (D,). Every output is summed in f32 over the hidden
+    chunks in one fixed order, so two runs give the same bits."""
+    if x.device.type == "cpu":
+        return ln_mlp_reference(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, eps=eps)
+    d, h = x.shape[-1], fc_w.shape[0]
+    if not fused_mlp_chunked_ok(d, h):
+        raise ValueError(f"K9 kernel takes D in {CHUNKED_MLP_WIDTHS} and H % 64 == 0; "
+                         f"got D={d}, H={h}")
+    out = _launch_mlp("ln_mlp_chunked_bf16", x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, eps)
+    fused_ln_mlp_chunked.launches += 1
+    return out
+
+
+fused_ln_mlp_chunked.launches = 0
+
+
+def mlp_kernel(x: torch.Tensor, fc_w: torch.Tensor):
+    """The JAX package's ``_mlp_dispatch``: K9 where the two MLP weights in
+    x's dtype exceed :data:`FUSED_MLP_MAX_WEIGHT_BYTES`, else K6."""
+    weight_bytes = 2 * fc_w.shape[0] * fc_w.shape[1] * x.element_size()
+    return fused_ln_mlp_chunked if weight_bytes > FUSED_MLP_MAX_WEIGHT_BYTES else fused_ln_mlp
+
+
+def fused_ln_attn_ad(x, ln_w, ln_b, in_w, in_b, out_w, out_b, *, num_heads: int,
+                     causal: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable K5: the kernel forward, :func:`ln_attn_reference`
+    recomputed for the backward. The plain version itself on the CPU."""
+    kw = dict(num_heads=num_heads, causal=causal, eps=eps)
+    args = (x, ln_w, ln_b, in_w, in_b, out_w, out_b)
+    if x.device.type == "cpu":
+        return fused_ln_attn(*args, **kw)
+    return recompute_backward(fused_ln_attn, ln_attn_reference, args, kw)
+
+
+def fused_ln_mlp_ad(x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b, *,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable K9 or K6 (:func:`mlp_kernel`): the kernel forward,
+    :func:`ln_mlp_reference` recomputed for the backward. The plain version
+    itself on the CPU."""
+    kern = mlp_kernel(x, fc_w)
+    args = (x, ln_w, ln_b, fc_w, fc_b, proj_w, proj_b)
+    if x.device.type == "cpu":
+        return kern(*args, eps=eps)
+    return recompute_backward(kern, ln_mlp_reference, args, {"eps": eps})

@@ -184,7 +184,9 @@ def test_cuda_k11_matches_plain(bh, tq, tk, causal, q_offset, dtype, tol):
 @pytest.mark.cuda
 def test_cuda_multi_head_attention_takes_every_route():
     """Masked, cross-length and long calls run on the card: K11 where
-    ``use_flash`` says so, the plain route elsewhere, K4 as before."""
+    ``use_flash`` says so, the plain route elsewhere, K4 as before; an input
+    that requires grad goes through ``flash_attention_ad`` and gets the plain
+    route's gradient."""
     _cuda()
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(1, 700, 2 * HD, generator=gen).to("cuda", torch.bfloat16)
@@ -200,6 +202,9 @@ def test_cuda_multi_head_attention_takes_every_route():
     assert counts() == (k4, k11 + 1)                                                    # a mask: plain
     at.multi_head_attention(q[:, :77], q[:, :77], q[:, :77], num_heads=2)
     assert counts() == (k4 + 1, k11 + 1)
-    with pytest.raises(NotImplementedError, match="backward"):
-        x = q[:, :8].float().requires_grad_()
-        at.multi_head_attention(x, x, x, num_heads=2, use_flash=True)
+    x = q[:, :8].float().requires_grad_()
+    at.multi_head_attention(x, x, x, num_heads=2, use_flash=True).sum().backward()
+    assert counts() == (k4 + 1, k11 + 2)
+    y = x.detach().clone().requires_grad_()
+    at.multi_head_attention(y, y, y, num_heads=2, use_flash=False).sum().backward()
+    assert torch.allclose(x.grad, y.grad, rtol=1e-5, atol=1e-5)

@@ -167,35 +167,51 @@ def test_block_routes_and_towers_match_jax(name, monkeypatch):
     assert modeling.multi_head_attention is at.multi_head_attention
 
 
+def _mode_routes(mode, block_routes, image_l14=False):
+    """The routes of a tower's two halves under ``mode``: "block" keeps the
+    block-mode table; "attn" and "xla" fuse no half; "mlp" sends only the
+    ViT-L/14 image tower's MLP half to K9."""
+    if mode == "block":
+        return block_routes
+    return ("k4", "k9" if mode == "mlp" and image_l14 else "plain")
+
+
+@pytest.mark.parametrize("mode", ["block", "attn", "mlp", "xla"])
 @pytest.mark.parametrize("name,image,text", [
     ("ViT-B/32", ("k5", "k6"), ("k5", "k6")), ("ViT-B/16", ("k5", "k6"), ("k5", "k6")),
     ("ViT-L/14", ("k4", "plain"), ("k5", "k6")),
     ("ViT-L/14@336px", ("k4", "plain"), ("k5", "k6")),
     ("RN50", None, ("k5", "k6")), ("RN101", None, ("k5", "k6"))])
-def test_public_configs_take_the_jax_packages_routes(name, image, text):
-    """The gate's outcome for every public tower, and the JAX package's own
-    gates (bf16, as on the chip) for the same geometry."""
+def test_public_configs_take_the_jax_packages_routes(name, image, text, mode, monkeypatch):
+    """The gates' outcome for every public tower in every ``FUSED_BLOCK_MODE``
+    (the text towers are the 512- and 768-wide ones), and the JAX package's
+    own gates and ``_mlp_dispatch`` (bf16, as on the chip) for the same
+    geometry: ``"k4"`` is the attention route through ``multi_head_attention``."""
     import summer_clip_tpu.models.clip.modeling as jm
+    from summer_clip_tpu.ops import block_kernels as jbk
+
+    import summer_clip_torch.models.clip.modeling as pm
 
     cfg = CLIP_CONFIGS[name]
+    monkeypatch.setattr(pm, "FUSED_BLOCK_MODE", mode)
+    monkeypatch.setattr(jm, "FUSED_BLOCK_MODE", mode)
+    monkeypatch.setattr(jm, "FUSED_BLOCK_FORCE", True)  # the backend check, not the geometry
 
     def routes(t, d, heads):
-        return ("k5" if bk.fused_attn_ok(t, d, heads) else "k4",
-                "k6" if bk.fused_mlp_ok(d, 4 * d) else "plain")
+        return ("k5" if pm.attn_route(d, t, heads) == "k5" else "k4",
+                pm.mlp_route(d, t, heads, 4 * d))
 
     def jax_routes(t, d, heads):
+        chunked = 2 * d * 4 * d * 2 > jbk.FUSED_MLP_MAX_WEIGHT_BYTES
         return ("k5" if jm._fuse_attn_ok(d, t, heads, 2) else "k4",
-                "k6" if jm._fuse_mlp_ok(d, t, heads, 2) else "plain")
+                ("k9" if chunked else "k6") if jm._fuse_mlp_ok(d, t, heads, 2) else "plain")
 
-    assert routes(cfg.context_length, cfg.text_width, cfg.text_heads) == text
-    force = jm.FUSED_BLOCK_FORCE
-    jm.FUSED_BLOCK_FORCE = True      # the gates' backend check, not their geometry
-    try:
-        assert jax_routes(cfg.context_length, cfg.text_width, cfg.text_heads) == text
-        if image is not None:
-            t = (cfg.image_resolution // cfg.vision_patch_size) ** 2 + 1
-            assert routes(t, cfg.vision_width, cfg.vision_heads) == image
-            assert jax_routes(t, cfg.vision_width, cfg.vision_heads) == image
-            assert t <= at.SHORT_MAX_T
-    finally:
-        jm.FUSED_BLOCK_FORCE = force
+    want_text = _mode_routes(mode, text)
+    assert routes(cfg.context_length, cfg.text_width, cfg.text_heads) == want_text
+    assert jax_routes(cfg.context_length, cfg.text_width, cfg.text_heads) == want_text
+    if image is not None:
+        t = (cfg.image_resolution // cfg.vision_patch_size) ** 2 + 1
+        want = _mode_routes(mode, image, image_l14=(name == "ViT-L/14"))
+        assert routes(t, cfg.vision_width, cfg.vision_heads) == want
+        assert jax_routes(t, cfg.vision_width, cfg.vision_heads) == want
+        assert t <= at.SHORT_MAX_T

@@ -18,7 +18,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "summer_clip_torch"
 APPS = ["save_features", "eval_clip", "tip_adapter", "image_attention", "save_image_outs",
-        "save_image_labels", "gen_gpt"]
+        "save_image_labels", "gen_gpt", "train_coop", "eval_prompt", "train_adapter",
+        "eval_adapter"]
 
 _WALK = """
 import importlib, pkgutil, sys
