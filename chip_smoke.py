@@ -32,6 +32,12 @@
      beta chunk) with bf16 softmax values and with int8 one-hot values, the
      latter also against K2 on the same labels; K1 once more at the pipeline's
      own size (Nt=1000, Nc=2048);
+   - K13 onehot_variant at the sweep tool's first geometry (Nt=50176, D=1024,
+     C=1000, 16 cache rows a class, 8 betas, block_n 1024), each expand mode
+     ("highest" with cast_w, "split3", "default") against its plain version,
+     "highest" == "split3" bit for bit, both against K3 and K1 (int8
+     one-hots), "default" against "highest", two runs bit for bit, and the
+     readings of a planted fault (one class's partial dropped);
    - K7 streamed_qmatmul at every matrix a decoded token of ClipGPT on
      gpt2-large reads ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280),
      the head (1280, 49408), the adapters (512, 1024) and (1024, 1280)) with
@@ -61,7 +67,7 @@
    bytes (inputs read once, outputs written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    cores, 67 TFLOP/s f32).
-4. Drives the four main paths through the apps' entry points with random
+4. Drives the main paths through the apps' entry points with random
    weights (seed 0), each with every launch count set to 0 just before it and
    read just after:
    - Tip-Adapter at ViT-B/16: save_features -> eval_clip -> tip_adapter on
@@ -96,7 +102,10 @@
      the megakernel and on the K7 engine (every synchronisation inside a
      burst is an error: ``torch.cuda.set_sync_debug_mode``), and
      ``speculative=true`` (k = 4) with the gpt2-width draft and with the target
-     as its own draft (every window accepted). Checks the launch counts exactly
+     as its own draft (every window accepted); the app decodes both models'
+     full-precision trees there whatever ``quant_int8`` says, as the JAX app
+     does, and int8 speculation is timed through
+     ``engine.speculative.generate_device_speculative``. Checks the launch counts exactly
      (K7 147 a decoded token, K10 36 a token on the opt-in run, K11 2 x 36; K8
      1 and K7 3 a decoded token on the megakernel routes), the perplexity of
      the two routes, and then, outside the counted run: each route's greedy
@@ -126,6 +135,22 @@
      "xla"``, ``SHORT_FUSED_ENABLED=False``), ``loss.backward()`` launching no
      kernel, a planted fault's readings beside the limits, and the ms of a
      CoOp step (forward and backward apart, both routes) and its peak memory.
+   - The sweep tool's first geometry (``onehot_sweep``:
+     ``tools/torch_sweep_onehot_variants.bench``): K1 over int8 one-hots
+     twice, each of K13's three arms at block_n 1024 and 2048 twice, checksums
+     against K1's.
+   - Tip-Adapter at ImageNet scale (``tip_adapter.run_imagenet``, RN50 at
+     random weights, ``dataset=synthetic_1k load_cache=true
+     load_pre_feat=true finetune.enabled=true``, the config's (200, 20) grid)
+     over a written store: 16 shots x 1000 classes of 1024-wide keys, 50000
+     val and 50000 test rows, 16000 train rows, class prototypes plus noise.
+     Checks the records, the searched accuracy, that Tip-Adapter-F's train CE
+     falls, K3's launch count, and the same store through the plain route
+     (the same searched (beta, alpha) and accuracies); prints each stage's
+     time and the peak memory.
+   - The analysis apps over the CLIP-search path's ViT-L/14 store:
+     ``maha_distance``, ``train_em`` (diagonal covariances) and
+     ``class_projector``; records in range, every logits matrix finite.
 5. Prints a JSON line of the kernels of the main paths (K12 runs on none,
    so it has a line of its own), then as its last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -139,6 +164,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing as tp
 from pathlib import Path
 
 KERNEL_SOURCES = ("block_kernels", "cache_kernels", "attention_kernels", "gemv_kernels",
@@ -540,6 +566,150 @@ def check_dense_cache_kernel(results: dict) -> None:
         if e12 > TOL_K3_VS_K2:
             raise AssertionError("K1 with one-hot values disagrees with K2")
     torch.cuda.synchronize()
+
+
+# K13 at the JAX sweep tool's first geometry (its "top16-per-class"): Nt=50176,
+# D=1024, C=1000, 16 cache rows a class, 8 betas, block_n 1024
+K13_SHAPE = dict(nt=50176, d=1024, c=1000, per_class=16, block_n=1024)
+# "highest" and "split3" against K3 and K1 (int8 one-hots), relative to max |out|:
+# the same bf16 weights (one affinity routine), f32 sums in another order
+# (per-block partials, then their sum, against row by row)
+TOL_K13_VS_K3_REL = 1e-5
+# "default" rounds each (class, block) partial to bf16: within 2^-8 relative
+# each (bf16 keeps 8 significant bits), the weights are positive, so output by
+# output within 2^-8 of "highest"
+TOL_K13_DEFAULT_REL = 2.0 ** -8
+# "default" against its plain version: where the kernel's and the plain f32
+# partial straddle a bf16 rounding point they round one bf16 step apart (2^-7
+# of the partial's binade), on top of K3's weight-flip tolerance
+TOL_K13_DEFAULT_STEP = 2.0 ** -7
+
+
+def check_onehot_variant(results: dict) -> None:
+    """K13 against its plain version, K3 and K1, at the sweep tool's geometry;
+    a planted fault (one class's partial dropped) read on the same gates."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.ops import cache_kernels as ck
+
+    nt, d, c, per_class, block_n = (K13_SHAPE[k] for k in ("nt", "d", "c", "per_class",
+                                                           "block_n"))
+    nc = per_class * c
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def unit(n):
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        return (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+    f, keys = unit(nt), unit(nc)
+    labels = np.repeat(np.arange(c, dtype=np.int32), per_class)
+    betas = torch.linspace(0.1, 11.5, 8, device="cuda")
+    arms = {"highest": True, "split3": False, "default": False}   # expand_mode: cast_w
+
+    def kern(mode, lab=labels):
+        return ck.onehot_variant(f, keys, lab, betas, c, block_n=block_n, expand_mode=mode,
+                                 cast_w=arms[mode])
+
+    def plain(mode):
+        return ck.onehot_variant_reference(f, keys, labels, betas, c, block_n=block_n,
+                                           expand_mode=mode, cast_w=arms[mode])
+
+    got = {m: kern(m) for m in arms}
+    again = {m: kern(m) for m in arms}
+    k3 = ck.cache_attention_onehot(f, keys, labels, betas, c)
+    onehot = torch.zeros(nc, c, dtype=torch.int8, device="cuda")
+    onehot[torch.arange(nc, device="cuda"), torch.from_numpy(labels).long().cuda()] = 1
+    k1 = ck.cache_attention(f, keys, onehot, betas)
+    torch.cuda.synchronize()
+    scale = float(got["highest"].abs().max())
+    shape = (f"Nt={nt} Nc={nc} D={d} C={c} betas={betas.shape[0]} block_n={block_n} "
+             f"({per_class} rows a class)")
+
+    def readings(out, want_plain, mode):
+        """The gates' readings of one output against the plain version of
+        ``mode``, K3, K1 and (for "default") "highest"."""
+        r = {"vs_plain": float((out - want_plain).abs().max()),
+             "vs_k3_rel": float((out - k3).abs().max()) / scale,
+             "vs_k1_rel": float((out - k1).abs().max()) / scale}
+        if mode == "default":
+            r["default_vs_highest_rel"] = float(
+                ((out - got["highest"]).abs() / got["highest"].abs().clamp_min(1e-30)).max())
+        return r
+
+    def passes(r, mode):
+        if mode == "default":
+            return (r["default_vs_highest_rel"] <= TOL_K13_DEFAULT_REL
+                    and r["vs_plain"] <= TOL_K13_DEFAULT_STEP * scale + TOL_CACHE_VS_PLAIN)
+        return (r["vs_plain"] <= TOL_CACHE_VS_PLAIN and r["vs_k3_rel"] <= TOL_K13_VS_K3_REL
+                and r["vs_k1_rel"] <= TOL_K13_VS_K3_REL)
+
+    entry = results["K13 onehot_variant"] = {"max_abs_err": 0.0, "library_ms": None,
+                                             "shapes": {}}
+    moved = 2 * (nt + nc) * d + 4 * nc + 4 * betas.shape[0] * nt * c
+    work = bound(moved, 2 * nt * nc * d, 2 * betas.shape[0] * nt * nc)
+    for mode in arms:
+        want = plain(mode)
+        torch.cuda.synchronize()
+        r = readings(got[mode], want, mode)
+        del want
+        if not torch.isfinite(got[mode]).all():
+            raise AssertionError(f"K13 {mode}: non-finite output")
+        if not torch.equal(got[mode], again[mode]):
+            raise AssertionError(f"K13 {mode}: two runs differ")
+        ms = cuda_time_ms(lambda m=mode: kern(m), 3, 1)
+        plain_ms = cuda_time_ms(lambda m=mode: plain(m), 2, 1)
+        log(f"K13 onehot_variant {mode:8s} cast_w={arms[mode]!s:5s} {shape}: "
+            + " ".join(f"{k}={v:.3e}" for k, v in r.items())
+            + f" (tol: plain {TOL_CACHE_VS_PLAIN}"
+            + (f" + {TOL_K13_DEFAULT_STEP:.3e} of max|out|, vs highest {TOL_K13_DEFAULT_REL:.3e}"
+               if mode == "default" else f", K3 and K1 {TOL_K13_VS_K3_REL} of max|out|")
+            + f"), two runs equal; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+        if not passes(r, mode):
+            raise AssertionError(f"K13 {mode}: kernel disagrees")
+        entry["shapes"][mode] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": r["vs_plain"],
+                                 **r, **work}
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["vs_plain"])
+    if not torch.equal(got["highest"], got["split3"]):
+        raise AssertionError("K13: split3 is not highest bit for bit")
+    log("K13 split3 == highest bit for bit")
+
+    # planted fault: the rows of one class relabelled -1, so the kernel drops
+    # that class's partial (its only one: 16 rows of a class sit in one block)
+    dropped = c * 417 // 1000
+    planted = labels.copy()
+    planted[labels == dropped] = -1
+    want = plain("highest")
+    for mode in arms:
+        r = readings(kern(mode, planted), want if mode != "default" else plain(mode), mode)
+        log(f"K13 planted fault (class {dropped}'s partial dropped), {mode}: "
+            + " ".join(f"{k}={v:.3e}" for k, v in r.items())
+            + f" -> {'passes (gate blind)' if passes(r, mode) else 'fails the gates'}")
+        if passes(r, mode):
+            raise AssertionError(f"K13 gates cannot see a dropped partial ({mode})")
+    del got, again, k3, k1, want
+    torch.cuda.empty_cache()
+
+
+def run_onehot_sweep() -> dict:
+    """The sweep tool's first geometry (``tools/torch_sweep_onehot_variants.bench``):
+    K1 twice, each of 3 arms x 2 blockings of K13 twice."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "torch_sweep_onehot_variants.py"
+    spec = importlib.util.spec_from_file_location("torch_sweep_onehot_variants", path)
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    t0 = time.perf_counter()
+    out = sweep.bench(K13_SHAPE["nt"], 0, K13_SHAPE["d"], K13_SHAPE["c"],
+                      rows_per_class=K13_SHAPE["per_class"])
+    for row in out["rows"][1:]:
+        tol = TOL_K13_DEFAULT_REL if row["mode"] == "default" else TOL_K13_VS_K3_REL
+        if not row["checksum_rel"] <= tol:
+            raise AssertionError(f"onehot_sweep: {row['arm']} checksum {row['checksum_rel']:.3e} "
+                                 f"from K1's (tol {tol})")
+    return {"times_s": {"bench": time.perf_counter() - t0}, "rows": out["rows"]}
 
 
 GPT2_LARGE_GEMVS = {
@@ -1059,7 +1229,8 @@ def launch_counters():
             "K4 short_attention_packed": at.short_attention_packed,
             "K5 fused_ln_attn": bk.fused_ln_attn, "K6 fused_ln_mlp": bk.fused_ln_mlp,
             "K9 fused_ln_mlp_chunked": bk.fused_ln_mlp_chunked,
-            "K12 short_attention": at.short_attention}
+            "K12 short_attention": at.short_attention,
+            "K13 onehot_variant": ck.onehot_variant}
 
 
 def counted(path_name: str, needed, drive):
@@ -1092,7 +1263,7 @@ def run_apps(runs, work: Path) -> dict:
     try:
         for name, fn, argv in runs:
             sub = work / name
-            sub.mkdir(parents=True)
+            sub.mkdir(parents=True, exist_ok=True)
             os.chdir(sub)
             t0 = time.perf_counter()
             fn(argv=argv)
@@ -1102,11 +1273,12 @@ def run_apps(runs, work: Path) -> dict:
     return times
 
 
-def records(run_root: Path, kind: str) -> list:
+def records(run_root: Path, kind: tp.Optional[str]) -> list:
+    """The records of every run under ``run_root`` of type ``kind`` (all with None)."""
     out = []
     for p in sorted(run_root.rglob("records.jsonl")):
         out.extend(r for r in map(json.loads, p.read_text().splitlines())
-                   if r.get("type") == kind)
+                   if kind is None or r.get("type") == kind)
     return out
 
 
@@ -1562,13 +1734,8 @@ def run_gen_gpt(work: Path, launches_of) -> dict:
         "spec_gpt2": run("spec_gpt2", spec + [f"generation.draft_checkpoint_dir={draft_dir}"]),
         "spec_self": run("spec_self", spec + [f"generation.draft_checkpoint_dir={ckpt_dir}"]),
     }
-    # a verify iteration: k + 1 draft steps of one row and one verify forward of k + 1 rows
     spec_iters = {name: records(work / name, "speculative")[0]["verify_iters"]
                   for name in ("spec_gpt2", "spec_self")}
-
-    def spec_k7(name: str, draft_blocks: int) -> int:
-        per_iter = (SPEC_K + 1) * (4 * draft_blocks + 2 + 1) + per_token
-        return prefill_k7(False) + prefill_k7(False, draft_blocks) + sum(spec_iters[name]) * per_iter
 
     want = {
         "int8_device": {"K7 streamed_qmatmul": prefill_k7(False) + 3 * steps * per_token},
@@ -1584,8 +1751,10 @@ def run_gen_gpt(work: Path, launches_of) -> dict:
         "engine_mega": {"K8 decode_block": engine_steps,
                         "K7 streamed_qmatmul": engine_steps * 3 + waves},
         "engine_k7": {"K7 streamed_qmatmul": engine_steps * per_token + waves},
-        "spec_gpt2": {"K7 streamed_qmatmul": spec_k7("spec_gpt2", 12)},
-        "spec_self": {"K7 streamed_qmatmul": spec_k7("spec_self", layers)},
+        # the app's speculative arm decodes the full-precision trees whatever
+        # quant_int8 says, as the JAX app does: every forward is the plain route
+        "spec_gpt2": {},
+        "spec_self": {},
     }
     for name, expected in want.items():
         if deltas[name] != expected:
@@ -1608,9 +1777,10 @@ def run_gen_gpt(work: Path, launches_of) -> dict:
         f"synchronisation inside a burst (torch.cuda.set_sync_debug_mode('error') around each)")
     if bursts["n"] != 2 * waves * chains:
         raise AssertionError(f"the engine runs made {bursts['n']} bursts, expected {2 * waves * chains}")
-    log(f"gen_gpt speculative runs, k = {SPEC_K}: verify iterations a prompt, gpt2-width draft "
-        f"{spec_iters['spec_gpt2']}, the target as its own draft {spec_iters['spec_self']} (every "
-        f"window accepted: {-(-GEN_NEW_TOKENS // (SPEC_K + 1))})")
+    log(f"gen_gpt speculative runs (the app: full-precision trees, quant_int8 ignored), k = "
+        f"{SPEC_K}: verify iterations a prompt, gpt2-width draft {spec_iters['spec_gpt2']}, the "
+        f"target as its own draft {spec_iters['spec_self']} (every window accepted: "
+        f"{-(-GEN_NEW_TOKENS // (SPEC_K + 1))})")
     ppl_plain, ppl_flash = res["int8_device"]["perplexity"], res["ppl_flash"]["perplexity"]
     rel = abs(ppl_flash - ppl_plain) / ppl_plain
     log(f"gen_gpt perplexity over (16, 1024) random tokens: plain route {ppl_plain:.4f}, K11 route "
@@ -1720,10 +1890,10 @@ def check_gen_gpt(gen: dict) -> None:
         del os.environ["SUMMER_CLIP_GEMV"]
     routes = {name: [g["ids"] for g in gen["results"][name]["generations"]]
               for name in ("int8_device", "int8_batched", "int8_fused_mlp", "mega_device",
-                           "mega_batched", "spec_gpt2", "spec_self")}
+                           "mega_batched")}
     # K7 and K8 give a row the same bits at 3 rows as at 1 (check_gemv_kernels,
     # check_decode_block), so a batched route's arithmetic is its solo route's
-    # and its logits are not walked again; a speculative run's are the K7 route's
+    # and its logits are not walked again
     stepwise = {"int8_device": {}, "int8_fused_mlp": {"SUMMER_CLIP_FUSED_MLP": "1"},
                 "mega_device": {}}
     mega_state = gen_gpt._mega_state(qmodel, "check")
@@ -1763,10 +1933,33 @@ def check_gen_gpt(gen: dict) -> None:
         return (sum(x == y for a, b in zip(a_ids, b_ids) for x, y in zip(a, b)),
                 sum(len(a) for a in a_ids))
 
-    for a, b in (("mega_device", "int8_device"), ("mega_batched", "mega_device"),
-                 ("spec_gpt2", "int8_device"), ("spec_self", "int8_device")):
+    for a, b in (("mega_device", "int8_device"), ("mega_batched", "mega_device")):
         same, total = count_same(routes[a], routes[b])
         log(f"gen_gpt greedy ids, {a} against {b}: {same} of {total} ids equal")
+
+    # the app's speculative runs decode the full-precision trees: their ids
+    # against the full tree's solo greedy sampler, and teacher forced through
+    # the full tree in one forward, each pick within TOL_GREEDY_TIE of the
+    # row's best logit (a verify forward of k + 1 rows sums in another order
+    # than a one-row step)
+    full_ids = [gen_gpt.generate_device(model, p, **greedy) for p in all_ids]
+    for name in ("spec_gpt2", "spec_self"):
+        spec_ids = [g["ids"] for g in gen["results"][name]["generations"]]
+        worst = 0.0
+        with torch.inference_mode():
+            for seq, n in zip(spec_ids, gen["n_prompt"]):
+                logits = model(torch.tensor([seq[:-1]], device="cuda"))["logits"][0, n - 1:]
+                logits = logits.float()
+                picked = logits.gather(-1, torch.tensor(seq[n:], device="cuda")[:, None])[:, 0]
+                best = logits.max(-1).values
+                worst = max(worst, float(((best - picked) / (best - logits.mean(-1))).max()))
+        same, total = count_same(spec_ids, full_ids)
+        log(f"gen_gpt greedy ids, {name} (full-precision trees) against the full tree's solo "
+            f"greedy sampler: {same} of {total} ids equal; teacher forced through the full tree, "
+            f"the farthest pick is {worst:.3e} of the row's logit spread from its best (tol "
+            f"{TOL_GREEDY_TIE})")
+        if worst > TOL_GREEDY_TIE:
+            raise AssertionError(f"{name}: speculative picks are not the full tree's greedy picks")
 
     lap("greedy routes")
     # the engine: every request of the app's two runs, and of a run with
@@ -1949,7 +2142,9 @@ def check_gen_gpt(gen: dict) -> None:
         spec()
         wall = _wall_ms(spec)
         _, stats = spec()
-        log(f"gen_gpt speculative, k = {SPEC_K}, {name}: {stats['verify_iters']} verify "
+        log(f"gen_gpt speculative engine (engine.speculative.generate_device_speculative over "
+            f"the int8 trees; the app decodes the full trees), k = {SPEC_K}, {name}: "
+            f"{stats['verify_iters']} verify "
             f"iterations for {GEN_NEW_TOKENS} tokens ({stats['emitted']} emitted), {wall:.1f} ms, "
             f"{GEN_NEW_TOKENS / wall * 1e3:.1f} tokens/s, prefill of both models included")
     lap("engine and speculative times")
@@ -1959,6 +2154,236 @@ def check_gen_gpt(gen: dict) -> None:
 # --------------------------------------------------------------------------- #
 # the training path: through the frozen towers
 # --------------------------------------------------------------------------- #
+# Tip-Adapter at ImageNet scale (``tip_adapter_imagenet``, ``clip: rn50``): 16
+# shots x 1000 classes of RN50-width (1024) cache keys, 50000 val and 50000 test
+# rows, 16000 un-augmented train rows for Tip-Adapter-F; rows are class
+# prototypes plus noise (per-coordinate 0.15 of a unit prototype: the cache alone
+# ranks ~80% of rows right, the search has to find the (beta, alpha) that
+# outvotes the zero-shot logits)
+TIP_IMAGENET = dict(classes=1000, shots=16, d=1024, n_val=50000, n_test=50000, noise=0.15)
+# one K3 launch per 16-beta chunk: tip_result 1, the search ceil(200 / 16) = 13,
+# tip_searched 1, and the same again for Tip-Adapter-F
+TIP_IMAGENET_K3 = 2 * (1 + -(-200 // 16) + 1)
+# tip_searched acc1, chance 0.1: the first run on an H100 read 17.602 (Tip-Adapter-F
+# searched 35.648; the random RN50 text tower's zero-shot logits are noise that
+# the cache term has to outvote)
+MIN_TIP_IMAGENET_ACC = 10.0
+TIP_IMAGENET_EPOCHS = 20      # finetune.epochs of conf/tip_adapter_imagenet.yaml
+
+
+def write_tip_imagenet_store(root: Path) -> dict:
+    """The feature store ``tip_adapter_imagenet`` loads with ``load_cache`` and
+    ``load_pre_feat`` from its working directory ``root``
+    (``caches/synthetic_1k``), made on the card from seed 0."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.store import FeatureStore
+
+    c, shots, d = TIP_IMAGENET["classes"], TIP_IMAGENET["shots"], TIP_IMAGENET["d"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    protos = torch.nn.functional.normalize(
+        torch.randn(c, d, generator=gen, device="cuda"), dim=1)
+
+    def rows(labels: torch.Tensor, noise: float) -> np.ndarray:
+        x = protos[labels] + noise * torch.randn(labels.shape[0], d, generator=gen,
+                                                 device="cuda")
+        return torch.nn.functional.normalize(x, dim=1).cpu().numpy()
+
+    fs = FeatureStore(root / "caches" / "synthetic_1k")
+    cache_labels = torch.arange(c, device="cuda").repeat_interleave(shots)   # class-grouped
+    keys = rows(cache_labels, TIP_IMAGENET["noise"])
+    values = np.zeros((c * shots, c), np.float32)
+    values[np.arange(c * shots), cache_labels.cpu().numpy()] = 1.0
+    fs.save(f"cache_{shots}shots", features=keys, extra={"values": values},
+            meta={"shots": shots})
+    train = torch.nn.functional.normalize(torch.from_numpy(keys).cuda() + 0.02 * torch.randn(
+        keys.shape, generator=gen, device="cuda"), dim=1).cpu().numpy()
+    fs.save("train_eval_features", features=train, labels=cache_labels.cpu().numpy())
+    for split in ("val", "test"):
+        labels = torch.randint(0, c, (TIP_IMAGENET[f"n_{split}"],), generator=gen, device="cuda")
+        fs.save(f"{split}_features", features=rows(labels, TIP_IMAGENET["noise"]),
+                labels=labels.cpu().numpy())
+    return {"rows": c * shots * 2 + TIP_IMAGENET["n_val"] + TIP_IMAGENET["n_test"]}
+
+
+class _StageTimer:
+    """Wraps named functions of a module, adding each call's wall time (the
+    card drained before and after) to ``seconds[name]``; ``restore`` undoes it."""
+
+    def __init__(self, module, names):
+        import torch
+
+        self.module, self.saved, self.seconds = module, {}, {}
+        for name in names:
+            fn = self.saved[name] = getattr(module, name)
+
+            def wrapper(*a, _fn=fn, _name=name, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                self.seconds[_name] = self.seconds.get(_name, 0.0) + time.perf_counter() - t0
+                return out
+            setattr(module, name, wrapper)
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+TIP_IMAGENET_RECORDS = ("tip_result", "tip_searched", "tipf_result", "tipf_searched")
+
+
+def run_tip_imagenet(work: Path) -> dict:
+    """``tip_adapter.run_imagenet`` at ImageNet scale on RN50 (random weights:
+    its text tower encodes 1000 x 7 prompts through K5 and K6) over a written
+    store, Tip-Adapter-F on, the config's full (200, 20) grid; the stages timed
+    and the peak memory read."""
+    import torch
+
+    from summer_clip_torch.apps import tip_adapter
+    from summer_clip_torch.methods import tip as tip_methods
+
+    t0 = time.perf_counter()
+    written = write_tip_imagenet_store(work / "tip_adapter_imagenet")
+    t_store = time.perf_counter() - t0
+    stages = _StageTimer(tip_methods, ("search_hp", "finetune_cache_keys"))
+    zs = _StageTimer(tip_adapter, ("zeroshot_classifier",))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    try:
+        times = run_apps([("tip_adapter_imagenet", tip_adapter.run_imagenet,
+                           TIP_IMAGENET_ARGV)], work)
+    finally:
+        stages.restore(), zs.restore()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"tip_adapter_imagenet: store of {written['rows']} rows written in {t_store:.2f} s; "
+        f"app {times['tip_adapter_imagenet']:.2f} s: text classifier "
+        f"{zs.seconds.get('zeroshot_classifier', 0.0):.2f} s, two (200, 20) searches "
+        f"{stages.seconds.get('search_hp', 0.0):.2f} s, Tip-Adapter-F training "
+        f"{stages.seconds.get('finetune_cache_keys', 0.0):.2f} s; peak memory {peak:.3f} GiB "
+        f"above the {base / 2 ** 30:.3f} GiB resident before it")
+    times["write_store"] = t_store
+    return {"times_s": times, "peak_gib": peak, "stages_s": {**stages.seconds, **zs.seconds}}
+
+
+TIP_IMAGENET_ARGV = ["dataset=synthetic_1k", "load_cache=true", "load_pre_feat=true",
+                     "finetune.enabled=true", "hydra.job.chdir=false", "root_path=''"]
+
+
+def check_tip_imagenet(work: Path) -> None:
+    """The records of the kernel run, then the same store through the plain
+    route (``cache_attention_labels_reference`` in place of the kernels): the
+    same searched (beta, alpha) and accuracies."""
+    import torch
+
+    from summer_clip_torch.apps import tip_adapter
+    from summer_clip_torch.methods import tip as tip_methods
+    from summer_clip_torch.ops import cache_kernels as ck
+
+    run = work / "tip_adapter_imagenet"
+    got = {k: records(run, k) for k in (*TIP_IMAGENET_RECORDS, "zero_shot", "tipf_epoch")}
+    for kind in TIP_IMAGENET_RECORDS:
+        if len(got[kind]) != 1 or not 0.0 <= got[kind][0]["acc1"] <= 100.0:
+            raise AssertionError(f"tip_adapter_imagenet: record {kind} missing or out of range")
+    losses = [r["loss"] for r in got["tipf_epoch"]]
+    log("tip_adapter_imagenet records: " + json.dumps({k: {kk: v[0][kk] for kk in v[0]
+                                                         if kk != "type"}
+                                                     for k, v in got.items() if k != "tipf_epoch"})
+        + f"; Tip-Adapter-F train CE by epoch {[round(x, 4) for x in losses]}")
+    if got["tip_searched"][0]["acc1"] < MIN_TIP_IMAGENET_ACC:
+        raise AssertionError(f"tip_searched acc1 {got['tip_searched'][0]['acc1']} below "
+                             f"{MIN_TIP_IMAGENET_ACC}")
+    if len(losses) != TIP_IMAGENET_EPOCHS or not losses[-1] < losses[0]:
+        raise AssertionError(f"Tip-Adapter-F train CE did not fall: {losses}")
+
+    def plain_route(f, keys, vals, betas, cache_labels=None):
+        return ck.cache_attention_labels_reference(
+            f, keys, torch.as_tensor(cache_labels), torch.as_tensor(betas, dtype=torch.float32),
+            int(vals.shape[1]), compute_dtype=torch.bfloat16)
+
+    plain = work / "plain"
+    (plain / "tip_adapter_imagenet").mkdir(parents=True)
+    (plain / "tip_adapter_imagenet" / "caches").symlink_to(run / "caches")
+    real = tip_methods.cache_attention_auto
+    tip_methods.cache_attention_auto = plain_route
+    t0 = time.perf_counter()
+    try:
+        run_apps([("tip_adapter_imagenet", tip_adapter.run_imagenet, TIP_IMAGENET_ARGV)], plain)
+    finally:
+        tip_methods.cache_attention_auto = real
+    want = {k: records(plain / "tip_adapter_imagenet", k) for k in TIP_IMAGENET_RECORDS}
+    log(f"tip_adapter_imagenet through the plain route: {time.perf_counter() - t0:.2f} s, "
+        + json.dumps({k: {kk: v[0][kk] for kk in ("beta", "alpha", "acc1")}
+                      for k, v in want.items()}))
+    for kind in TIP_IMAGENET_RECORDS:
+        g, w = got[kind][0], want[kind][0]
+        if any(g[k] != w[k] for k in ("beta", "alpha", "acc1")):
+            raise AssertionError(f"tip_adapter_imagenet {kind}: kernels {g} != plain {w}")
+
+
+def run_analysis(store: Path, work: Path) -> dict:
+    """``maha_distance``, ``train_em`` (diagonal covariances) and
+    ``class_projector`` over the ViT-L/14 ``synthetic_1k`` store of the
+    CLIP-search path; the records in range and every logits matrix finite."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.apps import class_projector, maha_distance, train_em
+
+    finite = []
+
+    def watch(owner, name):
+        """Record whether each output of ``owner.name`` is finite."""
+        import inspect
+
+        raw = inspect.getattr_static(owner, name)
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **k):
+            out = fn(*a, **k)
+            finite.append((name, bool(np.isfinite(
+                out.detach().cpu().numpy() if isinstance(out, torch.Tensor) else out).all())))
+            return out
+        setattr(owner, name, staticmethod(wrapper) if isinstance(raw, staticmethod) else wrapper)
+        return owner, name, raw
+
+    tag = "ViT-L14"
+    common = ["clip=vit_l14", f"store.root={store}", "dataset_name=synthetic_1k",
+              "dataset=synthetic_test", "dataset.dataset=synthetic_1k",
+              "dataset.load_images=false", f"data.features_key=synthetic_1k_test-{tag}"]
+    saved = [watch(maha_distance, "maha_logits"),
+             watch(train_em.FixedMeansGMM, "predict_log_proba"),
+             watch(class_projector.ClassProjector, "compute_clip_logits")]
+    try:
+        times = run_apps([
+            ("maha_distance", maha_distance.run,
+             common + [f"cache.features_key=synthetic_1k_train-{tag}"]),
+            ("train_em", train_em.run, common + ["em_model.covariance_type=diag"]),
+            ("class_projector", class_projector.run, common)], work)
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    recs = {"maha_result": records(work / "maha_distance", "maha_result"),
+            "em_result": records(work / "train_em", "em_result"),
+            "pca": [r for r in records(work / "class_projector", None)
+                    if "n_components" in r]}
+    log("analysis: " + json.dumps({k: [{kk: r[kk] for kk in ("n_components", "acc1", "acc5")
+                                        if kk in r} for r in v] for k, v in recs.items()})
+        + " " + json.dumps({k: round(v, 2) for k, v in times.items()}))
+    if len(recs["maha_result"]) != 1 or len(recs["em_result"]) != 1 or len(recs["pca"]) != 5:
+        raise AssertionError(f"analysis: records missing {recs}")
+    for r in [*recs["maha_result"], *recs["em_result"], *recs["pca"]]:
+        if not 0.0 <= r["acc1"] <= r["acc5"] <= 100.0:
+            raise AssertionError(f"analysis: accuracies out of range in {r}")
+    if not list(work.rglob("em_model.ckpt")):
+        raise AssertionError("train_em saved no model")
+    if not finite or not all(ok for _, ok in finite):
+        raise AssertionError(f"analysis: non-finite logits {finite}")
+    return {"times_s": times}
+
+
 TRAIN_STEPS = 1000 // 32                  # synthetic_1k, 1 shot of 1000 classes, batch 32
 TEXT_FORWARDS = TRAIN_STEPS + 2           # the steps, then the train and val accuracy passes
 IMAGE_BATCHES_1K = -(-2000 // 32) + -(-1000 // 32)
@@ -2239,6 +2664,8 @@ KERNELS = {
                             "summer_clip_tpu/ops/attention.py:87", "ppl_causal_f32"),
     "K8 decode_block": ("summer_clip_torch/csrc/decode_kernels.cu",
                         "summer_clip_tpu/ops/decode_block.py:723", "B=1 T=256 int8"),
+    "K13 onehot_variant": ("summer_clip_torch/csrc/cache_kernels.cu",
+                           "tools/sweep_onehot_variants.py:38", "split3"),
 }
 TIP_PATH = ("K5 fused_ln_attn", "K6 fused_ln_mlp", "K3 onehot_grouped", "K2 labels_dense")
 SEARCH_PATH = ("K1 cache_dense", "K2 labels_dense", "K3 onehot_grouped",
@@ -2246,10 +2673,12 @@ SEARCH_PATH = ("K1 cache_dense", "K2 labels_dense", "K3 onehot_grouped",
 GEN_PATH = ("K7 streamed_qmatmul", "K8 decode_block", "K10 fused_qmlp", "K11 flash_attention")
 TRAIN_PATH = ("K4 short_attention_packed", "K5 fused_ln_attn", "K6 fused_ln_mlp",
               "K9 fused_ln_mlp_chunked")
+TIP_IMAGENET_PATH = ("K3 onehot_grouped", "K5 fused_ln_attn", "K6 fused_ln_mlp")
+ONEHOT_SWEEP_PATH = ("K1 cache_dense", "K13 onehot_variant")
 
 
 def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
-    """``launches`` is the count over the four main paths;
+    """``launches`` is the count over the main paths;
     ``launches_by_path`` gives each path's own."""
     src, replaces, shape = KERNELS[name]
     r = results[name]
@@ -2289,6 +2718,9 @@ def main() -> int:
     check_attention_kernels(results)
     check_cache_kernels(results)
     check_dense_cache_kernel(results)
+    t1 = time.perf_counter()
+    check_onehot_variant(results)
+    log(f"phase K13: {time.perf_counter() - t1:.2f} s")
     time_towers(results)
     check_resnet_tower(results)
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
@@ -2337,10 +2769,34 @@ def main() -> int:
         check_training(train.pop("trainer"))
         log(f"phase check train_coop: {time.perf_counter() - t0:.2f} s")
 
-    paths = (TIP_PATH, SEARCH_PATH, GEN_PATH, TRAIN_PATH)
+        _, sweep_launches = counted("onehot_sweep", ONEHOT_SWEEP_PATH, run_onehot_sweep)
+        # K1 warm-up + timed; 3 arms x 2 blockings of K13, warm-up + timed each
+        if (sweep_launches["K13 onehot_variant"], sweep_launches["K1 cache_dense"]) != (12, 2):
+            raise AssertionError(f"onehot_sweep launched K13 {sweep_launches['K13 onehot_variant']}"
+                                 f" and K1 {sweep_launches['K1 cache_dense']} times, expected 12, 2")
+
+        t0 = time.perf_counter()
+        _, tipi_launches = counted("tip_adapter_imagenet RN50", TIP_IMAGENET_PATH,
+                                      lambda: run_tip_imagenet(Path(tmp) / "tip_imagenet"))
+        if (tipi_launches["K3 onehot_grouped"], tipi_launches["K2 labels_dense"]) != (
+                TIP_IMAGENET_K3, 0):
+            raise AssertionError(f"tip_adapter_imagenet launched K3 "
+                                 f"{tipi_launches['K3 onehot_grouped']} and K2 "
+                                 f"{tipi_launches['K2 labels_dense']} times, expected "
+                                 f"{TIP_IMAGENET_K3} and 0")
+        check_tip_imagenet(Path(tmp) / "tip_imagenet")
+        log(f"phase tip_adapter_imagenet: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        run_analysis(search["store"], Path(tmp) / "analysis")
+        log(f"phase analysis: {time.perf_counter() - t0:.2f} s")
+
+    paths = (TIP_PATH, SEARCH_PATH, GEN_PATH, TRAIN_PATH, TIP_IMAGENET_PATH, ONEHOT_SWEEP_PATH)
     on_path = [n for n in KERNELS if any(n in path for path in paths)]
     by_path = {n: {"tip_adapter": tip_launches[n], "clip_search": search_launches[n],
-                   "gen_gpt": gen_launches[n], "train_coop": train_launches[n]} for n in KERNELS}
+                   "gen_gpt": gen_launches[n], "train_coop": train_launches[n],
+                   "tip_adapter_imagenet": tipi_launches[n], "onehot_sweep": sweep_launches[n]}
+               for n in KERNELS}
     kernels = [kernel_entry(n, results, by_path[n]) for n in on_path]
     off_path = [kernel_entry(n, results, by_path[n]) for n in KERNELS if n not in on_path]
     log(f"card: {card}")

@@ -33,8 +33,9 @@ least 24 blocks and a legal geometry (batched: at most 8 prompts too).
 ``megakernel=true`` without ``quant_int8`` stores weights and rings in bf16.
 ``generation.continuous=true`` drains the prompts through the
 continuous-batching engine (``engine/serving``), ``generation.speculative=true``
-through draft-model speculation (``engine/speculative``; with ``quant_int8``
-both trees are quantised). ``generation.tp > 1`` raises
+through draft-model speculation (``engine/speculative``; both trees stay in
+full precision and ``quant_int8`` is ignored there, as in the JAX app).
+``generation.tp > 1`` raises
 ``NotImplementedError`` (ROADMAP Queue 1 item 11). ``approx_top_k`` is accepted
 and runs the exact top-k.
 
@@ -452,7 +453,10 @@ class GptGenerator(BaseTrainer):
 
     def _serve_speculative(self, gcfg, ids_all, quant: bool, n_ret: int) -> tp.List[tp.List[int]]:
         """Greedy speculative decoding: a smaller ClipGPT over the same CLIP
-        vocabulary drafts k tokens per verify forward of the target."""
+        vocabulary drafts k tokens per verify forward of the target. Both
+        models decode their full-precision trees, as in the JAX app:
+        ``generation.quant_int8`` is ignored on this arm (int8 speculation is
+        ``engine.speculative.generate_device_speculative(quant_int8=True)``)."""
         from summer_clip_torch.engine.speculative import generate_device_speculative
 
         draft_dir = gcfg.get("draft_checkpoint_dir")
@@ -466,16 +470,15 @@ class GptGenerator(BaseTrainer):
         if n_ret > 1:
             self.logger.log_info("speculative decoding is deterministic: "
                                  f"num_return_sequences={n_ret} repeats identical samples")
-        model = self.model
         if quant:
-            model = model.with_tree(quantize_tree(model.tree())).eval()
-            draft = draft.with_tree(quantize_tree(draft.tree())).eval()
+            self.logger.log_info("speculative decoding runs the full-precision trees: "
+                                 "generation.quant_int8 is ignored")
         outs, stats = [], []
         for ids in ids_all:
             out, st = generate_device_speculative(
-                model, draft, ids, max_new_tokens=int(gcfg.max_new_tokens),
+                self.model, draft, ids, max_new_tokens=int(gcfg.max_new_tokens),
                 k=int(gcfg.get("speculative_k", 4)), eot_id=self.tokenizer.eot_token,
-                quant_int8=quant, draft_quant_int8=quant, return_stats=True)
+                return_stats=True)
             outs.append(out), stats.append(st)
         self.logger.log_info({"type": "speculative", "verify_iters": [s["verify_iters"] for s in stats],
                               "emitted": [s["emitted"] for s in stats]})

@@ -4,10 +4,14 @@ Counterpart of ``summer_clip_tpu/apps/tip_adapter.py``, composed from the port's
 copy of its config: few-shot cache construction from augment passes over the train split,
 zero-shot and Tip-Adapter accuracy at the initial (beta, alpha), then the
 beta x alpha grid search through the label-driven cache kernels (K3 for the
-class-grouped Tip cache). Tip-Adapter-F (``finetune.enabled=true``) is not
-ported yet and raises.
+class-grouped Tip cache). With ``finetune.enabled=true`` Tip-Adapter-F then
+trains the cache keys (``methods.tip.finetune_cache_keys``) on the un-augmented
+few-shot train split, saves them as ``cache_{shots}shots_finetuned`` and
+writes ``tipf_result`` and ``tipf_searched``.
 
-Run: ``python -m summer_clip_torch.apps.tip_adapter dataset=<name> shots=16``.
+Run: ``python -m summer_clip_torch.apps.tip_adapter dataset=<name> shots=16``;
+:func:`run_imagenet` is the same app with the ImageNet prompt-ensemble config
+(``conf/tip_adapter_imagenet.yaml``).
 """
 
 from __future__ import annotations
@@ -32,9 +36,6 @@ class TipAdapterTrainer(BaseTrainer):
 
     def setup_model(self):
         cfg = self.cfg
-        fcfg = cfg.get("finetune")
-        if fcfg and bool(fcfg.get("enabled", False)):
-            raise NotImplementedError("Tip-Adapter-F (finetune.enabled=true) is not ported yet")
         self.store = FeatureStore(f"./caches/{cfg.dataset}")
         self.session = create_clip_session(cfg.clip.model_name,
                                            cfg.clip.get("checkpoint_path"),
@@ -74,6 +75,18 @@ class TipAdapterTrainer(BaseTrainer):
         self.logger.log_info("Loading visual features and labels from test set.")
         self.test_features, self.test_labels = self.preload_features("test", test_view, bs)
 
+        if self._finetune_enabled():
+            # Tip-Adapter-F trains on the (un-augmented) few-shot train split
+            self.logger.log_info("Loading train features for Tip-Adapter-F.")
+            self.train_features, self.train_labels = self.preload_features(
+                "train_eval", self.dataset_view_cls(
+                    str(cfg.dataset), "train", root, shots, input_size=size,
+                    seed=int(cfg.meta.random_state), device_normalize=dn), bs)
+
+    def _finetune_enabled(self) -> bool:
+        fcfg = self.cfg.get("finetune")
+        return bool(fcfg and fcfg.get("enabled", False))
+
     # -- cache construction ------------------------------------------------------
     def build_cache_model(self, train_view: DatasetView, batch_size: int
                           ) -> tp.Tuple[np.ndarray, np.ndarray]:
@@ -111,6 +124,24 @@ class TipAdapterTrainer(BaseTrainer):
     def _clip_logits(self, feats: np.ndarray) -> torch.Tensor:
         return 100.0 * torch.from_numpy(feats).to(self.device) @ self.clip_weights.t()
 
+    def _search(self, keys: np.ndarray, clip_logits: torch.Tensor
+                ) -> tp.Tuple[float, float, float, float]:
+        """The (beta, alpha) grid search over ``keys`` on val (on test when the
+        dataset has no val split): (beta, alpha, search accuracy, test
+        accuracy at that point)."""
+        cfg = self.cfg
+        feats, labels = ((self.val_features, self.val_labels) if len(self.val_features)
+                         else (self.test_features, self.test_labels))
+        beta, alpha, acc = tip_methods.search_hp(
+            feats, labels, self._clip_logits(feats), keys, self.cache_values,
+            search_scale=list(cfg.search_scale), search_step=list(cfg.search_step),
+            log_fn=self.logger.log_info_wandb, cache_labels=self.cache_key_labels,
+            device=self.device)
+        tip = tip_methods.tip_logits(clip_logits, self.test_features, keys, self.cache_values,
+                                     beta, alpha, cache_labels=self.cache_key_labels,
+                                     device=self.device)
+        return beta, alpha, acc, accuracy(tip, self.test_labels)[0]
+
     def train_loop(self):
         cfg = self.cfg
         dev = self.device
@@ -128,28 +159,57 @@ class TipAdapterTrainer(BaseTrainer):
         self.logger.log_info({"type": "tip_result", "beta": beta, "alpha": alpha, "acc1": acc_tip})
 
         if bool(cfg.search_hp):
-            # search on val (falls back to test when the dataset has no val split)
-            feats = self.val_features if len(self.val_features) else self.test_features
-            labels = self.val_labels if len(self.val_features) else self.test_labels
-            best_beta, best_alpha, best_acc = tip_methods.search_hp(
-                feats, labels, self._clip_logits(feats), self.cache_keys, self.cache_values,
-                search_scale=list(cfg.search_scale), search_step=list(cfg.search_step),
-                log_fn=self.logger.log_info_wandb, cache_labels=self.cache_key_labels,
-                device=dev)
+            best_beta, best_alpha, best_acc, acc_best = self._search(self.cache_keys,
+                                                                     clip_logits)
             self.logger.log_info(
                 f"After searching, the best accuracy: {best_acc:.2f} "
                 f"(beta={best_beta:.2f}, alpha={best_alpha:.2f}).")
-            tip_best = tip_methods.tip_logits(clip_logits, self.test_features, self.cache_keys,
-                                              self.cache_values, best_beta, best_alpha,
-                                              cache_labels=self.cache_key_labels, device=dev)
-            acc_best = accuracy(tip_best, self.test_labels)[0]
             self.logger.log_info(f"**** Tip-Adapter's searched test accuracy: {acc_best:.2f}. ****")
             self.logger.log_info({"type": "tip_searched", "beta": best_beta,
                                   "alpha": best_alpha, "acc1": acc_best})
 
+        if self._finetune_enabled():
+            self.run_finetune(clip_logits, beta, alpha)
+
+    def run_finetune(self, clip_logits: torch.Tensor, beta: float, alpha: float) -> None:
+        """Tip-Adapter-F: trainable cache keys, then the same records as the
+        training-free cache (``tipf_result``, ``tipf_searched``)."""
+        cfg = self.cfg
+        fcfg = cfg.finetune
+        dev = self.device
+        keys_f = tip_methods.finetune_cache_keys(
+            self.train_features, self.train_labels, self._clip_logits(self.train_features),
+            self.cache_keys, self.cache_values, beta, alpha,
+            epochs=int(fcfg.get("epochs", 20)), lr=float(fcfg.get("lr", 1e-3)),
+            batch_size=int(fcfg.get("batch_size", 256)), seed=int(cfg.meta.random_state),
+            log_fn=self.logger.log_info_wandb, device=dev)
+        self.store.save(f"cache_{cfg.shots}shots_finetuned", features=keys_f,
+                        extra={"values": self.cache_values})
+
+        tip_f = tip_methods.tip_logits(clip_logits, self.test_features, keys_f,
+                                       self.cache_values, beta, alpha,
+                                       cache_labels=self.cache_key_labels, device=dev)
+        acc_f = accuracy(tip_f, self.test_labels)[0]
+        self.logger.log_info(f"**** Tip-Adapter-F's test accuracy: {acc_f:.2f}. ****")
+        self.logger.log_info({"type": "tipf_result", "beta": beta, "alpha": alpha,
+                              "acc1": acc_f})
+
+        if bool(cfg.search_hp):
+            b_beta, b_alpha, _, acc_fb = self._search(keys_f, clip_logits)
+            self.logger.log_info(
+                f"**** Tip-Adapter-F searched test accuracy: {acc_fb:.2f} "
+                f"(beta={b_beta:.2f}, alpha={b_alpha:.2f}). ****")
+            self.logger.log_info({"type": "tipf_searched", "beta": b_beta,
+                                  "alpha": b_alpha, "acc1": acc_fb})
+
 
 @C.main(config_path="../conf", config_name="tip_adapter")
 def run(cfg) -> None:
+    run_trainer(TipAdapterTrainer, cfg)
+
+
+@C.main(config_path="../conf", config_name="tip_adapter_imagenet")
+def run_imagenet(cfg) -> None:
     run_trainer(TipAdapterTrainer, cfg)
 
 

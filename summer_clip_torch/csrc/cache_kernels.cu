@@ -6,6 +6,10 @@
 //   K1 cache_attention     -> cache_dense   (bf16 or int8 value matrix)
 //   K2 labels_dense_pallas -> labels_dense  (any row order)
 //   K3 onehot_pallas       -> onehot_grouped (class-grouped rows)
+// and of tools/sweep_onehot_variants.py:
+//   K13 onehot_variant     -> onehot_grouped<expand mode> (K3's sum with the
+//                             class partials of each block_n-row cache block
+//                             formed apart, then added as the mode says)
 //
 // What bounds them on Hopper. The TPU keeps a (block_b, block_q, C_p) f32
 // output block resident in VMEM (up to 4 MB); a Hopper block has 227 KB of
@@ -22,6 +26,18 @@
 //     (a host-side stable sort of the labels, with per-class offsets) and sums
 //     the weights of each class in f32 registers. The per-class partial sums
 //     are never rounded to bf16 (the TPU lost 0.24 abs that way).
+//   - K13 is the same walk. The TPU kernel forms, per block of block_n cache
+//     rows, each class's partial sum (w @ local) and scatters it to the output
+//     columns with a second product (small @ expand) whose precision is the
+//     sweep's parameter. Here a class's rows come in row order (the sort is
+//     stable), so a thread keeps one running partial per (class, beta), and
+//     when a row of the next cache block arrives it adds the finished partial
+//     to the accumulator as the mode says: "highest" as it is, "split3" as
+//     (hi + mid) + lo of its three bf16 parts (exact, so equal to "highest"
+//     bit for bit), "default" rounded to bf16 first (the one-pass product).
+//     The partial registers double K3's accumulators (16 betas x 4 classes
+//     each), which the 256-thread block still holds. No expand matrix is
+//     built: each class owns its output column.
 //   - K1 is bound by operations (2 Nt Nc C per beta). A block owns 32
 //     queries x 128 classes x the 8 betas of a launch: the 8 weight tiles of
 //     one affinity tile are stacked into a 256-row operand, so one affinity
@@ -161,17 +177,54 @@ labels_dense_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
 }
 
 // ---------------------------------------------------------------------------
-// K3: block = (64-query tile, 16-class group), all betas (<= 16) of the call.
-// Rows of the group are rows_sorted[offs[c0] .. offs[c0 + 16]), gathered 32 at
-// a time. Thread t owns queries t % 64 and classes 4 * (t / 64) .. + 3.
+// K3 (kExpand == kRowSum): block = (64-query tile, 16-class group), all betas
+// (<= 16) of the call. Rows of the group are rows_sorted[offs[c0] .. offs[c0 +
+// 16]), gathered 32 at a time. Thread t owns queries t % 64 and classes
+// 4 * (t / 64) .. + 3.
+// K13 (kExpand == kHighest, kSplit3, kDefault): the same blocks; the weights
+// of a class are summed per block_n-row cache block into a partial, and each
+// finished partial reaches the accumulator through expand_partial.
 // ---------------------------------------------------------------------------
 constexpr int kK3Q = 64, kK3Rows = 32, kK3Classes = 16, kMaxBeta = 16;
+constexpr int kRowSum = -1, kHighest = 0, kSplit3 = 1, kDefault = 2;
 
+// what the class-sum scatter (small @ expand) adds for one partial
+template <int kExpand>
+__device__ __forceinline__ float expand_partial(float p) {
+  if constexpr (kExpand == kSplit3) {
+    const bf16 hi = __float2bfloat16(p);
+    const float r1 = p - __bfloat162float(hi);
+    const bf16 mid = __float2bfloat16(r1);
+    const bf16 lo = __float2bfloat16(r1 - __bfloat162float(mid));
+    return __fadd_rn(__fadd_rn(__bfloat162float(hi), __bfloat162float(mid)),
+                     __bfloat162float(lo));
+  }
+  if constexpr (kExpand == kDefault) return __bfloat162float(__float2bfloat16(p));
+  return p;
+}
+
+// add class k's finished partials (one per beta) to its accumulators and start anew
+template <int kExpand>
+__device__ __forceinline__ void flush_partials(float (&acc)[kMaxBeta][4],
+                                               float (&part)[kMaxBeta][4], int k, int nb) {
+#pragma unroll
+  for (int b = 0; b < kMaxBeta; ++b) {
+    if (b < nb) acc[b][k] += expand_partial<kExpand>(part[b][k]);
+    part[b][k] = 0.f;
+  }
+}
+
+// kCastW (K13's cast_w) rounds w to bf16 before the class sum. The TPU's
+// default-precision product takes w as a bf16 operand anyway (the tool's
+// "the MXU truncates for free"), so every arm here sums the same bf16 weights
+// as K3 does, and the two values of kCastW give the same bits.
+template <int kExpand, bool kCastW>
 __global__ void __launch_bounds__(kThreads)
 onehot_grouped_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
                       const int* __restrict__ rows_sorted, const int* __restrict__ offs,
                       const float* __restrict__ betas, float* __restrict__ out,
-                      int nb, int Nt, int D, int C) {
+                      int nb, int Nt, int D, int C, int block_n) {
+  constexpr bool kPartials = kExpand != kRowSum;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int q0 = blockIdx.x * kK3Q, c0 = blockIdx.y * kK3Classes;
@@ -182,6 +235,7 @@ onehot_grouped_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
   float* aff_s = reinterpret_cast<float*>(c_s + kK3Rows * ld);  // kK3Rows x lda (row r, query q)
   __shared__ int offs_s[kK3Classes + 1];
   __shared__ float beta_s[kMaxBeta];
+  __shared__ int blk_s[kK3Rows];                              // cache block of each gathered row
 
   for (int idx = tid; idx < kK3Q * D; idx += kThreads)
     q_s[(idx / D) * ld + idx % D] = f[(size_t)(q0 + idx / D) * D + idx % D];
@@ -190,10 +244,14 @@ onehot_grouped_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
 
   const int q = tid % kK3Q, cl0 = (tid / kK3Q) * 4;
   float acc[kMaxBeta][4];
+  float part[kMaxBeta][4];   // K13: the running partial of each (beta, class)
+  int cur[4];                // K13: the cache block those partials belong to
 #pragma unroll
   for (int b = 0; b < kMaxBeta; ++b)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[b][k] = 0.f;
+    for (int k = 0; k < 4; ++k) acc[b][k] = part[b][k] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cur[k] = -1;
   __syncthreads();
 
   const int seg0 = offs_s[0], seg1 = offs_s[c_end - c0];
@@ -204,6 +262,9 @@ onehot_grouped_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
       const int i = idx / D, j = idx % D;
       c_s[i * ld + j] = i < nrows ? cf[(size_t)rows_sorted[r0 + i] * D + j]
                                   : __float2bfloat16(0.f);
+    }
+    if constexpr (kPartials) {
+      if (tid < kK3Rows) blk_s[tid] = tid < nrows ? rows_sorted[r0 + tid] / block_n : -1;
     }
     __syncthreads();
     {
@@ -220,11 +281,25 @@ onehot_grouped_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
       const int lo = max(offs_s[cl], r0) - r0, hi = min(offs_s[cl + 1], r0 + nrows) - r0;
       for (int r = lo; r < hi; ++r) {
         const float a = aff_s[r * lda + q];
+        if constexpr (kPartials) {
+          if (blk_s[r] != cur[k]) {   // the class's rows of the next cache block begin
+            flush_partials<kExpand>(acc, part, k, nb);
+            cur[k] = blk_s[r];
+          }
 #pragma unroll
-        for (int b = 0; b < kMaxBeta; ++b)
-          if (b < nb) acc[b][k] += cache_weight(beta_s[b], a);
+          for (int b = 0; b < kMaxBeta; ++b)
+            if (b < nb) part[b][k] += cache_weight(beta_s[b], a);
+        } else {
+#pragma unroll
+          for (int b = 0; b < kMaxBeta; ++b)
+            if (b < nb) acc[b][k] += cache_weight(beta_s[b], a);
+        }
       }
     }
+  }
+  if constexpr (kPartials) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) flush_partials<kExpand>(acc, part, k, nb);
   }
   // stage each beta's (64 x 16) tile so rows are written contiguously
   __syncthreads();
@@ -421,6 +496,25 @@ int launch_cache_dense(const void* f, const void* cf, const void* v, const void*
   return (int)cudaGetLastError();
 }
 
+int onehot_grouped_smem(int D) {
+  return (kK3Q + kK3Rows) * (D + kPad) * 2 + kK3Rows * (kK3Q + 4) * 4;
+}
+
+template <int kExpand, bool kCastW>
+int launch_onehot_grouped(const void* f, const void* cf, const void* rows_sorted,
+                          const void* offs, const void* betas, void* out, int nb, int Nt,
+                          int Ntp, int D, int C, int block_n, cudaStream_t stream) {
+  if (nb < 1 || nb > kMaxBeta || Ntp % kK3Q) return (int)cudaErrorInvalidValue;
+  const int smem = onehot_grouped_smem(D);
+  cudaFuncSetAttribute(onehot_grouped_kernel<kExpand, kCastW>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  dim3 grid(Ntp / kK3Q, (C + kK3Classes - 1) / kK3Classes);
+  onehot_grouped_kernel<kExpand, kCastW><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)f, (const bf16*)cf, (const int*)rows_sorted, (const int*)offs,
+      (const float*)betas, (float*)out, nb, Nt, D, C, block_n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -442,23 +536,39 @@ int labels_dense_bf16(const void* f, const void* cf, const void* labels, const v
   return (int)cudaGetLastError();
 }
 
-int onehot_grouped_smem_bytes(int D) {
-  return (kK3Q + kK3Rows) * (D + kPad) * 2 + kK3Rows * (kK3Q + 4) * 4;
-}
+int onehot_grouped_smem_bytes(int D) { return onehot_grouped_smem(D); }
 
 // f (Ntp, D) with Ntp % 64 == 0; rows_sorted: real cache rows stably sorted by
 // label; offs (C + 1,): class c owns rows_sorted[offs[c] .. offs[c + 1]).
 int onehot_grouped_bf16(const void* f, const void* cf, const void* rows_sorted,
                         const void* offs, const void* betas, void* out, int nb, int Nt,
                         int Ntp, int D, int C, void* stream) {
-  if (nb < 1 || nb > kMaxBeta) return (int)cudaErrorInvalidValue;
-  const int smem = onehot_grouped_smem_bytes(D);
-  cudaFuncSetAttribute(onehot_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid(Ntp / kK3Q, (C + kK3Classes - 1) / kK3Classes);
-  onehot_grouped_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)f, (const bf16*)cf, (const int*)rows_sorted, (const int*)offs,
-      (const float*)betas, (float*)out, nb, Nt, D, C);
-  return (int)cudaGetLastError();
+  return launch_onehot_grouped<kRowSum, true>(f, cf, rows_sorted, offs, betas, out, nb, Nt,
+                                              Ntp, D, C, 1, (cudaStream_t)stream);
+}
+
+// K13: as onehot_grouped_bf16, with the class partials of each block_n-row
+// block of the cache (rows in their original order) added as expand_mode says
+// (0 highest, 1 split3, 2 default); cast_w 0 or 1.
+int onehot_variant_bf16(const void* f, const void* cf, const void* rows_sorted,
+                        const void* offs, const void* betas, void* out, int nb, int Nt,
+                        int Ntp, int D, int C, int block_n, int expand_mode, int cast_w,
+                        void* stream) {
+  if (block_n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define K13_LAUNCH(MODE, CAST)                                                              \
+  return launch_onehot_grouped<MODE, CAST>(f, cf, rows_sorted, offs, betas, out, nb, Nt, Ntp, \
+                                           D, C, block_n, s)
+  switch (expand_mode * 2 + (cast_w ? 1 : 0)) {
+    case 0: K13_LAUNCH(kHighest, false);
+    case 1: K13_LAUNCH(kHighest, true);
+    case 2: K13_LAUNCH(kSplit3, false);
+    case 3: K13_LAUNCH(kSplit3, true);
+    case 4: K13_LAUNCH(kDefault, false);
+    case 5: K13_LAUNCH(kDefault, true);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K13_LAUNCH
 }
 
 // f (Ntp, D) with Ntp % 32 == 0; cf (Ncp, D) and v (Ncp, Cp) with Ncp % 128 == 0,

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 __all__ = ["Optimizer", "GradAccum", "Langevin", "decay_mask", "adamw_grouped", "adamw", "adam",
-           "sgd", "langevin", "warmup_cosine", "warmup_linear", "with_grad_accum",
+           "sgd", "langevin", "warmup_cosine", "warmup_linear", "cosine_decay_schedule",
+           "with_grad_accum",
            "trainable_only", "clip_by_global_norm"]
 
 Schedule = tp.Callable[[int], float]
@@ -197,19 +198,30 @@ def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int,
     """optax ``warmup_cosine_decay_schedule`` from 0: linear to ``base_lr``
     over ``warmup_steps``, then a cosine to ``end_value`` at ``total_steps``;
     optax's f32 arithmetic, so the rates agree to an f32 rounding."""
-    f32 = np.float32
     warmup = max(warmup_steps, 1)
     decay = max(total_steps, warmup_steps + 1) - warmup
     alpha = 0.0 if base_lr == 0.0 else end_value / base_lr
     rise = _linear(0.0, base_lr, warmup)
+    fall = cosine_decay_schedule(base_lr, decay, alpha)
 
     def schedule(count: int) -> float:
-        if count < warmup:
-            return rise(count)
-        c = f32(min(count - warmup, decay))
-        angle = f32(math.pi) * c / f32(decay)
+        return rise(count) if count < warmup else fall(count - warmup)
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Schedule:
+    """optax ``cosine_decay_schedule``: ``init_value`` at count 0, a cosine
+    down to ``alpha * init_value`` at ``decay_steps``, flat after; optax's f32
+    arithmetic."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule needs positive decay_steps, got {decay_steps}")
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        c = f32(min(count, decay_steps))
+        angle = f32(math.pi) * c / f32(decay_steps)
         cosine = f32(0.5) * (f32(1) + f32(np.cos(np.float64(angle))))
-        return float(f32(base_lr) * (f32(1 - alpha) * cosine + f32(alpha)))
+        return float(f32(init_value) * (f32(1 - alpha) * cosine + f32(alpha)))
     return schedule
 
 

@@ -17,6 +17,15 @@ their sweeps take the label-driven kernels, which never build the matrix:
   ``csrc/cache_kernels.cu`` (``labels_dense``); replaces the TPU kernel
   ``labels_dense_pallas`` (ops/cache_kernels.py:509).
 
+The sweep tool ``tools/torch_sweep_onehot_variants.py`` takes a fourth:
+
+- :func:`onehot_variant` -- K13, K3 with the class partial sums of each
+  ``block_n``-row cache block formed apart and added to the output in one of
+  three precisions (``expand_mode``). CUDA source ``csrc/cache_kernels.cu``
+  (``onehot_grouped`` templated on the mode); replaces the TPU kernel
+  ``onehot_variant`` (tools/sweep_onehot_variants.py:38). Its plain version is
+  :func:`onehot_variant_reference`.
+
 :func:`cache_attention_from_labels` routes between them by the same test as the
 JAX package (``:678-685``): K3 when every ``block_n``-row cache block spans at
 most ``k_limit`` classes, K2 otherwise. :func:`cache_attention_auto` sends a
@@ -43,7 +52,8 @@ __all__ = ["cache_attention_reference", "cache_attention_dense_reference",
            "cache_attention_labels_reference", "cache_attention",
            "cache_attention_onehot", "cache_attention_labels",
            "cache_attention_from_labels", "cache_attention_auto",
-           "onehot_block_classes", "onehot_k_max", "class_row_table"]
+           "onehot_block_classes", "onehot_k_max", "class_row_table", "onehot_variant",
+           "onehot_variant_reference", "EXPAND_MODES"]
 
 K3_MAX_BETA = 16   # betas per K3 launch (f32 accumulators held in registers)
 K1_MAX_BETA = 8    # betas per K1 launch (their weight tiles share one affinity tile)
@@ -55,7 +65,10 @@ _SIGNATURES = {
     "cache_dense_i8": _K1_ARGS,
     "labels_dense_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "onehot_grouped_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "onehot_variant_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+# K13's precisions of the class-sum scatter, in the kernel's numbering
+EXPAND_MODES = ("highest", "split3", "default")
 
 
 def _lib_cache():
@@ -271,6 +284,19 @@ def cache_attention_onehot(test_features: torch.Tensor, cache_features: torch.Te
         return cache_attention_labels_reference(
             test_features, cache_features, torch.from_numpy(labels), _betas(betas, "cpu"),
             num_classes)
+    return _grouped_launches(cache_attention_onehot, "onehot_grouped", test_features,
+                             cache_features, labels, betas, num_classes)
+
+
+cache_attention_onehot.launches = 0
+
+
+def _grouped_launches(wrapper, name: str, test_features: torch.Tensor,
+                      cache_features: torch.Tensor, labels: np.ndarray, betas: tp.Any,
+                      num_classes: int, *extra: int) -> torch.Tensor:
+    """K3's and K13's launches on CUDA tensors: bf16 features, the host's
+    class-row table, up to ``K3_MAX_BETA`` betas a launch of ``<name>_bf16``
+    (``extra``: K13's block_n, mode and cast_w), counted on ``wrapper``."""
     nt = test_features.shape[0]
     dev = test_features.device
     bet = _betas(betas, dev)
@@ -279,20 +305,16 @@ def cache_attention_onehot(test_features: torch.Tensor, cache_features: torch.Te
     rows_t = torch.from_numpy(rows).to(dev)
     offs_t = torch.from_numpy(offs).to(dev)
     out = torch.empty(bet.shape[0], nt, num_classes, dtype=torch.float32, device=dev)
-    lib = _lib_cache()
+    entry = getattr(_lib_cache(), f"{name}_bf16")
     stream = _lib.torch_stream()
     for s in range(0, bet.shape[0], K3_MAX_BETA):
         chunk = bet[s:s + K3_MAX_BETA].contiguous()
         view = out[s:s + K3_MAX_BETA]
-        _lib.check(lib.onehot_grouped_bf16(
-            f.data_ptr(), cf.data_ptr(), rows_t.data_ptr(), offs_t.data_ptr(),
-            chunk.data_ptr(), view.data_ptr(), chunk.shape[0], nt, nt_p, d_p,
-            num_classes, stream), "onehot_grouped")
-        cache_attention_onehot.launches += 1
+        _lib.check(entry(f.data_ptr(), cf.data_ptr(), rows_t.data_ptr(), offs_t.data_ptr(),
+                         chunk.data_ptr(), view.data_ptr(), chunk.shape[0], nt, nt_p, d_p,
+                         num_classes, *extra, stream), name)
+        wrapper.launches += 1
     return out
-
-
-cache_attention_onehot.launches = 0
 
 
 def cache_attention_labels(test_features: torch.Tensor, cache_features: torch.Tensor,
@@ -346,3 +368,87 @@ def cache_attention_auto(test_features: torch.Tensor, cache_features: torch.Tens
         return cache_attention_from_labels(test_features, cache_features, cache_labels,
                                            betas, int(cache_values.shape[1]))
     return cache_attention(test_features, cache_features, cache_values, betas)
+
+
+def _split3(small: torch.Tensor) -> torch.Tensor:
+    """``small`` as the sum ``(hi + mid) + lo`` of its three bf16 parts (exact)."""
+    hi = small.to(torch.bfloat16).float()
+    r1 = small - hi
+    mid = r1.to(torch.bfloat16).float()
+    lo = (r1 - mid).to(torch.bfloat16).float()
+    return (hi + mid) + lo
+
+
+def onehot_variant_reference(test_features: torch.Tensor, cache_features: torch.Tensor,
+                             cache_labels: tp.Any, betas: tp.Any, num_classes: int, *,
+                             block_n: int, expand_mode: str = "split3", cast_w: bool = False,
+                             compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of K13, the TPU tool's blocks done literally; (B, Nt, C) f32.
+
+    Features rounded to ``compute_dtype``, the affinity in f32, ``w =
+    exp(-beta (1 - aff))`` rounded to bf16 when ``cast_w`` is set or the
+    compute dtype is bf16 (the product then takes a bf16 operand, as the TPU's
+    default-precision product does and as the kernel does). Per ``block_n``-row
+    block of the cache (rows in their given order, the last block short) the
+    class partials ``small = w_block @ local`` are summed in f32 and added to
+    the f32 output as ``expand_mode`` says: ``"highest"`` as they are,
+    ``"split3"`` as ``(hi + mid) + lo`` of their bf16 parts, ``"default"``
+    rounded to bf16. Labels -1 add nothing."""
+    if expand_mode not in EXPAND_MODES:
+        raise ValueError(f"expand_mode must be one of {EXPAND_MODES}, got {expand_mode!r}")
+    nc = cache_features.shape[0]
+    labels = torch.from_numpy(_host_labels(cache_labels, nc, num_classes)).long()
+    dev = test_features.device
+    f = test_features.to(compute_dtype).float()
+    c = cache_features.to(device=dev, dtype=compute_dtype).float()
+    aff = f @ c.t()
+    bet = _betas(betas, "cpu").tolist()
+    out = torch.zeros(len(bet), f.shape[0], num_classes, dtype=torch.float32, device=dev)
+    blocks = []   # (row slice, classes present, local one-hot (rows, k))
+    for n0 in range(0, nc, block_n):
+        lab = labels[n0:n0 + block_n]
+        classes = torch.unique(lab[lab >= 0])
+        if classes.numel():
+            local = (lab[:, None] == classes[None]).float().to(dev)
+            blocks.append((slice(n0, n0 + block_n), classes.to(dev), local))
+    round_w = cast_w or compute_dtype == torch.bfloat16
+    for bi, beta in enumerate(bet):
+        w = torch.exp(-beta * (1.0 - aff))
+        if round_w:
+            w = w.to(torch.bfloat16).float()
+        for rows, classes, local in blocks:
+            small = w[:, rows] @ local
+            if expand_mode == "split3":
+                small = _split3(small)
+            elif expand_mode == "default":
+                small = small.to(torch.bfloat16).float()
+            out[bi][:, classes] += small
+    return out
+
+
+def onehot_variant(test_features: torch.Tensor, cache_features: torch.Tensor,
+                   cache_labels: tp.Any, betas: tp.Any, num_classes: int, *,
+                   block_n: int = 1024, expand_mode: str = "split3",
+                   cast_w: bool = False) -> torch.Tensor:
+    """K13: ``cache_attention`` with ``values = one_hot(labels)``, the class
+    partials of each ``block_n``-row cache block added to the output as
+    ``expand_mode`` says (see :func:`onehot_variant_reference`); (B, Nt, C)
+    f32, up to 16 betas a launch. The weights are bf16 on the card whatever
+    ``cast_w`` says (the kernel's note). A CPU tensor takes the plain version
+    in bf16."""
+    if expand_mode not in EXPAND_MODES:
+        raise ValueError(f"expand_mode must be one of {EXPAND_MODES}, got {expand_mode!r}")
+    if block_n < 1:
+        raise ValueError(f"block_n must be positive, got {block_n}")
+    nc = cache_features.shape[0]
+    labels = _host_labels(cache_labels, nc, num_classes)
+    if test_features.device.type == "cpu":
+        return onehot_variant_reference(test_features, cache_features, labels, betas,
+                                        num_classes, block_n=block_n, expand_mode=expand_mode,
+                                        cast_w=cast_w)
+    return _grouped_launches(onehot_variant, "onehot_variant", test_features, cache_features,
+                             labels, betas, num_classes, block_n,
+                             EXPAND_MODES.index(expand_mode), int(bool(cast_w)))
+
+
+onehot_variant.launches = 0

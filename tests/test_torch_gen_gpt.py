@@ -256,7 +256,8 @@ SERVING_SWITCHES = {
                                     "generation.megakernel=true", "generation.batch_slots=2"],
                                    "int8_megakernel"),
     "speculative": (["generation.speculative=true", "generation.speculative_k=3"], "device"),
-    "speculative_int8": (["generation.speculative=true", "generation.quant_int8=true"], None),
+    # the speculative arm ignores quant_int8, as the JAX app does
+    "speculative_int8": (["generation.speculative=true", "generation.quant_int8=true"], "device"),
     "megakernel_bf16": (["generation.megakernel=true"], None),
     "int8_megakernel": (["generation.quant_int8=true", "generation.megakernel=true"], None),
     "int8_megakernel_batched": (["generation.quant_int8=true", "generation.megakernel=true",

@@ -85,15 +85,6 @@ def test_apps_match_jax(tmp_path, monkeypatch, ckpt):
                     assert g[k] == pytest.approx(w[k], abs=1e-6), (kind, k, g, w)
 
 
-def test_finetune_not_ported_raises(tmp_path, monkeypatch):
-    from summer_clip_torch.apps import tip_adapter
-
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Tip-Adapter-F"):
-        tip_adapter.run(argv=["dataset=synthetic", "clip=test_vit", "root_path=''", "shots=1",
-                              "augment_epoch=1", "data.batch_size=8", "finetune.enabled=true"])
-
-
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import summer_clip_torch

@@ -121,6 +121,61 @@ def test_budgets_are_checked(models):
         generate_device_speculative(tt, td, PROMPT, k=0)
 
 
+def _clip_gpt_pair(seed, vocab):
+    """(JAX ClipGPT, variables, port ClipGPT) of ``test-gpt`` over the CLIP
+    vocabulary from one JAX seed."""
+    import jax
+    import jax.numpy as jnp
+
+    from summer_clip_tpu.models import gpt2 as jg
+
+    kw = dict(clip_vocab_size=vocab, clip_emb_dim=16, emb_hid_dim=24, head_hid_dim=24)
+    jm = jg.ClipGPT(jg.GPT2_CONFIGS["test-gpt"], **kw)
+    params = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 4), jnp.int32))["params"]
+    tm = tg.ClipGPT(tg.GPT2_CONFIGS["test-gpt"], **kw)
+    tm.load_tree(tg.from_flax_variables(jax.tree_util.tree_map(np.asarray, jax.device_get(params))))
+    return jm, {"params": params}, tm.eval()
+
+
+def test_app_speculative_ignores_quant_int8_as_the_jax_app(tmp_path, monkeypatch):
+    """``gen_gpt`` with ``generation.speculative=true generation.quant_int8=true``:
+    the JAX app decodes both full-precision trees on this arm, and so does the
+    port's, so the two apps emit the same ids (and those of the full tree's
+    solo greedy sampler)."""
+    import yaml
+
+    from summer_clip_tpu.apps import gen_gpt as jgen
+
+    vocab = tgen.get_tokenizer().vocab_size
+    # target seed 4: its int8 tree's greedy ids differ from the full tree's
+    pairs = {"target": _clip_gpt_pair(4, vocab), "draft": _clip_gpt_pair(0, vocab)}
+    monkeypatch.setattr(jgen, "load_pretrained_clip_gpt",
+                        lambda path, tok, rng=None: pairs[str(path)][:2])
+    monkeypatch.setattr(tgen, "load_pretrained_clip_gpt",
+                        lambda path, tok, seed=0, device=None: pairs[str(path)][2])
+    prompts = ["a photo of", "a", "this is"]
+    argv = ["model.checkpoint_dir=target", "generation.draft_checkpoint_dir=draft",
+            "generation.speculative=true", "generation.quant_int8=true",
+            "generation.speculative_k=3", "generation.max_new_tokens=6", "generation.top_k=1",
+            f"prompts={prompts}"]
+    ids = {}
+    for name, app, extra in (("jax", jgen, []), ("port", tgen, ["meta.device=cpu"])):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        app.run(argv=argv + extra)
+        results = yaml.safe_load(sorted((tmp_path / name).rglob("results.yaml"))[-1].read_text())
+        ids[name] = [g["ids"] for g in results["generations"]]
+    assert len(ids["port"]) == len(prompts) and ids["port"] == ids["jax"]
+    tok, tm = tgen.get_tokenizer(), pairs["target"][2]
+    solo = [tgen.generate_device(tm, [tok.sot_token] + tok.encode(p), max_new_tokens=6, top_k=1)
+            for p in prompts]
+    assert ids["port"] == solo
+    # the int8 tree decodes other ids here, so the test tells the two trees apart
+    tq = tm.with_tree(quantize_tree(tm.tree())).eval()
+    assert solo != [tgen.generate_device(tq, row[:len(row) - 6], max_new_tokens=6, top_k=1,
+                                         quant_int8=True) for row in solo]
+
+
 @pytest.mark.cuda
 def test_cuda_int8_speculation_streams_through_k7():
     if not torch.cuda.is_available():

@@ -17,9 +17,12 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "summer_clip_torch"
-APPS = ["save_features", "eval_clip", "tip_adapter", "image_attention", "save_image_outs",
-        "save_image_labels", "gen_gpt", "train_coop", "eval_prompt", "train_adapter",
-        "eval_adapter"]
+APPS = ["save_features", "eval_clip", "tip_adapter", "tip_adapter_imagenet", "image_attention",
+        "save_image_outs", "save_image_labels", "gen_gpt", "train_coop", "eval_prompt",
+        "train_adapter", "eval_adapter", "class_projector", "maha_distance", "train_em"]
+# the port's tools (those that import it) never import the JAX package
+TOOLS = sorted(p for p in (REPO / "tools").glob("torch_*.py")
+               if "summer_clip_torch" in p.read_text())
 
 _WALK = """
 import importlib, pkgutil, sys
@@ -52,7 +55,7 @@ def test_walk_imports_and_compose_configs_without_jax():
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|summer_clip_tpu)\b")
 
 
-@pytest.mark.parametrize("path", sorted([*PORT.rglob("*.py"), REPO / "chip_smoke.py"]),
+@pytest.mark.parametrize("path", sorted([*PORT.rglob("*.py"), REPO / "chip_smoke.py", *TOOLS]),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_nothing_of_jax_or_the_jax_package(path):
     for no, line in enumerate(path.read_text().splitlines(), 1):
