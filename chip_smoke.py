@@ -2,6 +2,13 @@
 """Run the PyTorch port (``summer_clip_torch``) on one CUDA card, end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only attention [--baseline OLD/attention_kernels.cu]
+
+The second form builds only the attention and block kernels and runs only the
+attention checks and the towers (no contract line); with ``--baseline`` an
+earlier ``attention_kernels.cu`` is built beside this tree's and each attention
+check also times it in turns with the kernel (baseline, kernel, kernel,
+baseline) on the same inputs.
 
 1. Refuses to run without CUDA. Prints the card (``nvidia-smi`` name and power
    limit) and the torch, CUDA, nvcc and Triton versions.
@@ -17,12 +24,14 @@
      (B=32, T=257, D=1024, H=4096), also two runs bit for bit and a sequence
      alone against the same sequence among others;
    - K4 short_attention_packed at the ViT-L/14 image tower (B=32, T=257,
-     D=1024, 16 heads), at text shapes (B=256, T=77, D=512, 8 heads, causal)
-     and, for its f32 variant, at gen_gpt's perplexity shape for T = 512 (B=8,
-     D=1280, 20 heads, causal), K12 short_attention at (512, 257, 64); for
-     both also
+     D=1024, 16 heads), at ViT-L/14@336 (T=577) and at its limit T=640 (B=32,
+     16 heads), at text shapes (B=256, T=77, D=512, 8 heads, causal) and, for
+     its f32 variant, at gen_gpt's perplexity shape for T = 512 (B=8, D=1280,
+     20 heads, causal), K12 short_attention at (512, 257, 64); for both also
      ``F.scaled_dot_product_attention`` on the same q/k/v, timed as the
-     library yardstick and used nowhere in the port;
+     library yardstick and used nowhere in the port; two planted faults read
+     against the same limits (the last key tile dropped at ViT-L/14, the
+     causal mask shifted by one key at the text shape);
    - K3 onehot_grouped on a class-grouped Tip cache (Nt=8192, Nc=16*1000,
      D=512, C=1000, 16 betas of the Tip grid) and K2 labels_dense on the same
      cache with its rows shuffled; K3 == K2 on the grouped cache; K3 once more
@@ -57,7 +66,8 @@
      weights and live ring rows);
    - K11 flash_attention at (160, 1024, 64) causal, at tq = 128 of tk = 1024
      with q_offset = 896 and non-causal at T = 577, each in bf16 and in f32,
-     beside ``F.scaled_dot_product_attention``;
+     beside ``F.scaled_dot_product_attention``, with a planted fault at the
+     causal shapes (the kernel with its causal mask shifted by one key);
    - the ViT-B/16 image (B=32) and text (B=256) towers and the ViT-L/14 image
      tower (24 blocks, B=32) through the kernels against the same blocks
      through the plain versions, the ViT-L/14 image tower also in
@@ -461,7 +471,68 @@ def check_cache_kernels(results: dict) -> None:
     torch.cuda.synchronize()
 
 
+def load_attention_baseline(src: str):
+    """Build another ``attention_kernels.cu`` (an earlier design, ``--baseline``)
+    with the port's flags and declare the same entry points: its times stand
+    beside the kernels' in the attention checks, in turns on the same inputs."""
+    import ctypes
+
+    from summer_clip_torch.ops import _lib
+    from summer_clip_torch.ops import attention as at
+
+    out = Path(tempfile.mkdtemp(prefix="attention_baseline_")) / "libattention_baseline.so"
+    proc = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(out), src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the baseline {src}:\n{proc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in at._SIGNATURES.items():
+        f = getattr(lib, fn)
+        f.argtypes, f.restype = list(argtypes), ctypes.c_int
+    return lib
+
+
+ATTENTION_BASELINE: dict = {}    # "lib": the --baseline build, when given
+
+
+def baseline_ms(fn, iters: int) -> tp.Optional[tuple]:
+    """The kernel call ``fn`` timed on the baseline build and on this tree's,
+    in turns (baseline, kernel, kernel, baseline); None without a baseline."""
+    lib = ATTENTION_BASELINE.get("lib")
+    if lib is None:
+        return None
+    from summer_clip_torch.ops import _lib
+    from summer_clip_torch.ops import attention as at
+
+    ours = at._lib_attention()
+
+    def on(which):
+        _lib._LIBS["attention_kernels"] = which
+        try:
+            return cuda_time_ms(fn, iters)
+        finally:
+            _lib._LIBS["attention_kernels"] = ours
+
+    b1, k1, k2, b2 = on(lib), on(ours), on(ours), on(lib)
+    return (b1 + b2) / 2, (k1 + k2) / 2
+
+
+def _attention_readings(got, want) -> tuple:
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    if not torch.isfinite(got.float()).all():
+        return float("inf"), float("inf")
+    return float(diff.max()), float(diff.mean())
+
+
 def check_attention_kernels(results: dict) -> None:
+    """K4 at the ViT-L/14 image tower, at ViT-L/14@336 (T = 577), at its limit
+    T = 640, at text shapes (causal) and in f32 at gen_gpt's perplexity shape
+    for T = 512; K12 at (512, 257, 64). Each against its plain version and
+    beside SDPA, with two planted faults read against the same limits: the
+    plain version with the last key tile dropped, and with the causal mask
+    shifted by one key."""
     import torch
     import torch.nn.functional as F
 
@@ -472,15 +543,14 @@ def check_attention_kernels(results: dict) -> None:
     def run(name, shape_name, kern, plain, library, b, h, t, f32=False):
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        err, mean_err = float(diff.max()), float(diff.mean())
-        if not torch.isfinite(got.float()).all():
-            raise AssertionError(f"{name} {shape_name}: non-finite output")
+        err, mean_err = _attention_readings(got, want)
         tol_max, tol_mean = (TOL_FLASH_F32, TOL_FLASH_F32) if f32 else (TOL_ATTN_MAX, TOL_ATTN_MEAN)
         ms, plain_ms, lib_ms = cuda_time_ms(kern, 20), cuda_time_ms(plain, 20), cuda_time_ms(library, 20)
+        prev = baseline_ms(kern, 20)
         log(f"{name:25s} {shape_name:16s}: max|d|={err:.3e} (tol {tol_max}) "
             f"mean|d|={mean_err:.3e} (tol {tol_mean}) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms SDPA {lib_ms:.4f} ms")
+            f"{plain_ms:.4f} ms SDPA {lib_ms:.4f} ms"
+            + (f"; in turns: baseline {prev[0]:.4f} ms, kernel {prev[1]:.4f} ms" if prev else ""))
         if err > tol_max or mean_err > tol_mean:
             raise AssertionError(f"{name} {shape_name}: kernel disagrees with its plain version")
         r = results.setdefault(name, {"max_abs_err": 0.0, "shapes": {}})
@@ -489,11 +559,23 @@ def check_attention_kernels(results: dict) -> None:
         flops = 4 * b * h * t * t * 64 // (2 if f32 else 1)   # the f32 case is causal
         r["shapes"][shape_name] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err,
+            **({"baseline_ms": prev[0]} if prev else {}),
             **(bound(4 * b * h * t * 64 * 4, 0, flops) if f32
                else bound(4 * b * h * t * 64 * 2, flops))}
+        return got
+
+    def fault(what, got, faulty_plain):
+        """The check's readings of a kernel that computed ``faulty_plain``."""
+        err, mean_err = _attention_readings(got, faulty_plain())
+        log(f"  planted fault ({what}): max|d|={err:.3e} (tol {TOL_ATTN_MAX}) "
+            f"mean|d|={mean_err:.3e} (tol {TOL_ATTN_MEAN})")
+        if err <= TOL_ATTN_MAX and mean_err <= TOL_ATTN_MEAN:
+            raise AssertionError(f"K4: the planted fault ({what}) reads within the limits")
 
     for shape_name, (b, t, d, heads, causal, dtype) in {
             "vit_l14_image": (32, 257, 1024, 16, False, torch.bfloat16),
+            "vit_l14_336_image": (32, 577, 1024, 16, False, torch.bfloat16),
+            "t640": (32, 640, 1024, 16, False, torch.bfloat16),
             "text_causal": (256, 77, 512, 8, True, torch.bfloat16),
             # gen_gpt's perplexity pass over an f32 gpt2-large at T = 512: the f32 variant
             "gpt2_large_t512_f32": (8, 512, 1280, 20, True, torch.float32)}.items():
@@ -503,12 +585,23 @@ def check_attention_kernels(results: dict) -> None:
         def heads_view(x):
             return x.view(b, t, heads, d // heads).transpose(1, 2)
 
-        run("K4 short_attention_packed", shape_name,
-            lambda: at.short_attention_packed(q, k, v, num_heads=heads, causal=causal),
-            lambda: at.short_attention_packed_reference(q, k, v, num_heads=heads, causal=causal),
-            lambda: F.scaled_dot_product_attention(heads_view(q), heads_view(k), heads_view(v),
-                                                   is_causal=causal),
-            b, heads, t, f32=dtype == torch.float32)
+        got = run("K4 short_attention_packed", shape_name,
+                  lambda: at.short_attention_packed(q, k, v, num_heads=heads, causal=causal),
+                  lambda: at.short_attention_packed_reference(q, k, v, num_heads=heads,
+                                                              causal=causal),
+                  lambda: F.scaled_dot_product_attention(heads_view(q), heads_view(k),
+                                                         heads_view(v), is_causal=causal),
+                  b, heads, t, f32=dtype == torch.float32)
+        if shape_name == "vit_l14_image":
+            keep = (t - 1) // 64 * 64      # keys before the last tile
+            fault(f"keys {keep}..{t - 1} dropped", got, lambda: at.mha_reference(
+                heads_view(q), heads_view(k)[..., :keep, :],
+                heads_view(v)[..., :keep, :]).transpose(1, 2).reshape(b, t, d))
+        if shape_name == "text_causal":
+            fault("causal mask shifted by one key", got, lambda: at.mha_reference(
+                heads_view(q), heads_view(k), heads_view(v),
+                mask=at._causal_bias(t, t, 1, device="cuda")).transpose(1, 2).reshape(b, t, d))
+        del q, k, v, got
     q, k, v = (_randn((512, 257, 64), gen) for _ in range(3))
     run("K12 short_attention", "vit_l14_image", lambda: at.short_attention(q, k, v),
         lambda: at.mha_reference(q, k, v),
@@ -1046,7 +1139,9 @@ def check_decode_block(results: dict) -> None:
 def check_flash_kernels(results: dict) -> None:
     """K11 at the perplexity pass's shape (BH = 8 x 20, T = 1024, causal) in bf16
     and f32, at a chunked-prefill shape (tq = 128 of tk = 1024 at q_offset 896)
-    and non-causal at T = 577, against its plain version and beside SDPA."""
+    and non-causal at T = 577, against its plain version and beside SDPA; at
+    the causal shapes also the readings of a planted fault (the kernel with its
+    causal mask shifted by one key)."""
     import torch
     import torch.nn.functional as F
 
@@ -1075,9 +1170,9 @@ def check_flash_kernels(results: dict) -> None:
                 q4, k4, v4, attn_mask=None if bias is None else bias.to(dtype))
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        err, mean_err = float(diff.max()), float(diff.mean())
+        err, mean_err = _attention_readings(got, want)
         ms, plain_ms, lib_ms = cuda_time_ms(kern, 5), cuda_time_ms(plain, 3), cuda_time_ms(lib, 5)
+        prev = baseline_ms(kern, 5)
         seen = tq * tk if not causal else sum(min(tk, off + i + 1) for i in range(tq))
         flops = 4 * bh * seen * 64
         itemsize = q.element_size()
@@ -1088,12 +1183,22 @@ def check_flash_kernels(results: dict) -> None:
         log(f"K11 flash_attention {name:22s} BH={bh} tq={tq} tk={tk} causal={causal} "
             f"q_offset={off}: max|d|={err:.3e} (tol {tol_max}) mean|d|={mean_err:.3e} kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms SDPA {lib_ms:.4f} ms bound {b['bound_ms']:.4f} "
-            f"ms by {b['bound_by']}")
-        if not torch.isfinite(got.float()).all() or err > tol_max or mean_err > tol_mean:
+            f"ms by {b['bound_by']}"
+            + (f"; in turns: baseline {prev[0]:.4f} ms, kernel {prev[1]:.4f} ms" if prev else ""))
+        if err > tol_max or mean_err > tol_mean:
             raise AssertionError(f"K11 {name}: kernel disagrees with its plain version")
+        if causal:
+            # planted fault: the kernel itself with its causal mask shifted by one key
+            f_err, f_mean = _attention_readings(
+                at.flash_attention(q, k, v, causal=True, q_offset=off + 1), want)
+            log(f"  planted fault (causal mask shifted by one key): max|d|={f_err:.3e} "
+                f"(tol {tol_max}) mean|d|={f_mean:.3e} (tol {tol_mean})")
+            if f_err <= tol_max and f_mean <= tol_mean:
+                raise AssertionError(f"K11 {name}: the planted fault reads within the limits")
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"][name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                             "max_abs_err": err, **b}
+                             "max_abs_err": err, **({"baseline_ms": prev[0]} if prev else {}),
+                             **b}
     torch.cuda.synchronize()
 
 
@@ -2689,9 +2794,19 @@ def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
             **{k: at_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
 
-def main() -> int:
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Run the port on one CUDA card, end to end.")
+    parser.add_argument("--only", choices=["attention"],
+                        help="only build and run the attention checks (K4, K11, K12) and "
+                             "the towers, then stop; no contract line")
+    parser.add_argument("--baseline", metavar="CU",
+                        help="an earlier attention_kernels.cu, timed in turns beside this "
+                             "tree's kernels in the attention checks")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs only on a "
               "CUDA card", file=sys.stderr)
@@ -2705,12 +2820,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # one nvcc each
-        list(pool.map(lambda name: _lib.build(name, verbose=True), KERNEL_SOURCES))
+    sources = ("attention_kernels", "block_kernels") if args.only else KERNEL_SOURCES
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:   # one nvcc each
+        builds = [pool.submit(_lib.build, name, True) for name in sources]
+        if args.baseline:
+            baseline = pool.submit(load_attention_baseline, args.baseline)
+        for b in builds:
+            b.result()
+        if args.baseline:
+            ATTENTION_BASELINE["lib"] = baseline.result()
     log(f"phase build: {time.perf_counter() - t0:.2f} s")
 
     results: dict = {}
     t0 = time.perf_counter()
+    if args.only == "attention":
+        check_flash_kernels(results)
+        check_attention_kernels(results)
+        time_towers(results)
+        log(f"phase attention: {time.perf_counter() - t0:.2f} s")
+        log(f"card: {card}")
+        print(json.dumps({"attention": results}))
+        return 0
     check_gemv_kernels(results)
     check_decode_block(results)
     check_flash_kernels(results)

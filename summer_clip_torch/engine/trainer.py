@@ -48,9 +48,12 @@ def set_random_state(seed: int) -> torch.Generator:
 
 
 def resolve_device(name: tp.Optional[str] = None) -> torch.device:
-    """``None``/``"auto"``: CUDA when available, else CPU."""
+    """``None``/``"auto"``: the card. Without one this raises: a run takes the
+    CPU only when the caller names it (``meta.device=cpu``)."""
     if name in (None, "auto"):
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass meta.device=cpu to run on the CPU")
+        return torch.device("cuda")
     return torch.device(str(name))
 
 

@@ -5,15 +5,17 @@ Counterpart of ``summer_clip_tpu/ops/attention.py``:
 - :func:`mha_reference` -- scaled dot-product attention in plain PyTorch with
   the JAX package's rounding (f32 scores and softmax, probabilities rounded to
   the value dtype before the PV product). The oracle and the CPU path.
-- :func:`short_attention_packed` -- K4, one-pass softmax attention on the
-  packed (B, T, H * hd) layout. CUDA source ``csrc/attention_kernels.cu``
-  (``short_attention``); replaces the TPU kernel ``short_attention_packed``
-  (ops/attention.py:248).
+- :func:`short_attention_packed` -- K4, exact-softmax attention on the packed
+  (B, T, H * hd) layout. CUDA source ``csrc/attention_kernels.cu``
+  (``short_attention_bf16``: 64-query warpgroup tiles on ``wgmma``, K/V of a
+  head resident in shared memory by TMA, two passes over the keys);
+  replaces the TPU kernel ``short_attention_packed`` (ops/attention.py:248).
 - :func:`short_attention` -- K12, the same device code on (BH, T, hd);
   replaces the TPU kernel ``short_attention`` (ops/attention.py:195).
 - :func:`flash_attention` -- K11, online-softmax attention on (BH, T, hd) with
   ``tq != tk`` and a causal mask shifted by ``q_offset``
-  (``flash_attention_bf16`` / ``flash_attention_f32`` of the same source);
+  (``flash_attention_bf16``: the same warpgroup template over a TMA ring of
+  K/V tiles; ``flash_attention_f32``: register micro-tiles on the CUDA cores);
   replaces the TPU kernel ``flash_attention`` (ops/attention.py:87). Its plain
   version is :func:`flash_attention_reference`.
 - :func:`short_attention_packed_ad`, :func:`short_attention_ad`,
@@ -61,7 +63,7 @@ FLASH_MIN_KV = 1024
 # package's setting; off, every such call takes the plain route.
 SHORT_FUSED_ENABLED = True
 
-SHORT_MAX_T = 640   # one computing warp's score rows still fit beside K and V of a head
+SHORT_MAX_T = 640   # K and V of a head stay resident in a block's shared memory
 HEAD_DIM = 64       # the only head width of the public CLIP towers
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -220,9 +222,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention takes head dim {HEAD_DIM}, got {hd}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention takes bfloat16 or float32, got {q.dtype}")
-    if q_offset < 0 or bh > 65535:
-        raise ValueError(f"flash_attention takes q_offset >= 0 and BH <= 65535, got "
-                         f"q_offset={q_offset} BH={bh}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention takes q_offset >= 0, got q_offset={q_offset}")
     for name, x, shape in (("q", q, (bh, tq, hd)), ("k", k, (bh, tk, hd)), ("v", v, (bh, tk, hd))):
         if not x.is_cuda:
             raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")

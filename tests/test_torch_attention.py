@@ -232,3 +232,38 @@ def test_cuda_k4_f32_matches_plain(t, causal, fused_qkv):
     one = at.short_attention(q[..., :HD].contiguous(), k[..., :HD].contiguous(),
                              v[..., :HD].contiguous(), causal=causal)        # K12, head 0
     assert torch.equal(one, got[..., :HD])
+
+
+# T at the edges of the kernels' 64-row tiles and 16-key steps, up to SHORT_MAX_T
+EDGE_T = (1, 15, 16, 17, 63, 64, 65, 77, 128, 150, 257, 320, 577, 640)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", EDGE_T)
+def test_cuda_k4_and_k12_at_tile_edges(t, causal, dtype):
+    """K4 on strided views of one fused (B, T, 3D) projection and K12 on (BH, T,
+    64), BH = 3 x 5 heads (a multiple of no tile), against their plain versions
+    at chip_smoke.py's limits: bf16 max 0.05 and mean 1e-3, f32 2e-5."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    tol_max, tol_mean = (0.05, 1e-3) if dt == torch.bfloat16 else (2e-5, 2e-5)
+    gen = torch.Generator().manual_seed(1000 + t)
+    b, heads = 3, 5
+    d = heads * HD
+    q, k, v = torch.randn(b, t, 3 * d, generator=gen).to("cuda", dt).split(d, dim=-1)
+    got = at.short_attention_packed(q, k, v, num_heads=heads, causal=causal)
+    want = at.short_attention_packed_reference(q, k, v, num_heads=heads, causal=causal)
+
+    def split(x):
+        return x.reshape(b, t, heads, HD).transpose(1, 2).reshape(b * heads, t, HD).contiguous()
+
+    got12 = at.short_attention(split(q), split(k), split(v), causal=causal)
+    torch.cuda.synchronize()
+    for out, ref in ((got, want), (got12, split(want))):
+        assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+        diff = (out.float() - ref.float()).abs()
+        assert float(diff.max()) <= tol_max and float(diff.mean()) <= tol_mean, (
+            float(diff.max()), float(diff.mean()))
+    assert torch.equal(split(got), got12)     # one device code for both layouts

@@ -208,3 +208,49 @@ def test_cuda_multi_head_attention_takes_every_route():
     y = x.detach().clone().requires_grad_()
     at.multi_head_attention(y, y, y, num_heads=2, use_flash=False).sum().backward()
     assert torch.allclose(x.grad, y.grad, rtol=1e-5, atol=1e-5)
+
+
+def _edge_cases():
+    """(tq, tk, q_offset) at the edges of the kernels' 64-row tiles: tq == tk,
+    a late query chunk at q_offset = tk - tq, a short one at 896 and one that
+    starts at 0 of a longer history."""
+    cases = [(t, t, 0) for t in (1, 15, 16, 17, 63, 64, 65, 77, 128, 257, 577, 640)]
+    for tq, tk in ((1, 65), (15, 77), (17, 128), (65, 257), (77, 577), (128, 1024), (63, 640)):
+        cases += [(tq, tk, tk - tq), (tq, tk, 0)]
+    cases += [(128, 1024, 896), (65, 1024, 896), (1, 1024, 896)]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk,q_offset", _edge_cases())
+def test_cuda_k11_at_tile_edges(tq, tk, q_offset, causal, dtype):
+    """K11 against its plain version at chip_smoke.py's limits (bf16 max 0.05
+    and mean 1e-3, f32 2e-5), BH = 7 (a multiple of no tile)."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    tol_max, tol_mean = (0.05, 1e-3) if dt == torch.bfloat16 else (2e-5, 2e-5)
+    q, k, v = (torch.from_numpy(x).to("cuda", dt) for x in _qkv(tq * 7 + tk, 7, tq, tk))
+    got = at.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    want = at.flash_attention_reference(q, k, v, causal=causal, q_offset=q_offset)
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.max()) <= tol_max and float(diff.mean()) <= tol_mean, (
+        float(diff.max()), float(diff.mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_k11_takes_more_than_65535_heads(dtype):
+    """The grid counts (query block, head) on x: no limit on BH."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(70001, 2, HD, generator=gen).to("cuda", dt) for _ in range(3))
+    got = at.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = at.flash_attention_reference(q, k, v, causal=True)
+    assert float((got.float() - want.float()).abs().max()) <= (0.05 if dt == torch.bfloat16
+                                                              else 2e-5)

@@ -20,6 +20,8 @@ import torch
 
 TOPK_GROUPS = ("topk", "topk_prob", "topk_per_gold", "topk_prob_per_gold",
                "per_pred_class_random", "per_gold_class_random", "global_random")
+# the port runs on the card unless told otherwise; the JAX package picks its backend
+CPU = {"summer_clip_tpu": [], "summer_clip_torch": ["meta.device=cpu"]}
 # two cache sizes per strategy: one below the split's 8 rows per class, one above
 GRID = (["cache.alpha=[0.0,1.0]", "cache_weights_strategy.beta=[1.0,5.5]"]
         + [f"cache_strategies.{g}.topk=[2,16]" for g in TOPK_GROUPS])
@@ -49,7 +51,7 @@ def _run_search(pkg: str, root: Path, ckpt: str, monkeypatch, values: str, extra
             for name in ("save_features", "save_image_outs", "image_attention")}
     store = root / "features"
     common = ["clip=test_vit", f"clip.checkpoint_path={ckpt}", "dataset_name=synthetic",
-              f"store.root={store}"]
+              f"store.root={store}", *CPU[pkg]]
     runs = [
         ("save_features", ["dataset@train_dataset=synthetic_train",
                            "dataset@test_dataset=synthetic_test", "data.batch_size=8",
@@ -163,8 +165,9 @@ def test_class_distribution_and_labels_apps(tmp_path, monkeypatch, ckpt):
     sub.mkdir()
     monkeypatch.chdir(sub)
     class_distribution.run(argv=[
-        "clip=test_vit", f"clip.checkpoint_path={ckpt}", "dataset_name=synthetic",
-        f"store.root={store}", "dataset=synthetic_test", "dataset@cache.dataset=synthetic_train",
+        "meta.device=cpu", "clip=test_vit", f"clip.checkpoint_path={ckpt}",
+        "dataset_name=synthetic", f"store.root={store}", "dataset=synthetic_test",
+        "dataset@cache.dataset=synthetic_train",
         "dataset.load_images=false", "cache.dataset.load_images=false",
         "data.features_key=synthetic_test-test-vit",
         "cache.features_key=synthetic_train-test-vit",
@@ -177,8 +180,9 @@ def test_class_distribution_and_labels_apps(tmp_path, monkeypatch, ckpt):
     sub.mkdir()
     monkeypatch.chdir(sub)
     out = sub / "labels.npy"
-    save_image_labels.run(argv=["dataset_name=synthetic", "dataset=synthetic_train",
-                                "dataset.load_images=false", f"data.output_labels={out}"])
+    save_image_labels.run(argv=["meta.device=cpu", "dataset_name=synthetic",
+                                "dataset=synthetic_train", "dataset.load_images=false",
+                                f"data.output_labels={out}"])
     onehot = np.load(out)
     assert onehot.ndim == 2 and (onehot.sum(1) == 1).all()
 

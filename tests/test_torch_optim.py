@@ -193,3 +193,24 @@ def test_trainer_stops_after_the_epoch_that_sigterm_hits(tmp_path, monkeypatch):
     recs = [json.loads(line) for line in (tmp_path / "records.jsonl").read_text().splitlines()]
     assert {"type": "preempted", "epoch": 2}.items() <= next(
         r for r in recs if r.get("type") == "preempted").items()
+
+
+@pytest.mark.parametrize("name", [None, "auto"])
+def test_resolve_device_raises_without_a_card(monkeypatch, name):
+    """The default device is the card: with none, a run raises and names the
+    way to the CPU instead of quietly running there; "cpu" still resolves."""
+    from summer_clip_torch.engine.trainer import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="meta.device=cpu"):
+        resolve_device(name)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_clip_session_takes_the_cpu_only_when_asked(monkeypatch):
+    from summer_clip_torch.apps.common import create_clip_session
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_clip_session("test-vit")
+    assert create_clip_session("test-vit", device="cpu").device == torch.device("cpu")

@@ -44,7 +44,8 @@ def _run_apps(pkg: str, root: Path, ckpt: str, monkeypatch) -> Path:
     eval_clip = importlib.import_module(f"{pkg}.apps.eval_clip")
     tip_adapter = importlib.import_module(f"{pkg}.apps.tip_adapter")
     store = root / "features"
-    common = ["clip=test_vit", f"clip.checkpoint_path={ckpt}"]
+    common = ["clip=test_vit", f"clip.checkpoint_path={ckpt}",
+              *(["meta.device=cpu"] if pkg == "summer_clip_torch" else [])]
     for app, argv in (
         (save_features, ["dataset_name=synthetic", "dataset@train_dataset=synthetic_train",
                          "dataset@test_dataset=synthetic_test", "data.batch_size=8",

@@ -99,7 +99,8 @@ def test_finetune_app_matches_jax(tmp_path, monkeypatch, ckpt):
         roots[pkg] = tmp_path / pkg
         roots[pkg].mkdir()
         monkeypatch.chdir(roots[pkg])
-        app.run(argv=["clip=test_vit", f"clip.checkpoint_path={ckpt}", *FINETUNE])
+        cpu = ["meta.device=cpu"] if pkg == "summer_clip_torch" else []
+        app.run(argv=[*cpu, "clip=test_vit", f"clip.checkpoint_path={ckpt}", *FINETUNE])
     jax_root, port_root = roots["summer_clip_tpu"], roots["summer_clip_torch"]
 
     epochs = _records(port_root, "tipf_epoch")
