@@ -2,13 +2,17 @@
 """Run the PyTorch port (``summer_clip_torch``) on one CUDA card, end to end.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only attention [--baseline OLD/attention_kernels.cu]
+    python3 chip_smoke.py --only {attention,block,cache} [--baseline OLD/<source>.cu]
 
-The second form builds only the attention and block kernels and runs only the
-attention checks and the towers (no contract line); with ``--baseline`` an
-earlier ``attention_kernels.cu`` is built beside this tree's and each attention
-check also times it in turns with the kernel (baseline, kernel, kernel,
-baseline) on the same inputs.
+The second form builds only what one kernel source's checks need and runs only
+them, then stops (no contract line): ``attention`` (K4, K11, K12 and the
+towers), ``block`` (K5, K6, K9 and the towers) or ``cache`` (K3, K2, K1 with
+the affinity probe, K13). With ``--baseline`` an earlier copy of that source
+(``attention_kernels.cu``, ``block_kernels.cu`` or ``cache_kernels.cu``, e.g.
+from ``git show <commit>:summer_clip_torch/csrc/...``) is built beside this
+tree's, and the attention checks, K9 and K1 (at CLIP-search's shape) also time
+it in turns with the kernel (baseline, kernel, kernel, baseline) on the same
+inputs.
 
 1. Refuses to run without CUDA. Prints the card (``nvidia-smi`` name and power
    limit) and the torch, CUDA, nvcc and Triton versions.
@@ -40,7 +44,8 @@ baseline) on the same inputs.
    - K1 cache_dense at Nt=8192, Nc=16384, D=768, C=1000, 8 betas (CLIP-search's
      beta chunk) with bf16 softmax values and with int8 one-hot values, the
      latter also against K2 on the same labels; K1 once more at the pipeline's
-     own size (Nt=1000, Nc=2048);
+     own size (Nt=1000, Nc=2048); K1's affinity (wgmma) against K2's (WMMA)
+     bit for bit on 64 tiles at widths 16 to 256 (the affinity probe);
    - K13 onehot_variant at the sweep tool's first geometry (Nt=50176, D=1024,
      C=1000, 16 cache rows a class, 8 betas, block_n 1024), each expand mode
      ("highest" with cast_w, "split3", "default") against its plain version,
@@ -345,9 +350,12 @@ def check_block_kernels(results: dict) -> None:
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{name} {tower}: non-finite output")
             ms, plain_ms = cuda_time_ms(kern, 20), cuda_time_ms(plain, 20)
+            prev = baseline_ms(kern, 20, "block_kernels") if name.startswith("K9") else None
             log(f"{name:18s} {tower:14s} B={b} T={t} D={d} heads={heads} causal={causal}: "
                 f"max|d|={err:.3e} (tol {TOL_BLOCK_MAX}) mean|d|={mean_err:.3e} "
-                f"(tol {TOL_BLOCK_MEAN}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                f"(tol {TOL_BLOCK_MEAN}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+                + (f"; in turns: baseline {prev[0]:.4f} ms, kernel {prev[1]:.4f} ms" if prev
+                   else ""))
             if err > TOL_BLOCK_MAX or mean_err > TOL_BLOCK_MEAN:
                 raise AssertionError(f"{name} {tower}: kernel disagrees with its plain version")
             if name.startswith("K9"):
@@ -361,13 +369,13 @@ def check_block_kernels(results: dict) -> None:
                     raise AssertionError("K9 is not deterministic or a row depends on others")
             m = b * t
             weights = 4 * d * d if name.startswith("K5") else 8 * d * d
-            # K9 recomputes its tile's c_fc in each of its two column blocks; the
-            # bound counts the MLP's own operations once
             flops = (2 * m * d * 4 * d + 4 * b * heads * t * t * (d // heads)
                      if name.startswith("K5") else 2 * 2 * m * d * 4 * d)
             r = results.setdefault(name, {"max_abs_err": 0.0, "shapes": {}, "library_ms": None})
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["shapes"][tower] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                                  **({"baseline_ms": prev[0], "in_turns_ms": prev[1]}
+                                     if prev else {}),
                                   **bound(2 * (2 * m * d + weights), flops)}
     torch.cuda.synchronize()
 
@@ -471,49 +479,70 @@ def check_cache_kernels(results: dict) -> None:
     torch.cuda.synchronize()
 
 
-def load_attention_baseline(src: str):
-    """Build another ``attention_kernels.cu`` (an earlier design, ``--baseline``)
-    with the port's flags and declare the same entry points: its times stand
-    beside the kernels' in the attention checks, in turns on the same inputs."""
+# --only: the checks of one kernel source; --baseline: an earlier copy of that
+# source, built beside it and timed in turns with it
+ONLY_SOURCES = {"attention": "attention_kernels", "block": "block_kernels",
+                "cache": "cache_kernels"}
+
+
+def _ops_module(source: str):
+    import importlib
+
+    return importlib.import_module(
+        {"attention_kernels": "summer_clip_torch.ops.attention",
+         "block_kernels": "summer_clip_torch.ops.block_kernels",
+         "cache_kernels": "summer_clip_torch.ops.cache_kernels"}[source])
+
+
+def load_baseline(src: str, source: str):
+    """Build another copy of ``csrc/<source>.cu`` (an earlier design,
+    ``--baseline``) with the port's flags, its headers beside it, and declare
+    the entry points of the tree's wrapper module that it has: its times stand
+    beside the kernels' in the checks, in turns on the same inputs."""
     import ctypes
+    import shutil
 
     from summer_clip_torch.ops import _lib
-    from summer_clip_torch.ops import attention as at
 
-    out = Path(tempfile.mkdtemp(prefix="attention_baseline_")) / "libattention_baseline.so"
-    proc = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(out), src],
-                          capture_output=True, text=True)
+    out_dir = Path(tempfile.mkdtemp(prefix=f"{source}_baseline_"))
+    for header in _lib.CSRC_DIR.glob("*.cuh"):     # an older source may include fewer
+        shutil.copy(header, out_dir)
+    shutil.copy(src, out_dir / f"{source}.cu")
+    out = out_dir / f"lib{source}_baseline.so"
+    proc = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(out),
+                           str(out_dir / f"{source}.cu")], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for the baseline {src}:\n{proc.stderr[-4000:]}")
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in at._SIGNATURES.items():
-        f = getattr(lib, fn)
-        f.argtypes, f.restype = list(argtypes), ctypes.c_int
+    for fn, argtypes in _ops_module(source)._SIGNATURES.items():
+        if hasattr(lib, fn):
+            f = getattr(lib, fn)
+            f.argtypes, f.restype = list(argtypes), ctypes.c_int
     return lib
 
 
-ATTENTION_BASELINE: dict = {}    # "lib": the --baseline build, when given
+BASELINE: dict = {}    # "source" and "lib": the --baseline build, when given
 
 
-def baseline_ms(fn, iters: int) -> tp.Optional[tuple]:
-    """The kernel call ``fn`` timed on the baseline build and on this tree's,
-    in turns (baseline, kernel, kernel, baseline); None without a baseline."""
-    lib = ATTENTION_BASELINE.get("lib")
-    if lib is None:
+def baseline_ms(fn, iters: int, source: str) -> tp.Optional[tuple]:
+    """The kernel call ``fn`` (from ``csrc/<source>.cu``) timed on the
+    baseline build and on this tree's, in turns (baseline, kernel, kernel,
+    baseline); None without a baseline of that source."""
+    if BASELINE.get("source") != source:
         return None
     from summer_clip_torch.ops import _lib
-    from summer_clip_torch.ops import attention as at
 
-    ours = at._lib_attention()
+    base = BASELINE["lib"]
+    ours = _lib.load(source, _ops_module(source)._SIGNATURES)
 
     def on(which):
-        _lib._LIBS["attention_kernels"] = which
+        _lib._LIBS[source] = which
         try:
             return cuda_time_ms(fn, iters)
         finally:
-            _lib._LIBS["attention_kernels"] = ours
+            _lib._LIBS[source] = ours
 
-    b1, k1, k2, b2 = on(lib), on(ours), on(ours), on(lib)
+    b1, k1, k2, b2 = on(base), on(ours), on(ours), on(base)
     return (b1 + b2) / 2, (k1 + k2) / 2
 
 
@@ -546,7 +575,7 @@ def check_attention_kernels(results: dict) -> None:
         err, mean_err = _attention_readings(got, want)
         tol_max, tol_mean = (TOL_FLASH_F32, TOL_FLASH_F32) if f32 else (TOL_ATTN_MAX, TOL_ATTN_MEAN)
         ms, plain_ms, lib_ms = cuda_time_ms(kern, 20), cuda_time_ms(plain, 20), cuda_time_ms(library, 20)
-        prev = baseline_ms(kern, 20)
+        prev = baseline_ms(kern, 20, "attention_kernels")
         log(f"{name:25s} {shape_name:16s}: max|d|={err:.3e} (tol {tol_max}) "
             f"mean|d|={mean_err:.3e} (tol {tol_mean}) kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms SDPA {lib_ms:.4f} ms"
@@ -640,15 +669,19 @@ def check_dense_cache_kernel(results: dict) -> None:
             if not torch.isfinite(got).all():
                 raise AssertionError(f"K1 {shape_name} {vname}: non-finite output")
             ms, plain_ms = cuda_time_ms(kern, 3, 1), cuda_time_ms(plain, 2, 1)
+            prev = baseline_ms(kern, 3, "cache_kernels") if shape_name == "clip_search" else None
             log(f"K1 cache_dense     {shape_name:11s} Nt={nt} Nc={nc} D={d} C={c} betas={nb} "
                 f"{vname}: max|d| vs plain={err:.3e} (tol {TOL_K1_VS_PLAIN}) kernel {ms:.4f} ms "
-                f"plain {plain_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms"
+                + (f"; in turns: baseline {prev[0]:.4f} ms, kernel {prev[1]:.4f} ms" if prev
+                   else ""))
             if err > TOL_K1_VS_PLAIN:
                 raise AssertionError(f"K1 {shape_name} {vname}: kernel disagrees with plain")
             r["max_abs_err"] = max(r["max_abs_err"], err)
             vbytes = v.element_size()
             r["shapes"][f"{shape_name} {vname.split()[0]}"] = {
                 "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                **({"baseline_ms": prev[0], "in_turns_ms": prev[1]} if prev else {}),
                 **bound(2 * (nt + nc) * d + vbytes * nc * c + 4 * nb * nt * c,
                         2 * nt * nc * d + nb * 2 * nt * nc * c, nb * nt * nc)}
         k2 = ck.cache_attention_labels(f, keys, labels.cpu().numpy(), betas, c)
@@ -658,7 +691,36 @@ def check_dense_cache_kernel(results: dict) -> None:
             f"(tol {TOL_K3_VS_K2})")
         if e12 > TOL_K3_VS_K2:
             raise AssertionError("K1 with one-hot values disagrees with K2")
+    check_affinity_probe()
     torch.cuda.synchronize()
+
+
+def check_affinity_probe() -> None:
+    """K1's affinity (transposed wgmma.m64n16k16) against K2's (WMMA), bit for
+    bit, over 64 tiles of 64 cache rows x 16 queries at widths up to 256: the
+    reason K1 == K2 holds at 1e-4 (both add the same bf16 weights)."""
+    import torch
+
+    from summer_clip_torch.ops import _lib
+    from summer_clip_torch.ops import cache_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lib = ck._lib_cache()
+    tiles, differ = 64, {}
+    for d in (16, 64, 192, 256):
+        f = torch.randn(tiles * 16, d, device="cuda", generator=gen)
+        c = torch.randn(tiles * 64, d, device="cuda", generator=gen)
+        f = (f / f.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        c = (c / c.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        out = torch.zeros(2, tiles, 16, 64, device="cuda")
+        _lib.check(lib.affinity_probe_bf16(f.data_ptr(), c.data_ptr(), out.data_ptr(), d, tiles,
+                                           _lib.torch_stream()), "affinity_probe")
+        torch.cuda.synchronize()
+        differ[d] = int((out[0] != out[1]).sum())
+    log(f"K1 affinity probe (wgmma S^T vs K2's WMMA, {tiles} x 16 x 64 each): elements that "
+        f"differ at D = " + ", ".join(f"{d}: {n}" for d, n in differ.items()) + " (must be 0)")
+    if any(differ.values()):
+        raise AssertionError("K1's affinity differs from K2's")
 
 
 # K13 at the JAX sweep tool's first geometry (its "top16-per-class"): Nt=50176,
@@ -1172,7 +1234,7 @@ def check_flash_kernels(results: dict) -> None:
         torch.cuda.synchronize()
         err, mean_err = _attention_readings(got, want)
         ms, plain_ms, lib_ms = cuda_time_ms(kern, 5), cuda_time_ms(plain, 3), cuda_time_ms(lib, 5)
-        prev = baseline_ms(kern, 5)
+        prev = baseline_ms(kern, 5, "attention_kernels")
         seen = tq * tk if not causal else sum(min(tk, off + i + 1) for i in range(tq))
         flops = 4 * bh * seen * 64
         itemsize = q.element_size()
@@ -2800,13 +2862,17 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Run the port on one CUDA card, end to end.")
-    parser.add_argument("--only", choices=["attention"],
-                        help="only build and run the attention checks (K4, K11, K12) and "
-                             "the towers, then stop; no contract line")
+    parser.add_argument("--only", choices=sorted(ONLY_SOURCES),
+                        help="only build and run the checks of one kernel source, then stop "
+                             "(no contract line): attention (K4, K11, K12 and the towers), "
+                             "block (K5, K6, K9 and the towers) or cache (K1, K2, K3, K13)")
     parser.add_argument("--baseline", metavar="CU",
-                        help="an earlier attention_kernels.cu, timed in turns beside this "
-                             "tree's kernels in the attention checks")
+                        help="with --only: an earlier copy of that source (attention_kernels.cu, "
+                             "block_kernels.cu or cache_kernels.cu), timed in turns beside this "
+                             "tree's kernels in the checks")
     args = parser.parse_args(argv)
+    if args.baseline and not args.only:
+        parser.error("--baseline needs --only (the source it is an earlier copy of)")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs only on a "
               "CUDA card", file=sys.stderr)
@@ -2820,26 +2886,37 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    sources = ("attention_kernels", "block_kernels") if args.only else KERNEL_SOURCES
+    only = {"attention": ("attention_kernels", "block_kernels"),   # the towers run both
+            "block": ("block_kernels", "attention_kernels"),
+            "cache": ("cache_kernels",)}
+    sources = only[args.only] if args.only else KERNEL_SOURCES
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:   # one nvcc each
         builds = [pool.submit(_lib.build, name, True) for name in sources]
         if args.baseline:
-            baseline = pool.submit(load_attention_baseline, args.baseline)
+            baseline = pool.submit(load_baseline, args.baseline, ONLY_SOURCES[args.only])
         for b in builds:
             b.result()
         if args.baseline:
-            ATTENTION_BASELINE["lib"] = baseline.result()
+            BASELINE.update(source=ONLY_SOURCES[args.only], lib=baseline.result())
     log(f"phase build: {time.perf_counter() - t0:.2f} s")
 
     results: dict = {}
     t0 = time.perf_counter()
-    if args.only == "attention":
-        check_flash_kernels(results)
-        check_attention_kernels(results)
-        time_towers(results)
-        log(f"phase attention: {time.perf_counter() - t0:.2f} s")
+    if args.only:
+        if args.only == "attention":
+            check_flash_kernels(results)
+            check_attention_kernels(results)
+        elif args.only == "block":
+            check_block_kernels(results)
+        else:
+            check_cache_kernels(results)
+            check_dense_cache_kernel(results)
+            check_onehot_variant(results)
+        if args.only != "cache":
+            time_towers(results)
+        log(f"phase {args.only}: {time.perf_counter() - t0:.2f} s")
         log(f"card: {card}")
-        print(json.dumps({"attention": results}))
+        print(json.dumps({args.only: results}))
         return 0
     check_gemv_kernels(results)
     check_decode_block(results)

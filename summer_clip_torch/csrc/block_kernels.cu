@@ -4,8 +4,8 @@
 //   K5 fused_ln_attn  ->  ln_attn_heads (one block per (sequence, head))
 //                         + linear_residual (out_proj + bias + residual)
 //   K6 fused_ln_mlp   ->  ln_mlp (one block per 32- or 48-row tile, all D columns)
-//   K9 fused_ln_mlp_chunked -> ln_mlp at D = 1024 (one block per 32-row tile and
-//                         512-column half of the output; see below)
+//   K9 fused_ln_mlp_chunked -> ln_mlp_wide at D = 1024 (a cluster of two CTAs
+//                         per 64-row tile; see below)
 //
 // What bounds them on Hopper. The TPU keeps all four attention weights
 // (4*D^2 bf16 = 4.7 MB at ViT-B) and both MLP weights resident in 16 MB of
@@ -21,24 +21,38 @@
 //     at a time and consumed at once by c_proj, whose MR x D f32 accumulators
 //     stay in registers (so D is 512 or 768). Next step: wgmma + TMA with a
 //     larger row tile.
-//   - K9 (the ViT-L/14 width, D = 1024, H = 4096): a 32-row tile's 32 x 1024
-//     f32 accumulators would be 128 registers a thread before any fragment, so
-//     a block owns the tile's rows and one 512-column half of the output. Each
-//     of the two blocks of a row tile makes the tile's whole hidden (c_fc over
-//     all D inputs), 64 columns at a time, and keeps only its half of c_proj:
-//     1.5x the MLP's operations. On the TPU the hidden chunks are a
-//     sequential grid axis summed in VMEM scratch; here one block walks all
-//     4096 hidden columns in order, so every output is summed in f32 across
-//     the chunks in one fixed order (two runs agree bit for bit, a row does
-//     not depend on the rows beside it). Bound on the card: operations (138
-//     GFLOP of the unrecomputed MLP at B = 32, T = 257). Alternatives for the
-//     speed work: a hidden-chunk grid axis with f32 partials added in a fixed
-//     order by the last block to arrive (K7's ticket), or a 2-CTA cluster
-//     that splits the hidden and adds the halves over distributed shared memory.
-// Weights and activations are staged 16 bytes a thread, and the next weight
-// slices are in flight (in registers, or by cp.async into a 3-stage ring)
-// while the current one is multiplied.
-// Products use WMMA bf16 16x16x16 tiles with f32 accumulation. Rounding points
+//   - K9 (the ViT-L/14 width, D = 1024, H = 4096): the MLP's 138 GFLOP at
+//     B = 32, T = 257 take 0.14 ms at 989 TFLOP/s, but what binds it on the
+//     card is the weights every row tile reads from L2 (below). Design (wgmma
+//     + TMA, Hopper's own units): a cluster of two CTAs owns 64 rows; CTA r owns output
+//     columns 512 r .. 512 r + 511 (64 x 512 f32 accumulators: 128 registers
+//     a thread of two consumer warpgroups, each m64n128 x 2). LN(x) of the 64
+//     rows stays in shared memory (128 KB) as the A operand of c_fc. The
+//     hidden goes in chunks of 128: each CTA makes 64 of them (c_fc,
+//     wgmma.m64n32k16, 32 a warpgroup), applies bias and QuickGELU and writes
+//     the bf16 piece to its own and its partner's shared memory (distributed
+//     shared memory; exact, since the hidden is rounded to bf16 before
+//     c_proj), then both multiply the whole chunk (A from registers) into
+//     their own columns (wgmma.m64n128k16). So the hidden is made once: the
+//     MLP's operations and no more (the previous design remade it for each
+//     512-column half: 1.5x). W1 and W2 tiles arrive by TMA (128-byte
+//     swizzle, K-major as they lie: (out, in) weights are the B operands with
+//     nothing transposed) into a 5-stage ring of 16 KB that refills itself:
+//     the last warp to release a stage issues its next load (there is no
+//     producer warp: a block of more than 256 threads caps a thread at 168
+//     registers).
+//     L2 reads: each CTA streams half of W1 and half of W2 (8.4 MB), 258 CTAs
+//     at B = 32, T = 257: 2.2 GB a call (the previous design: 6.5 GB), about
+//     0.68 ms at the ~3.2 TB/s the SMs take in (PERF.md). Multicast across
+//     the row tiles of a larger cluster was not built: for K1 it was slower
+//     (cache_kernels.cu). Taller row tiles would halve the reads. Every
+//     output is summed in f32 over the
+//     hidden in one fixed order (chunk by chunk, 16 deep steps in order), so
+//     two runs agree bit for bit and a row does not depend on its neighbours.
+// Weights and activations of K5/K6 are staged 16 bytes a thread, and the next
+// weight slices are in flight (in registers, or by cp.async into a 3-stage
+// ring) while the current one is multiplied; their products use WMMA bf16
+// 16x16x16 tiles with f32 accumulation. Rounding points
 // follow the JAX kernels: every dot is accumulated in f32 and rounded to bf16,
 // the bias is added in bf16, LayerNorm runs in f32 with f32 scale and bias,
 // QuickGELU is (bf16(1.702) * h) in bf16, sigmoid in f32 rounded to bf16, the
@@ -51,6 +65,8 @@
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper_common.cuh"   // mbarriers, TMA, wgmma, clusters (K9)
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -471,7 +487,7 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
 // NC: output columns a block owns (blockIdx.y picks which NC of the D); K6
-// takes all D, K9 half of them.
+// takes all D.
 template <int D, int MR, int KS, int NC = D>
 struct MlpTile {
   static constexpr int kD = D, kMR = MR, kKS = KS, kNC = NC;
@@ -487,7 +503,6 @@ struct MlpTile {
 };
 typedef MlpTile<512, 32, 128> MlpText;          // ViT-B text width
 typedef MlpTile<768, 48, 64> MlpImage;          // ViT-B image width
-typedef MlpTile<1024, 32, 64, 512> MlpWide;     // ViT-L/14 image width (K9)
 
 template <int D, int MR, int KS, int NC>
 __global__ void __launch_bounds__(MlpTile<D, MR, KS, NC>::kThreads)
@@ -632,6 +647,276 @@ int launch_ln_mlp(const void* x, const void* lnw, const void* lnb, const void* w
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K9: out = x + c_proj(QuickGELU(c_fc(LN(x)))) at D = 1024 on wgmma + TMA.
+// Grid: two CTAs a 64-row tile (cluster rank r: output columns 512 r ..).
+// Threads: two consumer warpgroups (warpgroup w: c_fc hidden columns 32 w ..
+// of the CTA's share, c_proj output columns 256 w .. of the CTA's half) and
+// no producer warp: a block of more than 256 threads caps a thread at 168
+// registers, and c_proj's accumulators alone take 128. The ring refills
+// itself: the last warp to release a stage issues its next load (one thread,
+// by TMA), as K11 does.
+// ---------------------------------------------------------------------------
+namespace k9 {
+constexpr int kD = 1024;                  // model width
+constexpr int kRows = 64;                 // rows of a tile (one wgmma M)
+constexpr int kCluster = 2;               // CTAs of a tile: halves of the output columns
+constexpr int kCols = kD / kCluster;      // output columns a CTA owns
+constexpr int kChunk = 128;               // hidden columns of a chunk
+constexpr int kShare = kChunk / kCluster; // hidden columns a CTA makes of each chunk
+constexpr int kCtaThreads = 256;          // two warpgroups
+constexpr int kCtaWarps = kCtaThreads / 32;
+constexpr int kStageBytes = 16384;        // W1: 64 hidden x 128 deep; W2: 128 outputs x 64 hidden
+constexpr int kRing = 5;
+constexpr int kFcStages = kD / 128;       // W1 stages of a chunk
+constexpr int kProjStages = (kChunk / 64) * (kCols / 128);   // W2 stages of a chunk
+constexpr int kStagesPerChunk = kFcStages + kProjStages;
+constexpr int kLnBytes = kRows * kD * 2;  // LN(x): 16 swizzled 64 x 64 tiles
+constexpr int kHld = kChunk + 8;          // padded hidden row (bf16): conflict-free fragment loads
+constexpr int kHBytes = kRows * kHld * 2;
+constexpr int kBarriers = kRing + 2;      // full a stage; the chunk's h_full, h_empty
+constexpr int kSmem = 1024 + kLnBytes + kRing * kStageBytes + kHBytes + 8 * kBarriers;
+static_assert(kSmem <= 232448, "K9 tile does not fit shared memory");
+}  // namespace k9
+
+__device__ __forceinline__ float quick_gelu_bf16(float acc, float bias, float gelu_c) {
+  const float hv = round_bf16(round_bf16(acc) + bias);
+  const float sg = round_bf16(gelu_c * hv);
+  const float sig = round_bf16(1.f / (1.f + expf(-sg)));
+  return round_bf16(hv * sig);
+}
+
+__global__ void __cluster_dims__(k9::kCluster, 1, 1) __launch_bounds__(k9::kCtaThreads, 1)
+ln_mlp_wide_kernel(const __grid_constant__ CUtensorMap w1map,
+                   const __grid_constant__ CUtensorMap w2map, const bf16* __restrict__ x,
+                   const float* __restrict__ lnw, const float* __restrict__ lnb,
+                   const bf16* __restrict__ b1, const bf16* __restrict__ b2,
+                   bf16* __restrict__ out, int M, int Hd, float eps) {
+  using namespace k9;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int released[kRing];                      // warps done with a stage's current load
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;        // swizzled tiles at 1024-byte boundaries
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t ln_s = base, ring = base + kLnBytes, h_s = ring + kRing * kStageBytes;
+  unsigned char* h_g = gbase + (h_s - base);
+  const uint32_t full = h_s + kHBytes, h_full = full + 8 * kRing, h_empty = h_full + 8;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t rank = cluster_rank(), peer = rank ^ 1u;
+  const int m0 = (blockIdx.x / kCluster) * kRows;
+  const int nch = (Hd + kChunk - 1) / kChunk, total = nch * kStagesPerChunk;
+
+  // load `it` of the weight stream: per chunk, the CTA's W1 share (8 stages of
+  // two 64 x 64 boxes), then its W2 half (8 stages of one 64 x 128 box)
+  auto issue = [&](int it) {
+    const int s = it % kRing, c = it / kStagesPerChunk, st = it % kStagesPerChunk;
+    const uint32_t dst = ring + s * kStageBytes, bar = full + 8 * s;
+    mbar_expect(bar, kStageBytes);
+    if (st < kFcStages) {
+      const int hid = c * kChunk + (int)rank * kShare;
+      tma_2d(dst, &w1map, bar, st * 128, hid);
+      tma_2d(dst + 8192, &w1map, bar, st * 128 + 64, hid);
+    } else {
+      const int p = st - kFcStages, kb = p / (kCols / 128), rb = p % (kCols / 128);
+      tma_2d(dst, &w2map, bar, c * kChunk + kb * 64, (int)rank * kCols + rb * 128);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + 8 * s, 1);
+      released[s] = 0;
+    }
+    mbar_init(h_full, 2 * kCtaThreads);                // every thread of both CTAs
+    mbar_init(h_empty, 2 * kCtaThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int it = 0; it < min(kRing, total); ++it) issue(it);
+  // LN(x) of the tile, f32 statistics, rounded to bf16, into the swizzled A tiles
+  for (int i = warp; i < kRows; i += kCtaWarps) {
+    const int m = m0 + i;
+    float mean = 0.f, rstd = 0.f, row[8 * kRowVecs];
+    if (m < M) row_stats(x + (size_t)m * kD, kD, eps, lane, row, &mean, &rstd);
+#pragma unroll
+    for (int u = 0; u < kRowVecs; ++u) {
+      const int j = (lane + 32 * u) * 8;
+      const uint4 v =
+          m < M ? ln8(row + 8 * u, mean, rstd, lnw + j, lnb + j) : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(gbase + (j >> 6) * 8192 + sw128_offset(i, j & 63)) = v;
+    }
+  }
+  fence_proxy_async();   // the LN tiles are wgmma operands
+  cluster_sync();        // and both CTAs' barriers exist before any remote arrival
+
+  const int w = warp >> 2, wp = warp & 3, g = lane >> 2, t = lane & 3;
+  const float gelu_c = __bfloat162float(__float2bfloat16(1.702f));
+  const uint32_t h_full_peer = cluster_addr(h_full, peer);
+  const uint32_t h_empty_peer = cluster_addr(h_empty, peer);
+  const uint32_t h_peer = cluster_addr(h_s, peer);
+  float acc[2][64];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[hf][e] = 0.f;
+  // this warp is done with load `it`; the last of the 8 warps refills its stage
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) {
+      const int s = it % kRing;
+      if (atomicAdd(&released[s], 1) == kCtaWarps - 1) {
+        released[s] = 0;
+        if (it + kRing < total) issue(it + kRing);
+      }
+    }
+  };
+  int it = 0;
+  for (int c = 0; c < nch; ++c) {
+    // c_fc: 64 rows x this warpgroup's 32 hidden columns, over all D
+    const int hc0 = (int)rank * kShare + 32 * w;      // first hidden column (in the chunk)
+    float hacc[16];   // the first step overwrites it (no register write while products run)
+    int prev = -1;
+    for (int st = 0; st < kFcStages; ++st, ++it) {
+      const int s = it % kRing;
+      mbar_wait_bounded(full + 8 * s, (it / kRing) & 1);
+      const uint32_t stage = ring + s * kStageBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int box = 0; box < 2; ++box)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n32k16_ss<0>(hacc, sw128_desc(ln_s + (2 * st + box) * 8192 + 32 * kk),
+                                sw128_desc(stage + box * 8192 + w * 4096 + 32 * kk),
+                                (st | box | kk) != 0);
+      wgmma_commit();
+      wgmma_wait_n<1>();   // the previous stage's products are done
+      if (prev >= 0) release(prev);
+      prev = it;
+    }
+    wgmma_wait_n<0>();
+    keep_n(hacc);
+    release(prev);
+
+    // bias + QuickGELU, the bf16 piece to this CTA's and the partner's hidden buffer
+    if (c > 0) mbar_wait_bounded<true>(h_empty, (c - 1) & 1);   // both CTAs read chunk c - 1
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = hc0 + 8 * j + 2 * t, hid = c * kChunk + col;
+      const bool live = hid < Hd;                       // Hd is even: both columns or neither
+      const float bias0 = live ? __bfloat162float(b1[hid]) : 0.f;
+      const float bias1 = live ? __bfloat162float(b1[hid + 1]) : 0.f;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * wp + g + 8 * hr;
+        const uint32_t v = live ? pack2(quick_gelu_bf16(hacc[4 * j + 2 * hr], bias0, gelu_c),
+                                        quick_gelu_bf16(hacc[4 * j + 2 * hr + 1], bias1, gelu_c))
+                                : 0u;
+        const uint32_t off = (uint32_t)(r * kHld + col) * 2;
+        *reinterpret_cast<uint32_t*>(h_g + off) = v;
+        st_cluster_u32(h_peer + off, v);
+      }
+    }
+    mbar_arrive(h_full);
+    mbar_arrive_remote(h_full_peer);
+    mbar_wait_bounded<true>(h_full, c & 1);
+
+    // c_proj: the chunk into this warpgroup's 256 output columns; the A
+    // fragments of a 64-deep half (rows 16 wp + g, + 8) are loaded per half
+    prev = -1;
+    uint32_t afr[4][4];
+#pragma unroll   // register accumulators and fragments indexed by the stage
+    for (int st = 0; st < kProjStages; ++st, ++it) {
+      const int s = it % kRing;
+      const int kb = st / (kCols / 128), rb = st % (kCols / 128);
+      if (rb == 0) {   // a new 64-deep half of the chunk: its fragments
+        if (kb > 0) {  // the previous half's products still read the registers
+          wgmma_wait_n<0>();
+          keep_n(acc[0]);
+          keep_n(acc[1]);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) keep_n(afr[kk]);
+          if (prev >= 0) release(prev);
+          prev = -1;
+        }
+        const unsigned char* h0 = h_g + ((16 * wp + g) * kHld + 64 * kb + 2 * t) * 2;
+        const unsigned char* h1 = h0 + 8 * kHld * 2;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          afr[kk][0] = *reinterpret_cast<const uint32_t*>(h0 + 32 * kk);
+          afr[kk][1] = *reinterpret_cast<const uint32_t*>(h1 + 32 * kk);
+          afr[kk][2] = *reinterpret_cast<const uint32_t*>(h0 + 32 * kk + 16);
+          afr[kk][3] = *reinterpret_cast<const uint32_t*>(h1 + 32 * kk + 16);
+        }
+        if (kb == kChunk / 64 - 1) {   // this thread has read the whole chunk
+          mbar_arrive(h_empty);
+          mbar_arrive_remote(h_empty_peer);
+        }
+      }
+      mbar_wait_bounded(full + 8 * s, (it / kRing) & 1);
+      if (rb / 2 != w) {   // the other warpgroup's columns
+        release(it);
+        continue;
+      }
+      const uint32_t stage = ring + s * kStageBytes;
+      float (&d)[64] = acc[rb & 1];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k16_rs<0>(d, afr[kk], sw128_desc(stage + 32 * kk), 1);
+      wgmma_commit();
+      wgmma_wait_n<1>();
+      if (prev >= 0) release(prev);
+      prev = it;
+    }
+    wgmma_wait_n<0>();
+    keep_n(acc[0]);
+    keep_n(acc[1]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) keep_n(afr[kk]);
+    release(prev);
+  }
+
+  // out = x + (bf16(acc) + b2), bf16
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = (int)rank * kCols + 256 * w + 128 * hf + 8 * j + 2 * t;
+      const float bb0 = __bfloat162float(b2[n]), bb1 = __bfloat162float(b2[n + 1]);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = m0 + 16 * wp + g + 8 * hr;
+        if (m >= M) continue;
+        const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)m * kD + n);
+        const float v0 = round_bf16(round_bf16(acc[hf][4 * j + 2 * hr]) + bb0);
+        const float v1 = round_bf16(round_bf16(acc[hf][4 * j + 2 * hr + 1]) + bb1);
+        *reinterpret_cast<uint32_t*>(out + (size_t)m * kD + n) =
+            pack2(__bfloat162float(xr.x) + v0, __bfloat162float(xr.y) + v1);
+      }
+    }
+  cluster_sync();   // no CTA leaves while its partner may still write to it
+}
+
+int launch_ln_mlp_wide(const void* x, const void* lnw, const void* lnb, const void* w1,
+                       const void* b1, const void* w2, const void* b2, void* out, int M, int Hd,
+                       float eps, cudaStream_t stream) {
+  using namespace k9;
+  CUtensorMap w1m, w2m;
+  int err;
+  if ((err = map_2d(&w1m, w1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kD, Hd, 2LL * kD, 64, 64,
+                    CU_TENSOR_MAP_SWIZZLE_128B)) != 0 ||
+      (err = map_2d(&w2m, w2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Hd, kD, 2LL * Hd, 64, 128,
+                    CU_TENSOR_MAP_SWIZZLE_128B)) != 0)
+    return err;
+  cudaFuncSetAttribute(ln_mlp_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  const int tiles = (M + kRows - 1) / kRows;
+  ln_mlp_wide_kernel<<<tiles * kCluster, kCtaThreads, kSmem, stream>>>(
+      w1m, w2m, (const bf16*)x, (const float*)lnw, (const float*)lnb, (const bf16*)b1,
+      (const bf16*)b2, (bf16*)out, M, Hd, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -686,10 +971,12 @@ int ln_mlp_bf16(const void* x, const void* lnw, const void* lnb, const void* w1,
 int ln_mlp_chunked_bf16(const void* x, const void* lnw, const void* lnb, const void* w1,
                         const void* b1, const void* w2, const void* b2, void* out, int M,
                         int D, int Hd, float eps, void* stream) {
-  if (D == 1024)
-    return launch_ln_mlp<MlpWide>(x, lnw, lnb, w1, b1, w2, b2, out, M, Hd, eps,
-                                  (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  if (D != k9::kD || Hd < 64 || Hd % 64 || M < 1) return (int)cudaErrorInvalidValue;
+  return launch_ln_mlp_wide(x, lnw, lnb, w1, b1, w2, b2, out, M, Hd, eps, (cudaStream_t)stream);
 }
+
+// K9's shared memory a CTA (bytes) and CTAs a cluster, for the host-side checks
+int ln_mlp_wide_smem_bytes() { return k9::kSmem; }
+int ln_mlp_wide_cluster() { return k9::kCluster; }
 
 }  // extern "C"

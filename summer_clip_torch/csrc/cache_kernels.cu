@@ -38,18 +38,14 @@
 //     The partial registers double K3's accumulators (16 betas x 4 classes
 //     each), which the 256-thread block still holds. No expand matrix is
 //     built: each class owns its output column.
-//   - K1 is bound by operations (2 Nt Nc C per beta). A block owns 32
-//     queries x 128 classes x the 8 betas of a launch: the 8 weight tiles of
-//     one affinity tile are stacked into a 256-row operand, so one affinity
-//     tile serves all betas of the chunk and the f32 accumulators (256 x 128)
-//     fill the registers of 16 warps. The price of tiling the classes is that
-//     each of the C / 128 class slices recomputes the affinity (0.75 of a
-//     slice's w @ V work at D = 768); sharing it across slices would need the
-//     (Nt, Nc) affinity in device memory, which the TPU kernel never writes
-//     either. Cache features stream through shared memory in 128-column
-//     slices by cp.async into two buffers, the next slice in flight while the
-//     current one is multiplied; values come in 128 x 128 tiles (int8 values
-//     are converted per tile) into the buffer just consumed.
+//   - K1: a block owns 16 queries x 256 classes x the 8 betas of a launch:
+//     the 8 weight tiles of one affinity tile are stacked into a 128-row
+//     operand, so one affinity tile serves all betas of the chunk, and the f32
+//     accumulators (128 x 256) fill the registers of two warpgroups. Each
+//     class slice recomputes the affinity (sharing it would need the (Nt, Nc)
+//     affinity in device memory, which the TPU kernel never writes either).
+//     wgmma on TMA-staged operands, weights written from registers as the A
+//     operand, V read MN-major: see the section below.
 // No running maximum: the exponent is <= 0 for normalised rows, and like the
 // TPU kernels none of these assumes it (an unnormalised row may overflow to inf
 // here exactly as it does there).
@@ -61,6 +57,8 @@
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper_common.cuh"   // mbarriers, TMA, wgmma (K1)
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -320,180 +318,397 @@ onehot_grouped_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
 }
 
 // ---------------------------------------------------------------------------
-// K1: block = (32-query tile, 128-class slice), all betas (<= 8) of the launch.
-// 16 warps. Per step of 128 cache rows: warp w computes affinity tile
-// (w / 8, w % 8) over the whole D, K steps in order (the same order as
-// affinity_tile, so K1 and K2 see the same affinity bits); all threads turn the
-// 32 x 128 affinities into 8 x 32 weight rows; warp w accumulates rows
-// 32 (w / 2) .. + 31 (beta w / 2) x columns 64 (w % 2) .. + 63 of W @ V.
+// K1 on Hopper: block = (16-query tile, 256-class slice), the <= 8 betas of
+// the launch stacked into 128 rows of w (beta b, query q at row 16 b + q).
+// The affinity recompute factor D x (queries a block) / (accumulators a
+// block) is 768 x 16 / (128 x 256) = 0.375 (32 x 128 would give 0.75): each
+// class slice recomputes the affinity and its exponentials, so the wide slice
+// halves both. What bounds it on the H100: the bytes each block streams from
+// L2, Nc (2 D + 2 x 256) (59 GB a call at Nt = 8192, Nc = 16384, D = 768,
+// C = 1000), which the SMs take in at about 4 TB/s together (17 ms at that
+// shape with every product and exponential taken out; PERF.md). Queries x
+// classes a block is what divides those bytes, and the f32 accumulators
+// (8 betas x 16 x 256) already fill two warpgroups' registers. Multicasting
+// the cache to clusters of 2 and 4 blocks (one L2 read for several SMs) was
+// slower on the same card in the same run (PERF.md), so each block loads its
+// own.
+// Threads: two warpgroups and no producer warp (a block of more than 256
+// threads caps a thread at 168 registers, and w V's accumulators alone take
+// 128). A buffer refills itself: the last warp of the block to release it
+// arms its barrier and issues its next load by TMA.
+// Cache rows go in k-blocks of 64; warpgroup x takes the affinity of k-blocks
+// 2 p + x, and both take every k-block's w V:
+//   1. affinity, transposed: S^T (64 cache rows x 16 queries) = C Q^T by
+//      wgmma.m64n16k16 over D, 16-deep steps in order, with the cache rows
+//      (the ring's 64 x 64 boxes) and the queries (resident boxes) as K-major
+//      operands as TMA wrote them. On the H100 this gives K2's WMMA affinity
+//      bit for bit (affinity_probe below; chip_smoke.py checks it), so K1, K2,
+//      K3 and K13 add the same bf16 weights;
+//   2. weights: the warpgroup pairs its accumulators along the cache rows with
+//      one shuffle, turns them into the 8 betas' bf16 weights (cache_weight)
+//      and writes them straight from registers into its w buffer, the
+//      swizzled K-major A operand (no f32 round trip through shared memory);
+//      int8 values are converted to bf16 in shared memory here;
+//   3. w V: warpgroup x owns the m64 tile of rows 64 x .. (betas 4 x ..
+//      4 x + 3): four 64-class value boxes of wgmma.m64n64k16 for each
+//      k-block, V read MN-major as TMA wrote it. The products are left
+//      running while the warpgroup computes its next affinity, and warpgroup
+//      0 takes the odd k-block of a pair one affinity later, so the two run
+//      half a pair apart and one's exponentials overlap the other's loads.
 // ---------------------------------------------------------------------------
-constexpr int kK1Warps = 16, kK1Threads = kK1Warps * 32;
-constexpr int kK1Q = 32, kK1N = 128, kK1C = 128, kK1B = 8, kK1Ks = 128;
-constexpr int kK1Ldr = 128 + kPad;      // feature slice / value tile rows (bf16)
-constexpr int kK1Ldw = kK1N + kPad;     // weight rows (bf16)
-constexpr int kK1Lda = kK1N + 4;        // affinity rows (f32)
+namespace k1 {
+constexpr int kQ = 16, kC = 256, kB = 8, kN = 64;     // queries, classes, betas, cache rows a step
+constexpr int kCtaThreads = 256;                       // two warpgroups
+constexpr int kBox = 8192;                             // 64 rows x 128 bytes
+constexpr int kQBox = kQ * 128;                        // 16 query rows x 64 columns
+constexpr int kVBoxes = kC / 64;                       // bf16 value boxes of a k-block
+constexpr int kMaxFStages = 12;
+constexpr int kVSlots = 2;                             // value tiles in flight (a pair)
+constexpr int kWBytes = kB * kQ * kN * 2;              // one w buffer: 2 m64 tiles x 64 deep
+constexpr int kSmemLimit = 232448;
+constexpr int kBarriers = kMaxFStages + kVSlots + 4 + 1;   // + w_full, w_empty, q_full
 
-__device__ __forceinline__ uint4 ld16g(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
+// shared memory of everything but the feature ring; the ring takes what is left
+__host__ __device__ constexpr int fixed_bytes(int nd, bool i8) {
+  return 1024 + nd * kQBox                               // Q boxes
+         + kVSlots * kVBoxes * kBox / (i8 ? 2 : 1)       // value tiles (int8: 64 x 256 bytes)
+         + (i8 ? 2 * kVBoxes * kBox : 0)                 // int8: a bf16 conversion a warpgroup
+         + 2 * kWBytes + 8 * kBarriers;
 }
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem_ptr) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_ptr));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+}  // namespace k1
 
-// 128 x 128 value tile into shared memory as bf16 (rows n0 .., columns c0 ..)
-__device__ __forceinline__ void load_values(bf16* r_s, const bf16* v, int n0, int c0, int Cp,
-                                            int tid) {
-  for (int g = tid; g < kK1N * (kK1C / 8); g += kK1Threads) {
-    const int r = g / (kK1C / 8), c = (g % (kK1C / 8)) * 8;
-    *reinterpret_cast<uint4*>(r_s + r * kK1Ldr + c) = ld16g(v + (size_t)(n0 + r) * Cp + c0 + c);
-  }
-}
-__device__ __forceinline__ void load_values(bf16* r_s, const int8_t* v, int n0, int c0, int Cp,
-                                            int tid) {
-  for (int g = tid; g < kK1N * (kK1C / 16); g += kK1Threads) {
-    const int r = g / (kK1C / 16), c = (g % (kK1C / 16)) * 16;
-    const uint4 raw = ld16g(v + (size_t)(n0 + r) * Cp + c0 + c);
-    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-    uint4 lo, hi;
-    bf16* l8 = reinterpret_cast<bf16*>(&lo);
-    bf16* h8 = reinterpret_cast<bf16*>(&hi);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      l8[t] = __float2bfloat16((float)e[t]);
-      h8[t] = __float2bfloat16((float)e[8 + t]);
-    }
-    *reinterpret_cast<uint4*>(r_s + r * kK1Ldr + c) = lo;
-    *reinterpret_cast<uint4*>(r_s + r * kK1Ldr + c + 8) = hi;
-  }
-}
+template <bool kInt8>
+__global__ void __launch_bounds__(k1::kCtaThreads, 1)
+cache_dense_kernel(const __grid_constant__ CUtensorMap fmap,
+                   const __grid_constant__ CUtensorMap cmap,
+                   const __grid_constant__ CUtensorMap vmap, const float* __restrict__ betas,
+                   float* __restrict__ out, int nb, int Nt, int Ncp, int Dp, int C, int fstages) {
+  using namespace k1;
+  constexpr int kVBytes = kVBoxes * kBox / (kInt8 ? 2 : 1);   // one value tile
+  constexpr int kVReaders = kInt8 ? 4 : 8;               // warps of a block that read a value tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float beta[kB];
+  __shared__ uint32_t f_released[kMaxFStages], v_released[kVSlots];   // readers done with a load
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const int nd = (Dp + 63) / 64;                         // 64-column boxes of a feature row
+  const uint32_t q_s = base;
+  const uint32_t v_s = base + ((nd * kQBox + 1023) & ~1023);   // kVSlots value tiles
+  const uint32_t cv_s = v_s + kVSlots * kVBytes;         // int8: warpgroup x converts into cv x
+  const uint32_t w_s = cv_s + (kInt8 ? 2 * kVBoxes * kBox : 0);   // warpgroup x writes w buffer x
+  const uint32_t f_s = w_s + 2 * kWBytes;                // the feature ring
+  const uint32_t f_full = f_s + fstages * kBox;
+  const uint32_t v_full = f_full + 8 * kMaxFStages;
+  const uint32_t w_full = v_full + 8 * kVSlots, w_empty = w_full + 16, q_full = w_empty + 16;
 
-template <typename VT>
-__global__ void __launch_bounds__(kK1Threads, 1)
-cache_dense_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
-                   const VT* __restrict__ v, const float* __restrict__ betas,
-                   float* __restrict__ out, int nb, int Nt, int Ncp, int D, int C, int Cp) {
-  extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kK1Q, c0 = blockIdx.y * kK1C;
-  const int ldq = D + kPad;
-  bf16* q_s = reinterpret_cast<bf16*>(smem);                       // kK1Q x ldq
-  bf16* r_s = q_s + kK1Q * ldq;                                    // 2 x 128 x kK1Ldr
-  float* aff_s = reinterpret_cast<float*>(r_s + 2 * 128 * kK1Ldr); // kK1Q x kK1Lda
-  bf16* w_s = reinterpret_cast<bf16*>(aff_s + kK1Q * kK1Lda);      // (kK1B * kK1Q) x kK1Ldw
-  __shared__ float beta_s[kK1B];
+  const int q0 = blockIdx.x * kQ, c0 = blockIdx.y * kC;
+  const int nkb = Ncp / kN, nslices = nkb * nd;          // nkb even (the wrapper pads)
 
-  for (int g = tid; g < kK1Q * (D / 8); g += kK1Threads) {
-    const int r = g / (D / 8), c = (g % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(q_s + r * ldq + c) = ld16g(f + (size_t)(q0 + r) * D + c);
-  }
-  if (tid < kK1B) beta_s[tid] = betas[tid < nb ? tid : nb - 1];
-
-  const int aq = warp / 8, an = warp % 8;   // this warp's affinity tile
-  const int wm = warp / 2, wn = warp % 2;   // this warp's output tile (beta wm)
-  FragC acc[2][4];
+  // The ring's slices take turns between the warpgroups: slice `fit` is
+  // columns 64 d .. of k-block 2 p + x, fit = 2 nd p + 2 d + x. With an even
+  // number of stages a stage always serves the same warpgroup, which takes its
+  // slices in order, so no wait ever runs two loads ahead of its barrier (a
+  // parity wait cannot tell those apart).
+  auto load_slice = [&](int fit) {
+    const int st = fit % fstages, r = fit % (2 * nd);
+    mbar_expect(f_full + 8 * st, kBox);
+    tma_2d(f_s + st * kBox, &cmap, f_full + 8 * st, 64 * (r >> 1),
+           (2 * (fit / (2 * nd)) + (r & 1)) * kN);
+  };
+  auto load_values = [&](int i) {
+    const int vs = i % kVSlots;
+    const uint32_t dst = v_s + vs * kVBytes, bar = v_full + 8 * vs;
+    mbar_expect(bar, kVBytes);
+    if (kInt8) {
+      tma_2d(dst, &vmap, bar, c0, i * kN);               // 64 rows x 256 int8 columns
+    } else {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // feature slice (rows n0 .., columns k0 ..) of the cache into buffer `buf`
-  auto issue_slice = [&](int n0, int k0, int buf) {
-    const int ks = min(kK1Ks, D - k0);
-    bf16* dst = r_s + buf * 128 * kK1Ldr;
-    for (int g = tid; g < kK1N * (ks / 8); g += kK1Threads) {
-      const int r = g / (ks / 8), c = (g % (ks / 8)) * 8;
-      cp_async16(dst + r * kK1Ldr + c, cf + (size_t)(n0 + r) * D + k0 + c);
+      for (int vb = 0; vb < kVBoxes; ++vb)
+        tma_2d(dst + vb * kBox, &vmap, bar, c0 + 64 * vb, i * kN);
     }
   };
-  int it = 0;            // slices consumed so far; slice `it` lives in buffer it & 1
-  issue_slice(0, 0, 0);
-  cp_async_commit();
-  for (int n0 = 0; n0 < Ncp; n0 += kK1N) {
-    FragC s;
-    wmma::fill_fragment(s, 0.f);
-    for (int k0 = 0; k0 < D; k0 += kK1Ks, ++it) {
-      const int ks = min(kK1Ks, D - k0);
-      // the other buffer was last read before the barrier that ended the
-      // previous slice (or the previous step's w @ V): the next slice may land
-      const bool more_k = k0 + kK1Ks < D, more = more_k || n0 + kK1N < Ncp;
-      if (more) issue_slice(more_k ? n0 : n0 + kK1N, more_k ? k0 + kK1Ks : 0, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait_one();
-      __syncthreads();   // slice `it` landed for all (and q_s, beta_s, first time round)
-      const bf16* c_t = r_s + (it & 1) * 128 * kK1Ldr;
-      for (int kk = 0; kk < ks; kk += 16) {
-        FragA a;
-        FragBc b;
-        wmma::load_matrix_sync(a, q_s + aq * 16 * ldq + k0 + kk, ldq);
-        wmma::load_matrix_sync(b, c_t + an * 16 * kK1Ldr + kk, kK1Ldr);
-        wmma::mma_sync(s, a, b, s);
-      }
-      __syncthreads();   // every warp is done with buffer it & 1
+
+  if (tid < kB) beta[tid] = betas[tid < nb ? tid : nb - 1];
+  if (tid == 0) {
+    for (int s = 0; s < fstages; ++s) {
+      mbar_init(f_full + 8 * s, 1);
+      f_released[s] = 0;
     }
-    wmma::store_matrix_sync(aff_s + aq * 16 * kK1Lda + an * 16, s, kK1Lda, wmma::mem_row_major);
-    __syncthreads();     // affinities complete
-    bf16* v_s = r_s + ((it - 1) & 1) * 128 * kK1Ldr;   // the buffer just consumed
-    load_values(v_s, v, n0, c0, Cp, tid);
-    for (int idx = tid; idx < kK1Q * kK1N; idx += kK1Threads) {
-      const int qi = idx / kK1N, n = idx % kK1N;
-      const float a = aff_s[qi * kK1Lda + n];
-#pragma unroll
-      for (int b = 0; b < kK1B; ++b)
-        w_s[(b * kK1Q + qi) * kK1Ldw + n] = __float2bfloat16(expf(-beta_s[b] * (1.0f - a)));
+    for (int s = 0; s < kVSlots; ++s) {
+      mbar_init(v_full + 8 * s, 1);
+      v_released[s] = 0;
     }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kK1N; kk += 16) {
-      FragA fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], w_s + (wm * 32 + i * 16) * kK1Ldw + kk, kK1Ldw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBr fb;
-        wmma::load_matrix_sync(fb, v_s + kk * kK1Ldr + wn * 64 + j * 16, kK1Ldr);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
+    for (int x = 0; x < 2; ++x) {
+      mbar_init(w_full + 8 * x, 128);                    // every thread of the writing warpgroup
+      mbar_init(w_empty + 8 * x, 8);                     // both warpgroups' products done
     }
-    __syncthreads();     // the value buffer and w_s are free for the next step
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect(q_full, nd * kQBox);
+    for (int d = 0; d < nd; ++d) tma_2d(q_s + d * kQBox, &fmap, q_full, 64 * d, q0);
+    for (int fit = 0; fit < min(fstages, nslices); ++fit) load_slice(fit);
+    for (int i = 0; i < min(kVSlots, nkb); ++i) load_values(i);
   }
-  __syncthreads();       // w_s becomes the warps' f32 staging
-  float* my = reinterpret_cast<float*>(w_s) + warp * 256;
+  __syncthreads();
+
+  // a warp is done with a buffer: the last of its readers issues its next load
+  auto release_slice = [&](int fit) {
+    __syncwarp();
+    if (lane == 0 && atomicAdd(&f_released[fit % fstages], 1u) % 4 == 3 &&
+        fit + fstages < nslices)
+      load_slice(fit + fstages);
+  };
+  auto release_values = [&](int i) {
+    __syncwarp();
+    if (lane == 0 && atomicAdd(&v_released[i % kVSlots], 1u) % kVReaders == kVReaders - 1 &&
+        i + kVSlots < nkb)
+      load_values(i + kVSlots);
+  };
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  const int x = warp >> 2, wp = warp & 3, g = lane >> 2, t = lane & 3, wt = tid & 127;
+  float acc[kVBoxes][32];                        // this warpgroup's m64 tile x 256 classes
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int vb = 0; vb < kVBoxes; ++vb)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(my, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int qq = q0 + i * 16 + e / 16, c = c0 + wn * 64 + j * 16 + e % 16;
-        if (wm < nb && qq < Nt && c < C) out[((size_t)wm * Nt + qq) * C + c] = my[e];
+    for (int e = 0; e < 32; ++e) acc[vb][e] = 0.f;
+  const uint32_t wbuf = w_s + x * kWBytes;
+  // w V of k-block k (w(k) written by warpgroup k % 2), left running
+  auto issue_wv = [&](int k) {
+    const int b = k & 1;
+    mbar_wait_bounded(w_full + 8 * b, (k >> 1) & 1);
+    if (!kInt8) mbar_wait_bounded(v_full + 8 * (k % kVSlots), (k / kVSlots) & 1);
+    const uint32_t wk = w_s + b * kWBytes + x * kBox;    // this warpgroup's m64 tile
+    const uint32_t vk = kInt8 ? cv_s + b * kVBoxes * kBox : v_s + (k % kVSlots) * kVBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int vb = 0; vb < kVBoxes; ++vb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss_t<1>(acc[vb], sw128_desc(wk + 32 * kk),
+                                sw128_desc(vk + vb * kBox + 2048 * kk), 1);
+    wgmma_commit();
+  };
+  // the products of k-block k are done in this warpgroup
+  auto done_wv = [&](int k) {
+    release(w_empty + 8 * (k & 1));
+    if (!kInt8) release_values(k);
+  };
+  mbar_wait_bounded(q_full, 0);
+  // Warpgroup 0 takes k-block 2 p - 1's w V after its own affinity of pair p:
+  // the warpgroups then run half a pair apart, and one's exponentials overlap
+  // the other's affinity (each still adds the k-blocks in order).
+  for (int p = 0; p < nkb / 2; ++p) {
+    const int own = 2 * p + x;
+    // 1. S^T of k-block `own`: cache rows 16 wp + g (+ 8) x queries 8 j + 2 t (+ 1)
+    float sacc[8];   // the first step overwrites it (no register write while products run)
+    for (int d = 0; d < nd; ++d) {
+      const int fit = 2 * nd * p + 2 * d + x, st = fit % fstages;
+      mbar_wait_bounded(f_full + 8 * st, (fit / fstages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)   // past D the boxes hold TMA's zeros: exact, as K2's steps
+        wgmma_m64n16k16_ss<0>(sacc, sw128_desc(f_s + st * kBox + 32 * kk),
+                              sw128_desc(q_s + d * kQBox + 32 * kk), (d | kk) != 0);
+      wgmma_commit();
+      wgmma_wait_n<1>();   // the previous slice's products are done: release it
+      if (d > 0) release_slice(fit - 2);
+      if (d == 0 && p > 0) {   // the products issued in the previous pair are done
+        if (x == 0) {
+          if (p > 1) done_wv(2 * p - 3);
+          done_wv(2 * p - 2);
+        } else {
+          done_wv(2 * p - 2);
+          done_wv(2 * p - 1);
+        }
       }
-      __syncwarp();
     }
+    wgmma_wait_n<0>();
+    keep_n(sacc);
+#pragma unroll
+    for (int vb = 0; vb < kVBoxes; ++vb) keep_n(acc[vb]);
+    release_slice(2 * nd * p + 2 * (nd - 1) + x);
+    // 2. the weights of k-block `own` into w buffer x (both warpgroups are
+    // done with its previous contents); int8 values converted into cv x
+    if (p > 0) mbar_wait_bounded(w_empty + 8 * x, (p - 1) & 1);
+    if (kInt8) {   // row wt / 2, columns 128 (wt % 2) ..
+      const int vs = own % kVSlots;
+      mbar_wait_bounded(v_full + 8 * vs, (own / kVSlots) & 1);
+      const int r = wt >> 1, col = 128 * (wt & 1);
+      const unsigned char* src = gbase + (v_s + vs * kVBytes - base) + r * kC + col;
+      unsigned char* dst = gbase + (cv_s + x * kVBoxes * kBox - base) + (col >> 6) * kBox;
+#pragma unroll
+      for (int h = 0; h < 8; ++h) {
+        const uint4 rv = *reinterpret_cast<const uint4*>(src + 16 * h);
+        const int8_t* e = reinterpret_cast<const int8_t*>(&rv);
+        uint4 lo, hi;
+        bf16* l8 = reinterpret_cast<bf16*>(&lo);
+        bf16* h8 = reinterpret_cast<bf16*>(&hi);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          l8[u] = __float2bfloat16((float)e[u]);
+          h8[u] = __float2bfloat16((float)e[8 + u]);
+        }
+        const int cc = 16 * h;                           // column in the thread's two boxes
+        unsigned char* box = dst + (cc >> 6) * kBox;
+        *reinterpret_cast<uint4*>(box + sw128_offset(r, cc & 63)) = lo;
+        *reinterpret_cast<uint4*>(box + sw128_offset(r, (cc & 63) + 8)) = hi;
+      }
+      release_values(own);
+    }
+    // pair along the cache rows: lanes 4 apart hold rows n and n + 1 of the
+    // same two queries; the even one keeps query q, the odd one q + 1
+    const bool odd = g & 1;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float a0 = sacc[4 * j + 2 * hr], a1 = sacc[4 * j + 2 * hr + 1];
+        const float got = __shfl_xor_sync(0xffffffffu, odd ? a0 : a1, 4);
+        const float lo = odd ? got : a0, hi = odd ? a1 : got;   // cache rows n, n + 1
+        const int q = 8 * j + 2 * t + (odd ? 1 : 0), n = 16 * wp + 8 * hr + (g & ~1);
+#pragma unroll
+        for (int b = 0; b < kB; ++b) {
+          const int row = kQ * b + q;                          // m64 tile row / 64
+          *reinterpret_cast<uint32_t*>(gbase + (wbuf - base) + (row >> 6) * kBox +
+                                       sw128_offset(row & 63, n)) =
+              pack2(cache_weight(beta[b], lo), cache_weight(beta[b], hi));
+        }
+      }
+    fence_proxy_async();   // w (and the converted values) are wgmma operands
+    mbar_arrive(w_full + 8 * x);
+    // 3. w V, k-blocks in order: warpgroup 0 takes 2 p - 1 and 2 p, warpgroup 1 2 p and 2 p + 1
+    if (x == 0) {
+      if (p > 0) issue_wv(2 * p - 1);
+      issue_wv(2 * p);
+    } else {
+      issue_wv(2 * p);
+      issue_wv(2 * p + 1);
+    }
+  }
+  if (x == 0) {   // the last k-block, once warpgroup 1 may write its weights
+    wgmma_wait_n<0>();
+#pragma unroll
+    for (int vb = 0; vb < kVBoxes; ++vb) keep_n(acc[vb]);
+    if (nkb >= 4) done_wv(nkb - 3);
+    done_wv(nkb - 2);
+    issue_wv(nkb - 1);
+  }
+  wgmma_wait_n<0>();
+#pragma unroll
+  for (int vb = 0; vb < kVBoxes; ++vb) keep_n(acc[vb]);
+  // out[b, q, c]: warpgroup x's tile holds rows 64 x + 16 wp + g (+ 8)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = 64 * x + 16 * wp + g + 8 * hr;
+    const int b = row / kQ, q = q0 + row % kQ;
+    if (b >= nb || q >= Nt) continue;
+    float* o = out + ((size_t)b * Nt + q) * C;
+#pragma unroll
+    for (int vb = 0; vb < kVBoxes; ++vb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = c0 + 64 * vb + 8 * j + 2 * t;
+        if (c < C) o[c] = acc[vb][4 * j + 2 * hr];
+        if (c + 1 < C) o[c + 1] = acc[vb][4 * j + 2 * hr + 1];
+      }
+  }
 }
 
-template <typename VT>
+template <bool kInt8>
 int launch_cache_dense(const void* f, const void* cf, const void* v, const void* betas,
                        void* out, int nb, int Nt, int Ntp, int Ncp, int D, int C, int Cp,
                        cudaStream_t stream) {
-  if (nb < 1 || nb > kK1B || Ntp % kK1Q || Ncp % kK1N || Cp % kK1C || D % 16 || D < 16)
+  using namespace k1;
+  if (nb < 1 || nb > kB || Ntp % kQ || Ncp % (2 * kN) || Cp % kC || D % 16 || D < 16 ||
+      Ncp < 2 * kN)
     return (int)cudaErrorInvalidValue;
-  const int smem = (kK1Q * (D + kPad) + 2 * 128 * kK1Ldr + kK1B * kK1Q * kK1Ldw) * 2
-                   + kK1Q * kK1Lda * 4;
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(cache_dense_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int nd = (D + 63) / 64;
+  // even: a stage serves one warpgroup; at least two a warpgroup (one in use, one loading)
+  const int fstages = min(kMaxFStages, (kSmemLimit - fixed_bytes(nd, kInt8)) / kBox) & ~1;
+  if (fstages < 4) return (int)cudaErrorInvalidValue;
+  const int smem = fixed_bytes(nd, kInt8) + fstages * kBox;
+  CUtensorMap fm, cm, vm;
+  int err;
+  if ((err = map_2d(&fm, f, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, Ntp, 2LL * D, 64, kQ,
+                    CU_TENSOR_MAP_SWIZZLE_128B)) != 0 ||
+      (err = map_2d(&cm, cf, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, Ncp, 2LL * D, 64, kN,
+                    CU_TENSOR_MAP_SWIZZLE_128B)) != 0 ||
+      (err = kInt8 ? map_2d(&vm, v, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, Cp, Ncp, Cp, kC, kN,
+                            CU_TENSOR_MAP_SWIZZLE_NONE)
+                   : map_2d(&vm, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Cp, Ncp, 2LL * Cp, 64,
+                            kN, CU_TENSOR_MAP_SWIZZLE_128B)) != 0)
+    return err;
+  cudaFuncSetAttribute(cache_dense_kernel<kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  dim3 grid(Ntp / kK1Q, Cp / kK1C);
-  cache_dense_kernel<VT><<<grid, kK1Threads, smem, stream>>>(
-      (const bf16*)f, (const bf16*)cf, (const VT*)v, (const float*)betas, (float*)out, nb, Nt,
-      Ncp, D, C, Cp);
+  cache_dense_kernel<kInt8><<<dim3(Ntp / kQ, Cp / kC), kCtaThreads, smem, stream>>>(
+      fm, cm, vm, (const float*)betas, (float*)out, nb, Nt, Ncp, D, C, fstages);
   return (int)cudaGetLastError();
+}
+
+// The affinity probe: tile i is cache rows 64 i .. x queries 16 i .. of cf and
+// f (D <= 256 columns), S = F C^T two ways, each 16-deep step in order: WMMA as
+// K2 computes it (out[0]) and K1's transposed wgmma.m64n16k16 (out[1]).
+constexpr int kProbeMaxD = 256;
+__global__ void __launch_bounds__(128)
+affinity_probe_kernel(const bf16* __restrict__ f, const bf16* __restrict__ cf,
+                      float* __restrict__ out, int D, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const int ld = D + kPad, nd = (D + 63) / 64;
+  const uint32_t csw = base, fsw = base + nd * 8192;     // swizzled 64-column boxes
+  bf16* frm = reinterpret_cast<bf16*>(gbase + nd * (8192 + 2048));   // row-major copies
+  bf16* crm = frm + 16 * ld;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* fb = f + (size_t)blockIdx.x * 16 * D;
+  const bf16* cb = cf + (size_t)blockIdx.x * 64 * D;
+  for (int e = tid; e < 64 * nd * 64; e += 128) {
+    const int r = e / (nd * 64), col = e % (nd * 64);
+    const uint32_t off = (col >> 6) * 8192 + sw128_offset(r, col & 63);
+    const bf16 cv = col < D ? cb[(size_t)r * D + col] : __float2bfloat16(0.f);
+    *reinterpret_cast<bf16*>(gbase + off) = cv;
+    if (col < D) crm[r * ld + col] = cv;
+    if (r < 16) {
+      const bf16 fv = col < D ? fb[(size_t)r * D + col] : __float2bfloat16(0.f);
+      *reinterpret_cast<bf16*>(gbase + nd * 8192 + (col >> 6) * 2048 +
+                               sw128_offset(r, col & 63)) = fv;
+      if (col < D) frm[r * ld + col] = fv;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  float* o = out + (size_t)blockIdx.x * 16 * 64;
+  {   // WMMA: warp w, the 16 queries x cache rows 16 w .. + 15
+    FragC s;
+    affinity_tile(s, frm, ld, crm + warp * 16 * ld, ld, D);
+    wmma::store_matrix_sync(o + warp * 16, s, 64, wmma::mem_row_major);
+  }
+  // wgmma S^T: cache rows 16 w + g (+ 8), queries 8 j + 2 t (+ 1)
+  float s[8];
+  for (int e = 0; e < 8; ++e) s[e] = 0.f;
+  keep_n(s);
+  wgmma_fence();
+  for (int d = 0; d < nd; ++d)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)   // the boxes are zero past D
+      wgmma_m64n16k16_ss<0>(s, sw128_desc(csw + d * 8192 + 32 * kk),
+                            sw128_desc(fsw + d * 2048 + 32 * kk), 1);
+  wgmma_commit();
+  wgmma_wait();
+  keep_n(s);
+  const int g = lane >> 2, t = lane & 3;
+  float* o1 = out + (size_t)(tiles + blockIdx.x) * 16 * 64;
+  for (int j = 0; j < 2; ++j)
+    for (int hr = 0; hr < 2; ++hr)
+      for (int u = 0; u < 2; ++u)
+        o1[(8 * j + 2 * t + u) * 64 + 16 * warp + g + 8 * hr] = s[4 * j + 2 * hr + u];
 }
 
 int onehot_grouped_smem(int D) {
@@ -571,20 +786,40 @@ int onehot_variant_bf16(const void* f, const void* cf, const void* rows_sorted,
 #undef K13_LAUNCH
 }
 
-// f (Ntp, D) with Ntp % 32 == 0; cf (Ncp, D) and v (Ncp, Cp) with Ncp % 128 == 0,
+// f (Ntp, D) with Ntp % 32 == 0; cf (Ncp, D) and v (Ncp, Cp) with Ncp % 64 == 0,
 // Cp % 128 == 0 (zero value rows and columns as padding); nb <= 8 betas;
-// D % 16 == 0 and D <= 1152 (the query tile stays in shared memory).
+// D % 16 == 0 and D <= 1152 (the query tile stays in shared memory); every
+// base 16-byte aligned (TMA).
 int cache_dense_bf16(const void* f, const void* cf, const void* v, const void* betas,
                      void* out, int nb, int Nt, int Ntp, int Ncp, int D, int C, int Cp,
                      void* stream) {
-  return launch_cache_dense<bf16>(f, cf, v, betas, out, nb, Nt, Ntp, Ncp, D, C, Cp,
-                                  (cudaStream_t)stream);
+  return launch_cache_dense<false>(f, cf, v, betas, out, nb, Nt, Ntp, Ncp, D, C, Cp,
+                                   (cudaStream_t)stream);
 }
 
 int cache_dense_i8(const void* f, const void* cf, const void* v, const void* betas, void* out,
                    int nb, int Nt, int Ntp, int Ncp, int D, int C, int Cp, void* stream) {
-  return launch_cache_dense<int8_t>(f, cf, v, betas, out, nb, Nt, Ntp, Ncp, D, C, Cp,
-                                    (cudaStream_t)stream);
+  return launch_cache_dense<true>(f, cf, v, betas, out, nb, Nt, Ntp, Ncp, D, C, Cp,
+                                  (cudaStream_t)stream);
+}
+
+// K1's feature-ring stages at width D (0: D does not fit shared memory)
+int cache_dense_feature_stages(int D, int int8_values) {
+  const int st = (k1::kSmemLimit - k1::fixed_bytes((D + 63) / 64, int8_values != 0)) / k1::kBox;
+  return st < 4 ? 0 : (st > k1::kMaxFStages ? k1::kMaxFStages : st) & ~1;
+}
+
+// f: (16 tiles, D), cf: (64 tiles, D) bf16, D % 16 == 0, D <= 256;
+// out: (2, tiles, 16, 64) f32
+int affinity_probe_bf16(const void* f, const void* cf, void* out, int D, int tiles,
+                        void* stream) {
+  if (D < 16 || D % 16 || D > kProbeMaxD || tiles < 1) return (int)cudaErrorInvalidValue;
+  const int nd = (D + 63) / 64;
+  const int smem = 1024 + nd * (8192 + 2048) + 80 * (D + kPad) * 2;
+  cudaFuncSetAttribute(affinity_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  affinity_probe_kernel<<<tiles, 128, smem, (cudaStream_t)stream>>>(
+      (const bf16*)f, (const bf16*)cf, (float*)out, D, tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

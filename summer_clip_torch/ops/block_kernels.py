@@ -12,7 +12,9 @@ attention q/k/v ride one ``in_proj_weight`` of shape (3D, D)):
   ``fused_ln_mlp`` (ops/block_kernels.py:75).
 - :func:`fused_ln_mlp_chunked` -- K9, the same function at the ViT-L/14 width
   (D = 1024), whose MLP weights the JAX package streams in hidden chunks. CUDA
-  source ``csrc/block_kernels.cu`` (``ln_mlp_chunked``); replaces the TPU
+  source ``csrc/block_kernels.cu`` (``ln_mlp_wide``: wgmma on TMA-staged
+  weights, a cluster of two blocks a 64-row tile that share each hidden chunk
+  over distributed shared memory; :func:`k9_grid`); replaces the TPU
   kernel ``fused_ln_mlp_chunked`` (ops/block_kernels.py:132). Its plain
   version is :func:`ln_mlp_reference` (the same function up to the order of
   the f32 sums).
@@ -34,6 +36,7 @@ bounds them on the card is described at the top of the CUDA source.
 from __future__ import annotations
 
 import ctypes
+import typing as tp
 
 import torch
 import torch.nn.functional as F
@@ -45,13 +48,19 @@ __all__ = ["quick_gelu", "ln_f32", "dense", "ln_attn_reference", "ln_mlp_referen
            "fused_ln_attn", "fused_ln_mlp", "fused_ln_mlp_chunked", "fused_ln_attn_ad",
            "fused_ln_mlp_ad", "mlp_kernel", "fused_attn_ok", "fused_mlp_ok",
            "fused_mlp_chunked_ok", "HEAD_DIM", "MAX_T", "MAX_D", "MLP_WIDTHS",
-           "CHUNKED_MLP_WIDTHS", "FUSED_MLP_MAX_WEIGHT_BYTES"]
+           "CHUNKED_MLP_WIDTHS", "FUSED_MLP_MAX_WEIGHT_BYTES", "k9_grid", "K9_SHARED_BYTES"]
 
 HEAD_DIM = 64      # the CUDA attention kernel's head width
 MAX_T = 240        # longest sequence whose q/k/v and score rows fit shared memory
 MAX_D = 1024       # widest row the kernels' LayerNorm holds in registers
 MLP_WIDTHS = (512, 768)   # widths whose c_proj accumulators K6 holds in registers
-CHUNKED_MLP_WIDTHS = (1024,)   # K9: a block holds half of them
+CHUNKED_MLP_WIDTHS = (1024,)   # K9: a block holds half of the output columns
+# K9's tiling (csrc/block_kernels.cu, namespace k9): a cluster of two blocks a
+# 64-row tile, one half of the output columns each; the hidden in chunks of
+# 128 (each block makes 64 and sends them to its partner); a ring of five 16 KB
+# weight tiles beside LN(x) (64 x 1024 bf16) and the chunk (64 x 136 bf16)
+K9_ROWS, K9_CLUSTER, K9_CHUNK = 64, 2, 128
+K9_SHARED_BYTES = 1024 + 64 * 1024 * 2 + 5 * 16384 + 64 * (128 + 8) * 2 + 8 * 7
 # The JAX package's _mlp_dispatch threshold: MLP weights above it (ViT-L/14:
 # 16.8 MB in bf16) go to the hidden-chunked kernel.
 FUSED_MLP_MAX_WEIGHT_BYTES = 12 * 1024 * 1024
@@ -61,6 +70,8 @@ _SIGNATURES = {
     "linear_residual_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ln_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ln_mlp_chunked_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "ln_mlp_wide_smem_bytes": [],
+    "ln_mlp_wide_cluster": [],
 }
 
 
@@ -85,6 +96,13 @@ def fused_mlp_ok(d: int, hidden: int) -> bool:
 def fused_mlp_chunked_ok(d: int, hidden: int) -> bool:
     """What K9 takes; :func:`fused_ln_mlp_chunked` raises on it."""
     return d in CHUNKED_MLP_WIDTHS and hidden % 64 == 0
+
+
+def k9_grid(rows: int, hidden: int) -> tp.Tuple[int, int]:
+    """K9's launch: (blocks, hidden chunks a block walks) for ``rows`` = B * T.
+    Rows past the last whole tile are masked; a hidden of 64 mod 128 ends on a
+    half chunk whose missing columns arrive as zeros."""
+    return K9_CLUSTER * -(-rows // K9_ROWS), -(-hidden // K9_CHUNK)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,10 @@ Counterpart of ``summer_clip_tpu/ops/cache_kernels.py``.
 
 - :func:`cache_attention` -- K1, any value matrix (bf16, or int8 one-hots
   converted per tile). CUDA source ``csrc/cache_kernels.cu``
-  (``cache_dense``); replaces the TPU kernel ``cache_attention``
-  (ops/cache_kernels.py:103). CLIP-search's Softmax values take it.
+  (``cache_dense``: wgmma on TMA-staged operands, 16 queries x 256 classes x
+  8 betas a block; :func:`k1_grid`, :func:`k1_feature_stages`); replaces the
+  TPU kernel ``cache_attention`` (ops/cache_kernels.py:103). CLIP-search's
+  Softmax values take it.
 
 Tip-Adapter's values and CLIP-search's Hard values are ``one_hot(labels)``, so
 their sweeps take the label-driven kernels, which never build the matrix:
@@ -53,16 +55,26 @@ __all__ = ["cache_attention_reference", "cache_attention_dense_reference",
            "cache_attention_onehot", "cache_attention_labels",
            "cache_attention_from_labels", "cache_attention_auto",
            "onehot_block_classes", "onehot_k_max", "class_row_table", "onehot_variant",
-           "onehot_variant_reference", "EXPAND_MODES"]
+           "onehot_variant_reference", "EXPAND_MODES", "k1_grid", "k1_feature_stages",
+           "k1_shared_bytes"]
 
 K3_MAX_BETA = 16   # betas per K3 launch (f32 accumulators held in registers)
 K1_MAX_BETA = 8    # betas per K1 launch (their weight tiles share one affinity tile)
-K1_MAX_D = 1152    # widest feature row whose 32-query tile fits K1's shared memory
+K1_MAX_D = 1152    # widest feature row whose query boxes leave K1 a ring (k1_feature_stages)
+K1_ROWS = 16       # queries of a K1 block (test rows pad to it)
+K1_CACHE_STEP = 128   # cache rows of a K1 step: two 64-row k-blocks (cache rows pad to it)
+K1_CLASSES = 256   # classes of a K1 block (value columns pad to it)
+# K1's shared memory (csrc/cache_kernels.cu, namespace k1): 64 x 64 bf16 boxes
+_K1_BOX, _K1_QBOX, _K1_MAX_STAGES, _K1_SMEM_LIMIT, _K1_VSLOTS = 8192, 2048, 12, 232448, 2
+_K1_VBOXES = K1_CLASSES // 64
+_K1_FIXED = 1024 + 2 * 2 * 8192 + 8 * (12 + 2 + 4 + 1)   # alignment, w, barriers
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "cache_dense_bf16": _K1_ARGS,
     "cache_dense_i8": _K1_ARGS,
+    "cache_dense_feature_stages": [_I, _I],
+    "affinity_probe_bf16": [_P, _P, _P, _I, _I, _P],
     "labels_dense_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "onehot_grouped_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "onehot_variant_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -73,6 +85,32 @@ EXPAND_MODES = ("highest", "split3", "default")
 
 def _lib_cache():
     return _lib.load("cache_kernels", _SIGNATURES)
+
+
+def k1_shared_bytes(d: int, int8_values: bool, stages: int) -> int:
+    """Shared memory of a K1 block at feature width ``d``: the query boxes,
+    two value tiles in flight (int8: 64 x 256 bytes, plus a bf16 conversion a
+    warpgroup; bf16: four 64 x 64 boxes), two weight buffers, the barriers and
+    ``stages`` 64 x 64 feature boxes of the ring."""
+    nd = -(-d // 64)
+    values = (_K1_VSLOTS * _K1_VBOXES * _K1_BOX // 2 + 2 * _K1_VBOXES * _K1_BOX if int8_values
+              else _K1_VSLOTS * _K1_VBOXES * _K1_BOX)
+    return _K1_FIXED + nd * _K1_QBOX + values + stages * _K1_BOX
+
+
+def k1_feature_stages(d: int, int8_values: bool) -> int:
+    """Feature-ring stages K1 takes at width ``d``: what shared memory leaves,
+    at most 12, rounded down to an even number (a stage serves one of the two
+    warpgroups); 0 where fewer than 4 fit (each warpgroup needs one stage in
+    use and one loading)."""
+    free = _K1_SMEM_LIMIT - k1_shared_bytes(d, int8_values, 0)
+    stages = min(_K1_MAX_STAGES, free // _K1_BOX) & ~1
+    return stages if stages >= 4 else 0
+
+
+def k1_grid(nt: int, c: int) -> tp.Tuple[int, int]:
+    """K1's blocks: (query tiles of 16, class slices of 256)."""
+    return _ceil_to(max(nt, 1), K1_ROWS) // 16, _ceil_to(max(c, 1), K1_CLASSES) // K1_CLASSES
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -216,8 +254,9 @@ def _cuda_features(test_features: torch.Tensor, cache_features: torch.Tensor,
     nc_p = nc if cache_rows_to is None else _ceil_to(max(nc, 1), cache_rows_to)
     f = torch.zeros(nt_p, d_p, dtype=torch.bfloat16, device=test_features.device)
     f[:nt, :d] = test_features
-    if nc_p == nc and d_p == d and cache_features.dtype == torch.bfloat16:
-        cf = cache_features.contiguous()
+    if (nc_p == nc and d_p == d and cache_features.dtype == torch.bfloat16
+            and cache_features.is_contiguous() and cache_features.data_ptr() % 16 == 0):
+        cf = cache_features      # read in place (K1 reads it by TMA: 16-byte aligned)
     else:
         cf = torch.zeros(nc_p, d_p, dtype=torch.bfloat16, device=cache_features.device)
         cf[:nc, :d] = cache_features
@@ -246,11 +285,13 @@ def cache_attention(test_features: torch.Tensor, cache_features: torch.Tensor,
     as_int8 = not cache_values.is_floating_point()
     if as_int8 and cache_values.dtype != torch.int8:
         raise TypeError(f"integer cache_values must be int8, got {cache_values.dtype}")
-    f, cf, nt_p, nc_p, d_p = _cuda_features(test_features, cache_features, 32, 128)
+    f, cf, nt_p, nc_p, d_p = _cuda_features(test_features, cache_features, K1_ROWS,
+                                            K1_CACHE_STEP)
     vdtype = torch.int8 if as_int8 else torch.bfloat16
-    c_p = _ceil_to(c, 128)
-    if nc_p == nc and c_p == c and cache_values.dtype == vdtype:
-        v = cache_values.contiguous()
+    c_p = _ceil_to(c, K1_CLASSES)
+    if (nc_p == nc and c_p == c and cache_values.dtype == vdtype
+            and cache_values.is_contiguous() and cache_values.data_ptr() % 16 == 0):
+        v = cache_values
     else:
         v = torch.zeros(nc_p, c_p, dtype=vdtype, device=dev)
         v[:nc, :c] = cache_values

@@ -105,11 +105,15 @@ CUDA_TOL = 2e-2
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nt,nc,d,c,nb", [(50, 300, 32, 7, 3), (70, 700, 512, 397, 11),
-                                          (33, 129, 1024, 1000, 8)])
+                                          (33, 129, 1024, 1000, 8), (20, 100, 1152, 50, 8),
+                                          (7, 200, 1024, 397, 3), (13, 1000, 768, 7, 11)])
 def test_cuda_k1_matches_plain(nt, nc, d, c, nb):
-    """Ragged Nt, Nc and C, D below and above one 128-column slice, more betas
-    than one launch takes; bf16 softmax values and int8 one-hots, the latter
-    also against K2 on the same labels (the same bf16 weights: f32 order only)."""
+    """Nt below and above one 16-query block, Nc not a multiple of the
+    128-row step, C below, between and above 256-class slices, D from one
+    64-column box to K1_MAX_D (1152: the shortest ring, 6 stages int8), more
+    betas than one launch takes; bf16 softmax values and int8 one-hots, the
+    latter also against K2 on the same labels (the same bf16 weights: f32
+    order only)."""
     _cuda()
     rng = np.random.default_rng(nc)
     f = torch.from_numpy(_unit(rng, nt, d)).cuda()
@@ -129,3 +133,67 @@ def test_cuda_k1_matches_plain(nt, nc, d, c, nb):
     assert ck.cache_attention.launches == before + 2 * -(-nb // ck.K1_MAX_BETA)
     k2 = ck.cache_attention_labels(f, keys, labels.cpu().numpy(), betas, c)
     assert float((got - k2).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_k1_affinity_is_k2s_bit_for_bit():
+    """K1's transposed wgmma affinity against K2's WMMA tiles on the same bf16
+    rows: equal in every bit at widths of 1, 4, 12 and 16 sixteen-deep steps."""
+    _cuda()
+    from summer_clip_torch.ops import _lib
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lib = ck._lib_cache()
+    for d in (16, 64, 192, 256):
+        f = torch.randn(8 * 16, d, device="cuda", generator=gen)
+        c = torch.randn(8 * 64, d, device="cuda", generator=gen)
+        f = (f / f.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        c = (c / c.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        out = torch.zeros(2, 8, 16, 64, device="cuda")
+        _lib.check(lib.affinity_probe_bf16(f.data_ptr(), c.data_ptr(), out.data_ptr(), d, 8,
+                                           _lib.torch_stream()), "affinity_probe")
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], out[1])
+        assert torch.allclose(out[0, 0], f[:16].float() @ c[:64].float().t(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 512, 768, 1024, 1152])
+def test_cuda_k1_ring_matches_the_host_plan(d):
+    _cuda()
+    lib = ck._lib_cache()
+    for int8_values in (False, True):
+        assert lib.cache_dense_feature_stages(d, int(int8_values)) == ck.k1_feature_stages(
+            d, int8_values)
+
+
+@pytest.mark.parametrize("d,bf16_stages,int8_stages", [(16, 12, 10), (768, 12, 8),
+                                                       (1024, 12, 8), (1152, 10, 6)])
+def test_k1_feature_ring_fits_shared_memory(d, bf16_stages, int8_stages):
+    """The ring takes what the query boxes, value tiles and weight buffers
+    leave of the 227 KB a block may use, at most 12 stages and an even number
+    (a stage serves one of the two warpgroups)."""
+    for int8_values, want in ((False, bf16_stages), (True, int8_stages)):
+        stages = ck.k1_feature_stages(d, int8_values)
+        assert stages == want and stages % 2 == 0
+        assert ck.k1_shared_bytes(d, int8_values, stages) <= 232448
+        if stages < 12:
+            assert ck.k1_shared_bytes(d, int8_values, stages + 2) > 232448
+    assert ck.k1_feature_stages(ck.K1_MAX_D, True) >= 4
+    assert ck.k1_feature_stages(4096, True) == 0          # too wide for the resident queries
+
+
+def test_k1_shared_memory_counts_each_buffer():
+    # 768 wide: 12 query boxes of 2 KB, two bf16 value tiles of 32 KB, two w
+    # buffers of 16 KB, 19 barriers, 1 KB of alignment
+    assert ck.k1_shared_bytes(768, False, 0) == 12 * 2048 + 2 * 32768 + 2 * 16384 + 19 * 8 + 1024
+    # int8: the raw tiles are half as large, plus a 32 KB bf16 conversion a warpgroup
+    assert (ck.k1_shared_bytes(768, True, 0) - ck.k1_shared_bytes(768, False, 0)
+            == -32768 + 2 * 32768)
+
+
+@pytest.mark.parametrize("nt,c,want", [(8192, 1000, (512, 4)), (1000, 1000, (63, 4)),
+                                       (7, 7, (1, 1)), (16, 256, (1, 1)), (17, 257, (2, 2))])
+def test_k1_grid(nt, c, want):
+    """16-query blocks by 256-class slices, ragged edges rounded up."""
+    assert ck.k1_grid(nt, c) == want

@@ -259,18 +259,63 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t", [(3, 50), (2, 257)])
+@pytest.mark.parametrize("b,t", [(3, 50), (2, 257), (1, 257), (32, 257)])
 def test_cuda_k9_matches_plain_and_repeats_bit_for_bit(cuda, b, t):
+    """Row counts that leave the last 64-row tile ragged (150, 514, 257) and
+    the ViT-L/14 batch (8224 rows, 129 tiles): two runs give the same bits,
+    and a sequence alone gives the bits it has among the others."""
     p = _mlp_np(9, b, t, 1024)
     args = [a.to(cuda, torch.float32 if i in (1, 2) else torch.bfloat16)   # LayerNorm in f32
             for i, a in enumerate(_mlp_port(p))]
     got = bk.fused_ln_mlp_chunked(*args)
     again = bk.fused_ln_mlp_chunked(*args)
+    alone = bk.fused_ln_mlp_chunked(args[0][-1:].contiguous(), *args[1:])
     want = bk.ln_mlp_reference(*args)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(alone[0], got[-1])
     assert diff.max() <= 0.125 and diff.mean() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_k9_takes_a_hidden_of_half_a_chunk_more(cuda):
+    """H = 1088 = 8.5 chunks of 128: the last chunk's missing hidden columns
+    arrive as TMA's zeros and add nothing."""
+    r = np.random.RandomState(10)
+    d, h = 1024, 1088
+    f = lambda *s, scale=1.0: torch.from_numpy((r.randn(*s) * scale).astype(np.float32))  # noqa: E731
+    args = [f(2, 70, d).to(cuda, torch.bfloat16), (1.0 + f(d, scale=0.1)).to(cuda),
+            f(d, scale=0.1).to(cuda), f(h, d, scale=d ** -0.5).to(cuda, torch.bfloat16),
+            f(h, scale=0.05).to(cuda, torch.bfloat16),
+            f(d, h, scale=h ** -0.5).to(cuda, torch.bfloat16), f(d, scale=0.05).to(cuda, torch.bfloat16)]
+    got = bk.fused_ln_mlp_chunked(*args)
+    want = bk.ln_mlp_reference(*args)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    assert diff.max() <= 0.125 and diff.mean() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_k9_shared_memory_and_cluster_match_the_host_plan(cuda):
+    lib = bk._lib_block()
+    assert lib.ln_mlp_wide_smem_bytes() == bk.K9_SHARED_BYTES
+    assert lib.ln_mlp_wide_cluster() == bk.K9_CLUSTER
+
+
+@pytest.mark.parametrize("rows,hidden,want", [(8224, 4096, (258, 32)), (150, 4096, (6, 32)),
+                                              (64, 4096, (2, 32)), (1, 1088, (2, 9))])
+def test_k9_launch_plan(rows, hidden, want):
+    """Two blocks (a cluster) a 64-row tile, the last tile ragged; the hidden
+    in chunks of 128, a last half chunk counted whole."""
+    assert bk.k9_grid(rows, hidden) == want
+
+
+def test_k9_shared_memory_fits_a_block():
+    """LN(x) of 64 rows (128 KB), five 16 KB weight stages, the 64 x 136
+    hidden chunk and the barriers fit the 227 KB a block may use."""
+    assert bk.K9_SHARED_BYTES == 1024 + 131072 + 5 * 16384 + 64 * 136 * 2 + 7 * 8
+    assert bk.K9_SHARED_BYTES <= 232448
+    assert bk.K9_SHARED_BYTES + 16384 > 232448          # a sixth stage would not fit
 
 
 @pytest.mark.cuda
