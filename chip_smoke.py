@@ -174,6 +174,7 @@ inputs.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import json
 import subprocess
 import sys
@@ -187,6 +188,12 @@ KERNEL_SOURCES = ("block_kernels", "cache_kernels", "attention_kernels", "gemv_k
 PEAK_BYTES = 3.35e12      # H100 SXM device memory, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 FLOP/s outside the tensor cores
+# exponentials (MUFU.EX2): 16 a clock an SM (CUDA C Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) on the card's SMs at its
+# maximum SM clock (nvidia-smi clocks.max.sm, read in main; the H100 SXM's
+# 1980 MHz until then)
+EXP_PER_CLOCK_SM = 16
+CARD = {"sms": 132, "sm_clock_hz": 1.98e9}
 
 # bf16 kernel vs bf16 plain version: the same rounding points, other f32
 # summation orders. An intermediate (q/k/v, hidden, scores) may round to the
@@ -271,13 +278,32 @@ def versions() -> str:
             f"torch CUDA {torch.version.cuda} | nvcc {nvcc_v} | triton {triton_v}")
 
 
-def bound(bytes_moved: float, bf16_flops: float, f32_flops: float = 0.0) -> dict:
+def exp_rate() -> float:
+    """Exponentials a second the card's special-function units retire."""
+    return EXP_PER_CLOCK_SM * CARD["sms"] * CARD["sm_clock_hz"]
+
+
+def bound(bytes_moved: float, bf16_flops: float, f32_flops: float = 0.0,
+          exps: float = 0.0) -> dict:
     """The least time the card could take: bytes at the memory rate against
-    operations at the peak rate of their type."""
+    operations at the peak rate of their type; exponentials (``exps``) on the
+    special-function units, which run beside the other units."""
     by_bytes = bytes_moved / PEAK_BYTES * 1e3
-    by_ops = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_F32) * 1e3
+    by_ops = max(bf16_flops / PEAK_BF16 + f32_flops / PEAK_F32, exps / exp_rate()) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def read_card_clock() -> None:
+    """The SM count and the maximum SM clock of card 0 into ``CARD``."""
+    import torch
+
+    CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    if out.returncode == 0 and out.stdout.strip():
+        CARD["sm_clock_hz"] = float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -380,6 +406,14 @@ def check_block_kernels(results: dict) -> None:
     torch.cuda.synchronize()
 
 
+def label_bound(nt: int, n_real: int, d: int, c: int, nb: int) -> dict:
+    """K2's and K3's bound: bf16 features and int32 labels read once, the f32
+    output written once; the affinity's products on the tensor cores, one
+    exponential (special-function units) and one add a (query, row, beta)."""
+    return bound(2 * (nt + n_real) * d + 4 * n_real + 4 * nb * nt * c,
+                 2 * nt * n_real * d, nb * nt * n_real, nb * nt * n_real)
+
+
 def check_cache_kernels(results: dict) -> None:
     import numpy as np
     import torch
@@ -409,7 +443,7 @@ def check_cache_kernels(results: dict) -> None:
     k3 = lambda: ck.cache_attention_onehot(f, keys, labels, betas, c)       # noqa: E731
     k2 = lambda: ck.cache_attention_labels(f, keys_sh, labels_sh, betas, c)  # noqa: E731
     want = plain(keys, labels)
-    got3, got2 = k3(), k2()
+    got3, got2, again3 = k3(), k2(), k3()
     got2_grouped = ck.cache_attention_labels(f, keys, labels, betas, c)
     torch.cuda.synchronize()
     e3 = float((got3 - want).abs().max())
@@ -418,31 +452,36 @@ def check_cache_kernels(results: dict) -> None:
     shape = f"Nt={nt} Nc={per_class * c} D={d} C={c} betas={betas.shape[0]}"
     ms3, ms2 = cuda_time_ms(k3, 3, 1), cuda_time_ms(k2, 3, 1)
     plain_ms = cuda_time_ms(lambda: plain(keys, labels), 2, 1)
+    prev3 = baseline_label_ms(k3, "onehot_grouped", f, keys, labels, betas, c)
+    prev2 = baseline_label_ms(k2, "labels_dense", f, keys_sh, labels_sh, betas, c)
+    nc, nb = per_class * c, int(betas.shape[0])
+    work = label_bound(nt, nc, d, c, nb)
     log(f"K3 onehot_grouped   grouped cache  {shape}: max|d| vs plain={e3:.3e} "
-        f"(tol {TOL_CACHE_VS_PLAIN}) kernel {ms3:.4f} ms plain {plain_ms:.4f} ms")
+        f"(tol {TOL_CACHE_VS_PLAIN}) kernel {ms3:.4f} ms plain {plain_ms:.4f} ms "
+        f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})" + in_turns(prev3))
     log(f"K2 labels_dense     shuffled cache {shape}: max|d| vs plain={e2:.3e} "
-        f"(tol {TOL_CACHE_VS_PLAIN}) kernel {ms2:.4f} ms plain {plain_ms:.4f} ms")
-    log(f"K3 == K2 on the grouped cache: max|d|={e32:.3e} (tol {TOL_K3_VS_K2})")
+        f"(tol {TOL_CACHE_VS_PLAIN}) kernel {ms2:.4f} ms plain {plain_ms:.4f} ms" + in_turns(prev2))
+    log(f"K3 == K2 on the grouped cache: max|d|={e32:.3e} (tol {TOL_K3_VS_K2}); "
+        f"two runs equal: {bool(torch.equal(got3, again3))}")
     if not (torch.isfinite(got3).all() and torch.isfinite(got2).all()):
         raise AssertionError("cache kernels: non-finite output")
     if e3 > TOL_CACHE_VS_PLAIN or e2 > TOL_CACHE_VS_PLAIN or e32 > TOL_K3_VS_K2:
         raise AssertionError("cache kernels disagree")
-    nc, nb = per_class * c, int(betas.shape[0])
-    moved = 2 * (nt + nc) * d + 4 * nc + 4 * nb * nt * c      # bf16 features, labels, f32 out
-    affinity = 2 * nt * nc * d
+    if not torch.equal(got3, again3):
+        raise AssertionError("K3: two runs differ")
     results["K3 onehot_grouped"] = {
         "max_abs_err": e3, "ms": ms3, "plain_ms": plain_ms, "k3_vs_k2": e32, "library_ms": None,
-        # every cache row meets every query once per beta: one exp and one add
-        **bound(moved, affinity, 2 * nb * nt * nc)}
+        **({"baseline_ms": prev3[0], "in_turns_ms": prev3[1]} if prev3 else {}), **work}
     results["K2 labels_dense"] = {
-        "max_abs_err": e2, "ms": ms2, "plain_ms": plain_ms, "library_ms": None,
-        # the dense w @ one_hot product the kernel computes
-        **bound(moved, affinity + nb * 2 * nt * nc * c, nb * nt * nc)}
+        "max_abs_err": e2, "ms": ms2, "plain_ms": plain_ms, "library_ms": None, "shapes": {},
+        **({"baseline_ms": prev2[0], "in_turns_ms": prev2[1]} if prev2 else {}), **work}
+    check_weight_rate()
 
     # K3 as CLIP-search gives it: D=768, 1000 test rows, a prediction-sorted
     # selection padded with label -1 to a multiple of 1024 rows, the config's 8
     # betas. Once with predictions collapsed onto a few classes (what a random
-    # model gives), once spread over 100 classes.
+    # model gives), once spread over 100 classes. K2 on the same labels
+    # shuffled (CLIP-search's scattered pseudo-labels take K2).
     d, nt = 768, 1000
     f = unit(nt)
     betas8 = torch.tensor([0.1, 1.0, 1.5, 3.5, 5.5, 7.5, 9.5, 11.5], device="cuda")
@@ -465,18 +504,61 @@ def check_cache_kernels(results: dict) -> None:
             raise AssertionError(f"{case}: the label route did not launch K3")
         err = float((got - want).abs().max())
         ms, ref_ms = cuda_time_ms(kern, 5, 1), cuda_time_ms(ref, 5, 1)
-        log(f"K3 onehot_grouped   {case:18s} Nt={nt} Nc={lab.shape[0]} ({real.shape[0]} real) "
+        prev = baseline_label_ms(kern, "onehot_grouped", f, keys, lab, betas8, c)
+        n_real = real.shape[0]
+        work = label_bound(nt, n_real, d, c, 8)
+        log(f"K3 onehot_grouped   {case:18s} Nt={nt} Nc={lab.shape[0]} ({n_real} real) "
             f"D={d} C={c} betas=8: max|d| vs plain={err:.3e} (tol {TOL_CACHE_VS_PLAIN}) "
-            f"kernel {ms:.4f} ms plain {ref_ms:.4f} ms")
+            f"kernel {ms:.4f} ms plain {ref_ms:.4f} ms bound {work['bound_ms']:.4f} ms"
+            + in_turns(prev))
         if not torch.isfinite(got).all() or err > TOL_CACHE_VS_PLAIN:
             raise AssertionError(f"K3 {case}: kernel disagrees with its plain version")
-        n_real = real.shape[0]
         shapes[case] = {"ms": ms, "plain_ms": ref_ms, "max_abs_err": err,
-                        **bound(2 * (nt + n_real) * d + 4 * n_real + 4 * 8 * nt * c,
-                                2 * nt * n_real * d, 2 * 8 * nt * n_real)}
+                        **({"baseline_ms": prev[0], "in_turns_ms": prev[1]} if prev else {}),
+                        **work}
         results["K3 onehot_grouped"]["max_abs_err"] = max(
             results["K3 onehot_grouped"]["max_abs_err"], err)
+        # K2: the same rows in another order
+        sh = rng.permutation(lab.shape[0])
+        keys_s, lab_s = keys[torch.from_numpy(sh).cuda()], lab[sh]
+        k2s = lambda: ck.cache_attention_labels(f, keys_s, lab_s, betas8, c)   # noqa: E731
+        got2 = k2s()
+        torch.cuda.synchronize()
+        err2 = float((got2 - want).abs().max())
+        ms2 = cuda_time_ms(k2s, 5, 1)
+        log(f"K2 labels_dense     {case:18s} shuffled: max|d| vs plain={err2:.3e} "
+            f"(tol {TOL_CACHE_VS_PLAIN}) kernel {ms2:.4f} ms plain {ref_ms:.4f} ms")
+        if not torch.isfinite(got2).all() or err2 > TOL_CACHE_VS_PLAIN:
+            raise AssertionError(f"K2 {case} shuffled: kernel disagrees with its plain version")
+        results["K2 labels_dense"]["shapes"][case] = {"ms": ms2, "plain_ms": ref_ms,
+                                                      "max_abs_err": err2, **work}
+        results["K2 labels_dense"]["max_abs_err"] = max(
+            results["K2 labels_dense"]["max_abs_err"], err2)
     torch.cuda.synchronize()
+
+
+def check_weight_rate() -> None:
+    """What a loop of nothing but weights reaches on the card (no tiles, no
+    boundaries, no stores): the ceiling of the label kernels' walk."""
+    import torch
+
+    from summer_clip_torch.ops import _lib
+    from summer_clip_torch.ops import cache_kernels as ck
+
+    betas = torch.linspace(0.1, 11.5, 16, device="cuda")
+    blocks, rows = CARD["sms"], 1 << 16
+    out = torch.empty(blocks * 256, device="cuda")
+    lib = ck._lib_cache()
+    ms = cuda_time_ms(lambda: _lib.check(lib.weight_rate_probe_bf16(
+        betas.data_ptr(), out.data_ptr(), rows, blocks, _lib.torch_stream()), "weight_rate"), 3)
+    rate = blocks * 256 * rows * 4 / (ms * 1e-3)
+    per_clock = rate / CARD["sms"] / CARD["sm_clock_hz"]
+    log(f"weight-rate probe: {rate:.3e} bf16 weights/s = {per_clock:.2f} a clock an SM at the "
+        f"max SM clock ({rate / exp_rate():.2f} of the exponential rate)")
+
+
+def in_turns(prev: tp.Optional[tuple]) -> str:
+    return f"; in turns: baseline {prev[0]:.4f} ms, kernel {prev[1]:.4f} ms" if prev else ""
 
 
 # --only: the checks of one kernel source; --baseline: an earlier copy of that
@@ -499,7 +581,6 @@ def load_baseline(src: str, source: str):
     ``--baseline``) with the port's flags, its headers beside it, and declare
     the entry points of the tree's wrapper module that it has: its times stand
     beside the kernels' in the checks, in turns on the same inputs."""
-    import ctypes
     import shutil
 
     from summer_clip_torch.ops import _lib
@@ -514,11 +595,60 @@ def load_baseline(src: str, source: str):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for the baseline {src}:\n{proc.stderr[-4000:]}")
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in _ops_module(source)._SIGNATURES.items():
+    signatures = dict(_ops_module(source)._SIGNATURES)
+    if source == "cache_kernels" and not hasattr(lib, "grouped_stages"):
+        signatures.update(PER_GROUP_LABEL_SIGNATURES)   # the label kernels before the template
+    for fn, argtypes in signatures.items():
         if hasattr(lib, fn):
             f = getattr(lib, fn)
             f.argtypes, f.restype = list(argtypes), ctypes.c_int
     return lib
+
+
+# The label kernels' entry points before the class-grouped template (K2 a
+# dense WMMA product, K3 and K13 a block per 16-class group): the sorted rows
+# and class offsets, or the labels, instead of the template's host tables.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+PER_GROUP_LABEL_SIGNATURES = {
+    "labels_dense_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "onehot_grouped_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "onehot_variant_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def per_group_label_call(lib, name: str, f, keys, labels, betas, c: int,
+                         block_n: int = 1, mode: int = 0):
+    """One call of a per-group-design label kernel, its arguments made as
+    its wrapper made them: K2 takes all betas at once over 16-row query and
+    128-row cache padding; K3 and K13 take 16 betas a launch over 64-row query
+    padding and the host's class-row table."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.ops import _lib
+    from summer_clip_torch.ops import cache_kernels as ck
+
+    nt, stream = f.shape[0], _lib.torch_stream()
+    bet = betas.float().contiguous()
+    out = torch.empty(bet.shape[0], nt, c, dtype=torch.float32, device=f.device)
+    if name == "labels_dense":
+        ff, cf, nt_p, nc_p, d_p = ck._cuda_features(f, keys, 16, 128)
+        lab = torch.full((nc_p,), -1, dtype=torch.int32, device=f.device)
+        lab[:keys.shape[0]] = torch.from_numpy(np.asarray(labels, np.int32)).to(f.device)
+        _lib.check(lib.labels_dense_bf16(ff.data_ptr(), cf.data_ptr(), lab.data_ptr(),
+                                         bet.data_ptr(), out.data_ptr(), bet.shape[0], nt, nt_p,
+                                         nc_p, d_p, c, stream), name)
+        return out
+    ff, cf, nt_p, _, d_p = ck._cuda_features(f, keys, 64)
+    rows, offs = ck.class_row_table(np.asarray(labels, np.int32), c)
+    rows_t, offs_t = torch.from_numpy(rows).to(f.device), torch.from_numpy(offs).to(f.device)
+    extra = (block_n, mode, 0) if name == "onehot_variant" else ()
+    for s in range(0, bet.shape[0], 16):
+        chunk, view = bet[s:s + 16].contiguous(), out[s:s + 16]
+        _lib.check(getattr(lib, f"{name}_bf16")(
+            ff.data_ptr(), cf.data_ptr(), rows_t.data_ptr(), offs_t.data_ptr(), chunk.data_ptr(),
+            view.data_ptr(), chunk.shape[0], nt, nt_p, d_p, c, *extra, stream), name)
+    return out
 
 
 BASELINE: dict = {}    # "source" and "lib": the --baseline build, when given
@@ -543,6 +673,24 @@ def baseline_ms(fn, iters: int, source: str) -> tp.Optional[tuple]:
             _lib._LIBS[source] = ours
 
     b1, k1, k2, b2 = on(base), on(ours), on(ours), on(base)
+    return (b1 + b2) / 2, (k1 + k2) / 2
+
+
+def baseline_label_ms(fn, name: str, f, keys, labels, betas, c: int, iters: int = 3,
+                      block_n: int = 1, mode: int = 0) -> tp.Optional[tuple]:
+    """A label kernel call ``fn`` (K2 ``labels_dense``, K3 ``onehot_grouped``
+    or K13 ``onehot_variant``) timed on the cache baseline and on this tree's
+    build in turns; a baseline of the per-group design is called with its own
+    arguments on the same inputs. None without a cache baseline."""
+    if BASELINE.get("source") != "cache_kernels":
+        return None
+    base = BASELINE["lib"]
+    if hasattr(base, "grouped_stages"):
+        return baseline_ms(fn, iters, "cache_kernels")
+    old = lambda: per_group_label_call(base, name, f, keys, labels, betas, c,   # noqa: E731
+                                       block_n, mode)
+    old()
+    b1, k1, k2, b2 = (cuda_time_ms(g, iters) for g in (old, fn, fn, old))
     return (b1 + b2) / 2, (k1 + k2) / 2
 
 
@@ -683,7 +831,7 @@ def check_dense_cache_kernel(results: dict) -> None:
                 "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
                 **({"baseline_ms": prev[0], "in_turns_ms": prev[1]} if prev else {}),
                 **bound(2 * (nt + nc) * d + vbytes * nc * c + 4 * nb * nt * c,
-                        2 * nt * nc * d + nb * 2 * nt * nc * c, nb * nt * nc)}
+                        2 * nt * nc * d + nb * 2 * nt * nc * c, 0, nb * nt * nc)}
         k2 = ck.cache_attention_labels(f, keys, labels.cpu().numpy(), betas, c)
         torch.cuda.synchronize()
         e12 = float((got - k2).abs().max())
@@ -696,9 +844,11 @@ def check_dense_cache_kernel(results: dict) -> None:
 
 
 def check_affinity_probe() -> None:
-    """K1's affinity (transposed wgmma.m64n16k16) against K2's (WMMA), bit for
-    bit, over 64 tiles of 64 cache rows x 16 queries at widths up to 256: the
-    reason K1 == K2 holds at 1e-4 (both add the same bf16 weights)."""
+    """The affinity three ways, bit for bit, over 64 tiles of 64 queries x 128
+    cache rows at widths up to 1024 (the label kernels run 512, 768 and
+    1024): WMMA, K1's transposed wgmma.m64n16k16 and the class-grouped
+    template's wgmma.m64n128k16 (queries as M). The reason K1 == K2 holds at
+    1e-4 and K13 == K1 at 1e-5 of max |out|: all add the same bf16 weights."""
     import torch
 
     from summer_clip_torch.ops import _lib
@@ -707,20 +857,21 @@ def check_affinity_probe() -> None:
     gen = torch.Generator(device="cuda").manual_seed(5)
     lib = ck._lib_cache()
     tiles, differ = 64, {}
-    for d in (16, 64, 192, 256):
-        f = torch.randn(tiles * 16, d, device="cuda", generator=gen)
-        c = torch.randn(tiles * 64, d, device="cuda", generator=gen)
+    for d in (16, 64, 192, 256, 512, 768, 1024):
+        f = torch.randn(tiles * 64, d, device="cuda", generator=gen)
+        c = torch.randn(tiles * 128, d, device="cuda", generator=gen)
         f = (f / f.norm(dim=1, keepdim=True)).to(torch.bfloat16)
         c = (c / c.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-        out = torch.zeros(2, tiles, 16, 64, device="cuda")
+        out = torch.zeros(3, tiles, 64, 128, device="cuda")
         _lib.check(lib.affinity_probe_bf16(f.data_ptr(), c.data_ptr(), out.data_ptr(), d, tiles,
                                            _lib.torch_stream()), "affinity_probe")
         torch.cuda.synchronize()
-        differ[d] = int((out[0] != out[1]).sum())
-    log(f"K1 affinity probe (wgmma S^T vs K2's WMMA, {tiles} x 16 x 64 each): elements that "
-        f"differ at D = " + ", ".join(f"{d}: {n}" for d, n in differ.items()) + " (must be 0)")
-    if any(differ.values()):
-        raise AssertionError("K1's affinity differs from K2's")
+        differ[d] = (int((out[1] != out[0]).sum()), int((out[2] != out[0]).sum()))
+    log(f"affinity probe ({tiles} tiles of 64 queries x 128 cache rows): elements of K1's "
+        f"wgmma.m64n16k16 / the grouped template's wgmma.m64n128k16 that differ from WMMA at D = "
+        + ", ".join(f"{d}: {a} / {b}" for d, (a, b) in differ.items()) + " (must be 0)")
+    if any(a or b for a, b in differ.values()):
+        raise AssertionError("the cache kernels' affinities differ")
 
 
 # K13 at the JAX sweep tool's first geometry (its "top16-per-class"): Nt=50176,
@@ -801,8 +952,8 @@ def check_onehot_variant(results: dict) -> None:
 
     entry = results["K13 onehot_variant"] = {"max_abs_err": 0.0, "library_ms": None,
                                              "shapes": {}}
-    moved = 2 * (nt + nc) * d + 4 * nc + 4 * betas.shape[0] * nt * c
-    work = bound(moved, 2 * nt * nc * d, 2 * betas.shape[0] * nt * nc)
+    nb = int(betas.shape[0])
+    work = label_bound(nt, nc, d, c, nb)
     for mode in arms:
         want = plain(mode)
         torch.cuda.synchronize()
@@ -814,17 +965,20 @@ def check_onehot_variant(results: dict) -> None:
             raise AssertionError(f"K13 {mode}: two runs differ")
         ms = cuda_time_ms(lambda m=mode: kern(m), 3, 1)
         plain_ms = cuda_time_ms(lambda m=mode: plain(m), 2, 1)
+        prev = baseline_label_ms(lambda m=mode: kern(m), "onehot_variant", f, keys, labels, betas,
+                                 c, block_n=block_n, mode=ck.EXPAND_MODES.index(mode))
         log(f"K13 onehot_variant {mode:8s} cast_w={arms[mode]!s:5s} {shape}: "
             + " ".join(f"{k}={v:.3e}" for k, v in r.items())
             + f" (tol: plain {TOL_CACHE_VS_PLAIN}"
             + (f" + {TOL_K13_DEFAULT_STEP:.3e} of max|out|, vs highest {TOL_K13_DEFAULT_REL:.3e}"
                if mode == "default" else f", K3 and K1 {TOL_K13_VS_K3_REL} of max|out|")
             + f"), two runs equal; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+              f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})" + in_turns(prev))
         if not passes(r, mode):
             raise AssertionError(f"K13 {mode}: kernel disagrees")
         entry["shapes"][mode] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": r["vs_plain"],
-                                 **r, **work}
+                                 **({"baseline_ms": prev[0], "in_turns_ms": prev[1]} if prev
+                                    else {}), **r, **work}
         entry["max_abs_err"] = max(entry["max_abs_err"], r["vs_plain"])
     if not torch.equal(got["highest"], got["split3"]):
         raise AssertionError("K13: split3 is not highest bit for bit")
@@ -844,6 +998,63 @@ def check_onehot_variant(results: dict) -> None:
         if passes(r, mode):
             raise AssertionError(f"K13 gates cannot see a dropped partial ({mode})")
     del got, again, k3, k1, want
+    torch.cuda.empty_cache()
+    check_onehot_variant_blocks(entry)
+
+
+# K13 where classes span several block_n blocks (the sweep tool's full cache
+# has ~1281 rows a class at block_n 1024 and 2048): sorted random labels,
+# ~320 rows a class, block_n 128
+K13_BLOCKS_SHAPE = dict(nt=8192, nc=32000, d=1024, c=100, block_n=128)
+
+
+def check_onehot_variant_blocks(entry: dict) -> None:
+    """Each arm of K13 against its plain version and K3 where a class's rows
+    fall into 2 to 4 block_n blocks (a segment each), two runs equal."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.ops import cache_kernels as ck
+
+    nt, nc, d, c, block_n = (K13_BLOCKS_SHAPE[k] for k in ("nt", "nc", "d", "c", "block_n"))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    f = torch.randn(nt, d, generator=gen, device="cuda")
+    keys = torch.randn(nc, d, generator=gen, device="cuda")
+    f, keys = ((x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16) for x in (f, keys))
+    labels = np.sort(np.random.default_rng(17).integers(0, c, nc)).astype(np.int32)
+    per_block = [np.unique(labels[i:i + block_n]).shape[0] for i in range(0, nc, block_n)]
+    betas = torch.linspace(0.1, 11.5, 8, device="cuda")
+    k3 = ck.cache_attention_onehot(f, keys, labels, betas, c)
+    work = label_bound(nt, nc, d, c, 8)
+    shape = (f"Nt={nt} Nc={nc} D={d} C={c} betas=8 block_n={block_n} ({nc // c} rows a class, "
+             f"{max(per_block)} classes at most in a block)")
+    for mode in ck.EXPAND_MODES:
+        kern = lambda m=mode: ck.onehot_variant(f, keys, labels, betas, c,  # noqa: E731
+                                                block_n=block_n, expand_mode=m)
+        got, again = kern(), kern()
+        want = ck.onehot_variant_reference(f, keys, labels, betas, c, block_n=block_n,
+                                           expand_mode=mode)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        vs_k3 = float((got - k3).abs().max()) / scale
+        tol = TOL_CACHE_VS_PLAIN + (TOL_K13_DEFAULT_STEP * scale if mode == "default" else 0.0)
+        ms, plain_ms = cuda_time_ms(kern, 3, 1), cuda_time_ms(
+            lambda m=mode: ck.onehot_variant_reference(f, keys, labels, betas, c,
+                                                       block_n=block_n, expand_mode=m), 1, 0)
+        tol_k3 = TOL_K13_DEFAULT_REL if mode == "default" else TOL_K13_VS_K3_REL
+        log(f"K13 onehot_variant {mode:8s} {shape}: vs_plain={err:.3e} (tol {tol:.3e}) "
+            f"vs_k3_rel={vs_k3:.3e} (tol {tol_k3}), two runs equal; kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+        if not torch.isfinite(got).all() or not torch.equal(got, again):
+            raise AssertionError(f"K13 {mode} across blocks: non-finite or two runs differ")
+        if err > tol or vs_k3 > tol_k3:
+            raise AssertionError(f"K13 {mode} across blocks: kernel disagrees")
+        entry["shapes"][f"{mode} across blocks"] = {"ms": ms, "plain_ms": plain_ms,
+                                                    "max_abs_err": err, "vs_k3_rel": vs_k3,
+                                                    **work}
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        del got, again, want
     torch.cuda.empty_cache()
 
 
@@ -2880,6 +3091,9 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     card = card_line()
     log(f"card: {card}")
     log(versions())
+    read_card_clock()
+    log(f"SMs {CARD['sms']}, max SM clock {CARD['sm_clock_hz'] / 1e6:.0f} MHz: "
+        f"{exp_rate():.3e} exponentials/s")
 
     from summer_clip_torch.ops import _lib
 

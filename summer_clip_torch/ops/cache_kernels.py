@@ -12,21 +12,27 @@ Counterpart of ``summer_clip_tpu/ops/cache_kernels.py``.
 Tip-Adapter's values and CLIP-search's Hard values are ``one_hot(labels)``, so
 their sweeps take the label-driven kernels, which never build the matrix:
 
-- :func:`cache_attention_onehot` -- K3, for class-grouped caches. CUDA source
-  ``csrc/cache_kernels.cu`` (``onehot_grouped``); replaces the TPU kernel
-  ``onehot_pallas`` (ops/cache_kernels.py:394).
-- :func:`cache_attention_labels` -- K2, any row order. CUDA source
-  ``csrc/cache_kernels.cu`` (``labels_dense``); replaces the TPU kernel
-  ``labels_dense_pallas`` (ops/cache_kernels.py:509).
+- :func:`cache_attention_onehot` -- K3, for class-grouped caches; replaces
+  the TPU kernel ``onehot_pallas`` (ops/cache_kernels.py:394).
+- :func:`cache_attention_labels` -- K2, any row order; replaces the TPU
+  kernel ``labels_dense_pallas`` (ops/cache_kernels.py:509).
 
 The sweep tool ``tools/torch_sweep_onehot_variants.py`` takes a fourth:
 
 - :func:`onehot_variant` -- K13, K3 with the class partial sums of each
   ``block_n``-row cache block formed apart and added to the output in one of
-  three precisions (``expand_mode``). CUDA source ``csrc/cache_kernels.cu``
-  (``onehot_grouped`` templated on the mode); replaces the TPU kernel
+  three precisions (``expand_mode``); replaces the TPU kernel
   ``onehot_variant`` (tools/sweep_onehot_variants.py:38). Its plain version is
   :func:`onehot_variant_reference`.
+
+K2, K3 and K13 are one class-grouped template in ``csrc/cache_kernels.cu``
+(``grouped_kernel``, templated on K13's mode): the cache rows sorted by class
+on the host (:func:`class_row_table`) and gathered once on the device into that
+order, 64 queries a block walking 128-row tiles of them, the affinity by wgmma,
+the exponentials and the class sums in registers. :func:`grouped_plan` builds
+its host tables (the row order, the class and segment boundaries, the work
+items and the workspace slots of the classes an item boundary cuts) and
+:func:`grouped_items` the number of work items.
 
 :func:`cache_attention_from_labels` routes between them by the same test as the
 JAX package (``:678-685``): K3 when every ``block_n``-row cache block spans at
@@ -54,11 +60,17 @@ __all__ = ["cache_attention_reference", "cache_attention_dense_reference",
            "cache_attention_labels_reference", "cache_attention",
            "cache_attention_onehot", "cache_attention_labels",
            "cache_attention_from_labels", "cache_attention_auto",
-           "onehot_block_classes", "onehot_k_max", "class_row_table", "onehot_variant",
+           "onehot_block_classes", "onehot_k_max", "class_row_table", "grouped_plan",
+           "grouped_items", "GroupedPlan", "onehot_variant",
            "onehot_variant_reference", "EXPAND_MODES", "k1_grid", "k1_feature_stages",
            "k1_shared_bytes"]
 
-K3_MAX_BETA = 16   # betas per K3 launch (f32 accumulators held in registers)
+K3_MAX_BETA = 16   # betas per K2 / K3 / K13 launch (4 threads a query, 4 betas each)
+GROUPED_QUERIES = 64   # queries of a K2 / K3 / K13 block (test rows pad to it)
+GROUPED_ROWS = 128     # sorted cache rows of a tile (the sorted rows pad to it)
+# a sorted row's meta word: its class, bit 31 where a class begins, bit 30 where a
+# segment begins (K13: a class or a block_n block); padding rows are class _NONE
+_CLS_START, _SEG_START, _NONE = 1 << 31, 1 << 30, (1 << 30) - 1
 K1_MAX_BETA = 8    # betas per K1 launch (their weight tiles share one affinity tile)
 K1_MAX_D = 1152    # widest feature row whose query boxes leave K1 a ring (k1_feature_stages)
 K1_ROWS = 16       # queries of a K1 block (test rows pad to it)
@@ -70,14 +82,17 @@ _K1_VBOXES = K1_CLASSES // 64
 _K1_FIXED = 1024 + 2 * 2 * 8192 + 8 * (12 + 2 + 4 + 1)   # alignment, w, barriers
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_GROUPED_ARGS = [_P] * 10 + [_I] * 8
 _SIGNATURES = {
     "cache_dense_bf16": _K1_ARGS,
     "cache_dense_i8": _K1_ARGS,
     "cache_dense_feature_stages": [_I, _I],
     "affinity_probe_bf16": [_P, _P, _P, _I, _I, _P],
-    "labels_dense_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "onehot_grouped_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "onehot_variant_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "labels_dense_bf16": _GROUPED_ARGS + [_P],
+    "onehot_grouped_bf16": _GROUPED_ARGS + [_P],
+    "onehot_variant_bf16": _GROUPED_ARGS + [_I, _P],
+    "grouped_stages": [_I],
+    "weight_rate_probe_bf16": [_P, _P, _I, _I, _P],
 }
 # K13's precisions of the class-sum scatter, in the kernel's numbering
 EXPAND_MODES = ("highest", "split3", "default")
@@ -222,6 +237,88 @@ def class_row_table(labels: np.ndarray, num_classes: int) -> tp.Tuple[np.ndarray
     return rows, offs.astype(np.int32)
 
 
+class GroupedPlan(tp.NamedTuple):
+    """Host tables of the class-grouped kernel (K2, K3, K13); see
+    :func:`grouped_plan`."""
+    order: np.ndarray      # (Np,) int64: cache row of each sorted position (padding: row 0)
+    meta: np.ndarray       # (Np,) int32: class | segment start << 30 | class start << 31
+    items: np.ndarray      # (n_items + 1,) int32: the tiles of each work item
+    slots: np.ndarray      # (n_items, 2) int32: workspace slot of the head / tail piece, or -1
+    fix_cls: np.ndarray    # (n_fix,) int32: classes the second pass writes (cut or empty)
+    fix_offs: np.ndarray   # (n_fix + 1,) int32: their slots, in item order
+    n_slots: int
+
+
+def grouped_items(n_tiles: int, n_qtiles: int, sms: int) -> int:
+    """Work items the sorted rows are cut into: the count at which the
+    blocks (``n_qtiles`` x items, one an SM at a time) finish soonest, a block
+    costing its tiles plus two (its query load and the ring's fill). One
+    where the query tiles alone fill the card; none without a tile."""
+    if n_tiles <= 1:
+        return n_tiles if n_tiles > 0 else 0
+    best, best_cost = 1, None
+    for n in range(1, min(n_tiles, -(-4 * sms // max(n_qtiles, 1))) + 1):
+        cost = -(-n_qtiles * n // sms) * (-(-n_tiles // n) + 2)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = n, cost
+    return best
+
+
+def grouped_plan(labels: np.ndarray, num_classes: int, *, n_items: int = 1,
+                 block_n: tp.Optional[int] = None) -> GroupedPlan:
+    """Host tables of the class-grouped kernel for ``labels`` (Nc,), -1 for
+    rows that add nothing.
+
+    The real rows in class order (:func:`class_row_table`, stable), padded to
+    whole tiles of ``GROUPED_ROWS``; per sorted row its class and whether a
+    class or a segment begins there (a segment is a class's run of rows;
+    with ``block_n``, K13's, a run within one ``block_n``-row block of the
+    original order); the tiles cut into ``n_items`` work items of equal tile
+    counts (at most one per tile); and for each class that an item boundary
+    cuts, one workspace slot per item it touches, numbered class by class in
+    item order: item i's head slot where it begins inside the class, its
+    tail slot where it ends inside it (the same slot when the class spans the
+    whole item). ``fix_cls`` lists those classes and the empty ones (no
+    slots), which the kernel's second pass writes."""
+    rows, offs = class_row_table(labels, num_classes)
+    n_real = rows.shape[0]
+    n_tiles = -(-n_real // GROUPED_ROWS)
+    n_p = n_tiles * GROUPED_ROWS
+    order = np.zeros(n_p, np.int64)
+    order[:n_real] = rows
+    cls = labels[rows].astype(np.int64)
+    cls_start = np.ones(n_real, bool)
+    cls_start[1:] = cls[1:] != cls[:-1]
+    seg_start = cls_start.copy()
+    if block_n is not None:
+        blk = rows // block_n
+        seg_start[1:] |= blk[1:] != blk[:-1]
+    meta = np.full(n_p, _NONE, np.int64)
+    meta[:n_real] = cls | seg_start.astype(np.int64) << 30 | cls_start.astype(np.int64) << 31
+    if n_p > n_real:
+        meta[n_real] |= _CLS_START | _SEG_START
+    n_items = min(max(n_items, 1), n_tiles)
+    items = (np.arange(n_items + 1) * n_tiles // max(n_items, 1)).astype(np.int32)
+    first_row = items[:-1].astype(np.int64) * GROUPED_ROWS
+    nonempty = offs[1:] > offs[:-1]
+    i0 = np.searchsorted(first_row, offs[:-1], side="right") - 1
+    i1 = np.searchsorted(first_row, offs[1:] - 1, side="right") - 1
+    slots = np.full((n_items, 2), -1, np.int32)
+    fix_cls, fix_offs, n_slots = [], [0], 0
+    for c in np.flatnonzero(~nonempty | (i1 > i0)):
+        if nonempty[c]:
+            for i in range(i0[c], i1[c] + 1):
+                if i > i0[c]:
+                    slots[i, 0] = n_slots
+                if i < i1[c]:
+                    slots[i, 1] = n_slots
+                n_slots += 1
+        fix_cls.append(c)
+        fix_offs.append(n_slots)
+    return GroupedPlan(order, meta.astype(np.uint32).view(np.int32), items, slots,
+                       np.asarray(fix_cls, np.int32), np.asarray(fix_offs, np.int32), n_slots)
+
+
 def _host_labels(cache_labels: tp.Any, nc: int, num_classes: int) -> np.ndarray:
     if isinstance(cache_labels, torch.Tensor):
         cache_labels = cache_labels.detach().cpu().numpy()
@@ -317,8 +414,8 @@ def cache_attention_onehot(test_features: torch.Tensor, cache_features: torch.Te
                            cache_labels: tp.Any, betas: tp.Any,
                            num_classes: int) -> torch.Tensor:
     """K3: ``cache_attention`` with ``values = one_hot(labels)`` for a
-    class-grouped cache; (B, Nt, C) f32. Correct for any row order; each block
-    walks only the rows of its classes."""
+    class-grouped cache; (B, Nt, C) f32. Correct for any row order (the host
+    sorts the rows by class)."""
     nc = cache_features.shape[0]
     labels = _host_labels(cache_labels, nc, num_classes)
     if test_features.device.type == "cpu":
@@ -334,53 +431,77 @@ cache_attention_onehot.launches = 0
 
 def _grouped_launches(wrapper, name: str, test_features: torch.Tensor,
                       cache_features: torch.Tensor, labels: np.ndarray, betas: tp.Any,
-                      num_classes: int, *extra: int) -> torch.Tensor:
-    """K3's and K13's launches on CUDA tensors: bf16 features, the host's
-    class-row table, up to ``K3_MAX_BETA`` betas a launch of ``<name>_bf16``
-    (``extra``: K13's block_n, mode and cast_w), counted on ``wrapper``."""
-    nt = test_features.shape[0]
+                      num_classes: int, *extra: int,
+                      block_n: tp.Optional[int] = None) -> torch.Tensor:
+    """K2's, K3's and K13's launches on CUDA tensors: bf16 features, the
+    cache rows gathered into class order, the host tables of
+    :func:`grouped_plan`, up to ``K3_MAX_BETA`` betas a launch of
+    ``<name>_bf16`` (``extra``: K13's mode), counted on ``wrapper``."""
+    nt, d = test_features.shape
     dev = test_features.device
     bet = _betas(betas, dev)
-    f, cf, nt_p, _, d_p = _cuda_features(test_features, cache_features, 64)
-    rows, offs = class_row_table(labels, num_classes)
-    rows_t = torch.from_numpy(rows).to(dev)
-    offs_t = torch.from_numpy(offs).to(dev)
+    f, cf, nt_p, _, d_p = _cuda_features(test_features, cache_features, GROUPED_QUERIES)
+    lib = _lib_cache()
+    if lib.grouped_stages(d_p) == 0:
+        raise ValueError(f"K2 / K3 / K13 take D up to what shared memory holds, got {d}")
+    plan, order, tables = _grouped_tables(labels, num_classes, nt_p, block_n, dev)
+    n_items = plan.items.shape[0] - 1
+    cs = cf.index_select(0, order) if n_items else cf      # the rows in class order
     out = torch.empty(bet.shape[0], nt, num_classes, dtype=torch.float32, device=dev)
-    entry = getattr(_lib_cache(), f"{name}_bf16")
+    ws = torch.empty(max(plan.n_slots, 1) * K3_MAX_BETA * nt_p * 4, dtype=torch.float32,
+                     device=dev)
+    entry = getattr(lib, f"{name}_bf16")
     stream = _lib.torch_stream()
     for s in range(0, bet.shape[0], K3_MAX_BETA):
         chunk = bet[s:s + K3_MAX_BETA].contiguous()
         view = out[s:s + K3_MAX_BETA]
-        _lib.check(entry(f.data_ptr(), cf.data_ptr(), rows_t.data_ptr(), offs_t.data_ptr(),
-                         chunk.data_ptr(), view.data_ptr(), chunk.shape[0], nt, nt_p, d_p,
-                         num_classes, *extra, stream), name)
+        _lib.check(entry(f.data_ptr(), cs.data_ptr(), *(t.data_ptr() for t in tables),
+                         chunk.data_ptr(), view.data_ptr(), ws.data_ptr(), chunk.shape[0], nt,
+                         nt_p, order.shape[0], d_p, num_classes, n_items,
+                         plan.fix_cls.shape[0], *extra, stream), name)
         wrapper.launches += 1
     return out
+
+
+_PLAN_CACHE: list = []   # the last call's (key, labels, tables): a sweep repeats its labels
+
+
+def _grouped_tables(labels: np.ndarray, num_classes: int, nt_p: int,
+                    block_n: tp.Optional[int], dev: torch.device):
+    """The plan for these labels on ``dev`` and its tables there: the row
+    order (int64) and meta, items, slots, fix_cls, fix_offs (int32, one copy)."""
+    n_tiles = -(-int((labels >= 0).sum()) // GROUPED_ROWS)
+    n_items = grouped_items(n_tiles, nt_p // GROUPED_QUERIES, _sm_count(dev))
+    key = (num_classes, n_items, block_n, str(dev))
+    if _PLAN_CACHE and _PLAN_CACHE[0][0] == key and np.array_equal(_PLAN_CACHE[0][1], labels):
+        return _PLAN_CACHE[0][2]
+    plan = grouped_plan(labels, num_classes, n_items=n_items, block_n=block_n)
+    parts = (plan.meta, plan.items, plan.slots.reshape(-1), plan.fix_cls, plan.fix_offs)
+    ints = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(dev)
+    tables = torch.split(ints, [p.shape[0] for p in parts])
+    out = (plan, torch.from_numpy(plan.order).to(dev), tables)
+    _PLAN_CACHE[:] = [(key, labels.copy(), out)]
+    return out
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def cache_attention_labels(test_features: torch.Tensor, cache_features: torch.Tensor,
                            cache_labels: tp.Any, betas: tp.Any,
                            num_classes: int) -> torch.Tensor:
-    """K2: ``cache_attention`` with ``values = one_hot(labels)`` rebuilt in
-    the kernel, for any row order; (B, Nt, C) f32."""
+    """K2: ``cache_attention`` with ``values = one_hot(labels)`` for any row
+    order; (B, Nt, C) f32. On the card it is the class-grouped kernel of K3
+    (the host sorts the rows by class), under its own entry point and count."""
     nc = cache_features.shape[0]
     labels = _host_labels(cache_labels, nc, num_classes)
     if test_features.device.type == "cpu":
         return cache_attention_labels_reference(
             test_features, cache_features, torch.from_numpy(labels), _betas(betas, "cpu"),
             num_classes)
-    nt = test_features.shape[0]
-    dev = test_features.device
-    bet = _betas(betas, dev).contiguous()
-    f, cf, nt_p, nc_p, d_p = _cuda_features(test_features, cache_features, 16, 128)
-    lab = torch.full((nc_p,), -1, dtype=torch.int32, device=dev)
-    lab[:nc] = torch.from_numpy(labels).to(dev)
-    out = torch.empty(bet.shape[0], nt, num_classes, dtype=torch.float32, device=dev)
-    _lib.check(_lib_cache().labels_dense_bf16(
-        f.data_ptr(), cf.data_ptr(), lab.data_ptr(), bet.data_ptr(), out.data_ptr(),
-        bet.shape[0], nt, nt_p, nc_p, d_p, num_classes, _lib.torch_stream()), "labels_dense")
-    cache_attention_labels.launches += 1
-    return out
+    return _grouped_launches(cache_attention_labels, "labels_dense", test_features,
+                             cache_features, labels, betas, num_classes)
 
 
 cache_attention_labels.launches = 0
@@ -488,8 +609,8 @@ def onehot_variant(test_features: torch.Tensor, cache_features: torch.Tensor,
                                         num_classes, block_n=block_n, expand_mode=expand_mode,
                                         cast_w=cast_w)
     return _grouped_launches(onehot_variant, "onehot_variant", test_features, cache_features,
-                             labels, betas, num_classes, block_n,
-                             EXPAND_MODES.index(expand_mode), int(bool(cast_w)))
+                             labels, betas, num_classes, EXPAND_MODES.index(expand_mode),
+                             block_n=block_n)
 
 
 onehot_variant.launches = 0

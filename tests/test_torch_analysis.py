@@ -9,9 +9,18 @@ a triangular solve). A PCA component may come out negated: the test aligns
 signs before comparing.
 
 Then ``class_projector``, ``maha_distance`` and ``train_em`` of both packages
-run once each over one feature store (the port's ``save_features`` on
-``synthetic`` with a ``test-vit`` checkpoint both load) and their accuracy
-records agree.
+run once each over one feature store and their accuracy records agree. The
+store's image features come from a seeded numpy generator (the synthetic
+images are drawn from ``hash(impath)``, which changes with the process's hash
+seed), so both apps read the same data in every process; the text features come
+from a ``test-vit`` checkpoint that both packages load. ``maha_distance``'s
+logits are held to each other too: the f32 inverse of the 32 x 32 scatter
+matrix (36 rows, condition number 2e4 to 4e4) magnifies the last-bit
+differences of its inputs (the two text towers' features differ by ~2e-7) and
+of the two libraries' inverses to at most 2e-4 of max |logit| over 64 hash
+seeds of a store written by ``save_features`` (1e-5 on this one); the test
+allows 1e-3. On such a store a top-1 margin came down to 2e-3 (2e-5 of max
+|logit|), so one test row's argmax could flip between the packages.
 """
 
 import json
@@ -90,23 +99,26 @@ def test_fixed_means_gmm_steps_match_jax(cov):
 
 @pytest.fixture(scope="module")
 def store(tmp_path_factory):
-    from summer_clip_torch.apps import save_features
     from summer_clip_torch.models.clip import build_clip, to_openai_state_dict
+    from summer_clip_torch.store import FeatureStore
 
     tmp = tmp_path_factory.mktemp("analysis")
     model, _ = build_clip("test-vit", torch.Generator().manual_seed(5))
     ckpt = tmp / "test_vit.pt"
     torch.save(to_openai_state_dict(model), ckpt)
-    cwd = os.getcwd()
-    os.chdir(tmp)
-    try:
-        save_features.run(argv=[
-            "meta.device=cpu", "dataset_name=synthetic", "dataset@train_dataset=synthetic_train",
-            "dataset@test_dataset=synthetic_test", "clip=test_vit", f"clip.checkpoint_path={ckpt}",
-            "data.batch_size=8", f"store.root={tmp / 'features'}"])
-    finally:
-        os.chdir(cwd)
+    width = int(model.text_projection.shape[1])
+    # the synthetic dataset: 4 classes, 8 train and 4 test images a class, in class order
+    rng = np.random.default_rng(0)
+    features = FeatureStore(tmp / "features")
+    for split, per_class in (("train", 8), ("test", 4)):
+        labels = np.repeat(np.arange(4, dtype=np.int32), per_class)
+        features.save(f"synthetic_{split}-test-vit", labels=labels,
+                      features=rng.standard_normal((labels.shape[0], width)).astype(np.float32))
     return tmp / "features", ckpt
+
+
+# |maha logits (port) - maha logits (JAX)| / max |logit|: see the module docstring
+TOL_MAHA_LOGITS_REL = 1e-3
 
 
 @pytest.mark.parametrize("app,kind,extra", [
@@ -121,13 +133,25 @@ def test_analysis_app_matches_jax(store, tmp_path, monkeypatch, app, kind, extra
     argv = ["dataset_name=synthetic", "dataset=synthetic_test", "dataset.load_images=false",
             "clip=test_vit", f"clip.checkpoint_path={ckpt}", f"store.root={root}",
             "data.features_key=synthetic_test-test-vit", *extra]
-    runs = {}
+    runs, logits = {}, {}
     for pkg in ("summer_clip_tpu", "summer_clip_torch"):
         runs[pkg] = tmp_path / pkg
         runs[pkg].mkdir()
         monkeypatch.chdir(runs[pkg])
         port = ["meta.device=cpu"] if pkg == "summer_clip_torch" else []
-        importlib.import_module(f"{pkg}.apps.{app}").run(argv=port + argv)
+        module = importlib.import_module(f"{pkg}.apps.{app}")
+        if app == "maha_distance":   # keep the logits the app classifies by
+            def kept(*a, _fn=module.maha_logits, _pkg=pkg, **k):
+                out = _fn(*a, **k)
+                logits[_pkg] = np.asarray(out)
+                return out
+            monkeypatch.setattr(module, "maha_logits", kept)
+        module.run(argv=port + argv)
+    if app == "maha_distance":
+        want = logits["summer_clip_tpu"]
+        assert logits["summer_clip_torch"].shape == want.shape == (16, 4)
+        np.testing.assert_allclose(logits["summer_clip_torch"], want, rtol=0,
+                                   atol=TOL_MAHA_LOGITS_REL * np.abs(want).max())
     pick = ((lambda r: "n_components" in r) if kind is None
             else (lambda r: r.get("type") == kind))
     got = [r for r in _records(runs["summer_clip_torch"]) if pick(r)]

@@ -122,18 +122,30 @@ def test_bad_labels_and_dense_k1_raise():
 
 
 @pytest.mark.cuda
-def test_cuda_k3_k2_match_plain():
+def test_cuda_k3_k2_match_plain(monkeypatch):
+    """On the card: K3 and K2 against the plain version (a weight may round to
+    the neighbouring bf16 value: 2e-2) and each other (the same weights, other
+    f32 orders: 1e-4), on class-grouped, shuffled and one-class (90%) labels,
+    with the sorted rows in 1, 3 and 7 work items (classes cut by an item
+    boundary); two runs equal bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     rng = np.random.default_rng(9)
     f = torch.from_numpy(_unit(rng, 200, 512)).cuda()
-    labels = np.repeat(np.arange(40, dtype=np.int32), 5)
-    keys = torch.from_numpy(_unit(rng, labels.shape[0], 512)).cuda()
     betas = torch.linspace(0.1, 6.9, 20).cuda()
-    want = ck.cache_attention_labels_reference(f, keys, torch.from_numpy(labels), betas, 40,
-                                               compute_dtype=torch.bfloat16)
-    k3 = ck.cache_attention_onehot(f, keys, labels, betas, 40)
-    k2 = ck.cache_attention_labels(f, keys, labels, betas, 40)
-    torch.cuda.synchronize()
-    assert (k3 - want).abs().max() <= 2e-2 and (k2 - want).abs().max() <= 2e-2
-    assert (k3 - k2).abs().max() <= 1e-4
+    cases = {"grouped": np.repeat(np.arange(40, dtype=np.int32), 5),
+             "one_class_90": np.sort(rng.choice([3, 17, 31], 900, p=[0.9, 0.07, 0.03])
+                                     ).astype(np.int32)}
+    cases["shuffled"] = cases["grouped"][rng.permutation(200)]
+    for name, labels in cases.items():
+        keys = torch.from_numpy(_unit(rng, labels.shape[0], 512)).cuda()
+        want = ck.cache_attention_labels_reference(f, keys, torch.from_numpy(labels), betas, 40,
+                                                   compute_dtype=torch.bfloat16)
+        for items in (1, 3, 7):
+            monkeypatch.setattr(ck, "grouped_items", lambda *a, _n=items, **k: _n)
+            k3, k3_again = (ck.cache_attention_onehot(f, keys, labels, betas, 40) for _ in "ab")
+            k2 = ck.cache_attention_labels(f, keys, labels, betas, 40)
+            torch.cuda.synchronize()
+            assert (k3 - want).abs().max() <= 2e-2 and (k2 - want).abs().max() <= 2e-2, name
+            assert (k3 - k2).abs().max() <= 1e-4, name
+            assert torch.equal(k3, k3_again), name

@@ -190,32 +190,42 @@ def test_sweep_tool_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.cuda
-def test_cuda_k13_matches_plain():
+def test_cuda_k13_matches_plain(monkeypatch):
     """On the card: each arm against its plain version (a weight may round to
     the neighbouring bf16 value where the two f32 affinities differ in their
     last bit: K3's 2e-2; "default" may round a partial one bf16 step, 2^-7 of
     its binade, further), "highest" and "split3" against K3 (the same weights,
-    partials summed apart: 1e-5 of max |out|) and bit for bit against each other."""
+    partials summed apart: 1e-5 of max |out|) and bit for bit against each
+    other; classes across block_n blocks and across work items (1, 3 and 7
+    items), and a cache collapsed onto one class; two runs equal bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     rng = np.random.default_rng(9)
-    a = rng.standard_normal((200 + 300, 512)).astype(np.float32)
+    a = rng.standard_normal((200 + 900, 512)).astype(np.float32)
     a /= np.linalg.norm(a, axis=1, keepdims=True)
     f, keys = torch.from_numpy(a[:200]).cuda(), torch.from_numpy(a[200:]).cuda()
-    labels = np.sort(rng.integers(0, 40, 300)).astype(np.int32)   # classes cross blocks
     betas = torch.linspace(0.1, 6.9, 20).cuda()
-    k3 = ck.cache_attention_onehot(f, keys, labels, betas, 40)
-    out = {}
-    for mode in ck.EXPAND_MODES:
-        got = ck.onehot_variant(f, keys, labels, betas, 40, block_n=128, expand_mode=mode)
-        want = ck.onehot_variant_reference(f, keys, labels, betas, 40, block_n=128,
-                                           expand_mode=mode)
-        torch.cuda.synchronize()
-        scale = float(want.abs().max())
-        step = 2.0 ** -7 * scale if mode == "default" else 0.0
-        assert float((got - want).abs().max()) <= 2e-2 + step, mode
-        out[mode] = got
-    assert torch.equal(out["highest"], out["split3"])
-    assert float((out["highest"] - k3).abs().max()) <= 1e-5 * scale
-    rel = ((out["default"] - out["highest"]).abs() / out["highest"].abs().clamp_min(1e-30)).max()
-    assert float(rel) <= DEFAULT_REL
+    cases = {"classes cross blocks": np.sort(rng.integers(0, 40, 900)).astype(np.int32),
+             "one_class_90": np.sort(rng.choice([3, 17, 31], 900, p=[0.9, 0.07, 0.03])
+                                     ).astype(np.int32)}
+    for name, labels in cases.items():
+        for items in (1, 3, 7):
+            monkeypatch.setattr(ck, "grouped_items", lambda *a, _n=items, **k: _n)
+            k3 = ck.cache_attention_onehot(f, keys, labels, betas, 40)
+            out = {}
+            for mode in ck.EXPAND_MODES:
+                got, again = (ck.onehot_variant(f, keys, labels, betas, 40, block_n=128,
+                                                expand_mode=mode) for _ in "ab")
+                want = ck.onehot_variant_reference(f, keys, labels, betas, 40, block_n=128,
+                                                   expand_mode=mode)
+                torch.cuda.synchronize()
+                scale = float(want.abs().max())
+                step = 2.0 ** -7 * scale if mode == "default" else 0.0
+                assert float((got - want).abs().max()) <= 2e-2 + step, (name, items, mode)
+                assert torch.equal(got, again), (name, items, mode)
+                out[mode] = got
+            assert torch.equal(out["highest"], out["split3"])
+            assert float((out["highest"] - k3).abs().max()) <= 1e-5 * scale
+            rel = ((out["default"] - out["highest"]).abs()
+                   / out["highest"].abs().clamp_min(1e-30)).max()
+            assert float(rel) <= DEFAULT_REL
