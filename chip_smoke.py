@@ -10,9 +10,10 @@ towers), ``block`` (K5, K6, K9 and the towers) or ``cache`` (K3, K2, K1 with
 the affinity probe, K13). With ``--baseline`` an earlier copy of that source
 (``attention_kernels.cu``, ``block_kernels.cu`` or ``cache_kernels.cu``, e.g.
 from ``git show <commit>:summer_clip_torch/csrc/...``) is built beside this
-tree's, and the attention checks, K9 and K1 (at CLIP-search's shape) also time
-it in turns with the kernel (baseline, kernel, kernel, baseline) on the same
-inputs.
+tree's, and the attention checks, K5, K6, K9 and K1 (at CLIP-search's shape)
+also time it in turns with the kernel (baseline, kernel, kernel, baseline) on
+the same inputs; a ``block_kernels.cu`` from before the GEMM chain is called on
+its own K5 and K6 entries (``PER_HEAD_BLOCK_SIGNATURES``).
 
 1. Refuses to run without CUDA. Prints the card (``nvidia-smi`` name and power
    limit) and the torch, CUDA, nvcc and Triton versions.
@@ -23,10 +24,15 @@ inputs.
    CUDA events (TF32 off for the plain f32 products):
    - K5 fused_ln_attn and K6 fused_ln_mlp at the ViT-B/16 image tower
      (B=32, T=197, D=768, 12 heads), its text tower (B=256, T=77, D=512,
-     8 heads, causal) and the ViT-L/14 text tower (B=256, T=77, D=768, 12
-     heads, causal); K9 fused_ln_mlp_chunked at the ViT-L/14 image tower
-     (B=32, T=257, D=1024, H=4096), also two runs bit for bit and a sequence
-     alone against the same sequence among others;
+     8 heads, causal), the ViT-L/14 text tower (B=256, T=77, D=768, 12
+     heads, causal) and a CoOp forward through it (B=1000), each with its
+     chain's steps timed one by one; K9 fused_ln_mlp_chunked at the ViT-L/14
+     image tower (B=32, T=257, D=1024, H=4096); for all three two runs bit for
+     bit and a sequence alone against the same sequence among others; cuBLAS
+     on K6's c_fc product at the ViT-B/16 image shape beside the port's GEMM
+     (a yardstick used nowhere in the port), and there the QuickGELU epilogue
+     against quick_gelu on the same h (every output within |h| 2^-7, one bf16
+     ulp of the sigmoid and the product's rounding);
    - K4 short_attention_packed at the ViT-L/14 image tower (B=32, T=257,
      D=1024, 16 heads), at ViT-L/14@336 (T=577) and at its limit T=640 (B=32,
      16 heads), at text shapes (B=256, T=77, D=512, 8 heads, causal) and, for
@@ -73,7 +79,8 @@ inputs.
      with q_offset = 896 and non-causal at T = 577, each in bf16 and in f32,
      beside ``F.scaled_dot_product_attention``, with a planted fault at the
      causal shapes (the kernel with its causal mask shifted by one key);
-   - the ViT-B/16 image (B=32) and text (B=256) towers and the ViT-L/14 image
+   - the ViT-B/16 image (B=32) and text (B=256) towers, the ViT-L/14 text
+     tower at a CoOp forward (B=1000) and the ViT-L/14 image
      tower (24 blocks, B=32) through the kernels against the same blocks
      through the plain versions, the ViT-L/14 image tower also in
      ``FUSED_BLOCK_MODE="mlp"`` (K4 + K9); RN50's image tower (cuDNN, no
@@ -81,7 +88,8 @@ inputs.
    Each kernel's bound is worked out from these shapes: the larger of its
    bytes (inputs read once, outputs written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
-   cores, 67 TFLOP/s f32).
+   cores, 67 TFLOP/s f32); a causal attention counts the (t + 1) / 2 keys a
+   row reaches on average.
 4. Drives the main paths through the apps' entry points with random
    weights (seed 0), each with every launch count set to 0 just before it and
    read just after:
@@ -343,32 +351,38 @@ def block_params(d: int, gen):
         proj_w=_randn((d, 4 * d), gen, (4 * d) ** -0.5), proj_b=_randn((d,), gen, 0.02))
 
 
+BLOCK_SHAPES = {   # (B, T, D, heads, causal) of the towers' residual blocks
+    "vit_b16_image": (32, 197, 768, 12, False),
+    "vit_b16_text": (256, 77, 512, 8, True),
+    "vit_l14_text": (256, 77, 768, 12, True),
+    "coop_l14_text": (1000, 77, 768, 12, True),   # train_coop: 1000 class prompts a forward
+    "vit_l14_image": (32, 257, 1024, 16, False)}
+
+
 def check_block_kernels(results: dict) -> None:
     import torch
 
     from summer_clip_torch.ops import block_kernels as bk
 
     gen = torch.Generator().manual_seed(0)
-    for tower, (b, t, d, heads, causal) in {
-            "vit_b16_image": (32, 197, 768, 12, False),
-            "vit_b16_text": (256, 77, 512, 8, True),
-            "vit_l14_text": (256, 77, 768, 12, True),
-            "vit_l14_image": (32, 257, 1024, 16, False)}.items():
+    for tower, (b, t, d, heads, causal) in BLOCK_SHAPES.items():
         p = block_params(d, gen)
         x = _randn((b, t, d), gen)
         attn_args = (x, p["ln_w"], p["ln_b"], p["in_w"], p["in_b"], p["out_w"], p["out_b"])
         mlp_args = (x, p["ln_w"], p["ln_b"], p["fc_w"], p["fc_b"], p["proj_w"], p["proj_b"])
         cases = {
             "K5 fused_ln_attn": (
-                lambda: bk.fused_ln_attn(*attn_args, num_heads=heads, causal=causal),
-                lambda: bk.ln_attn_reference(*attn_args, num_heads=heads, causal=causal)),
-            "K6 fused_ln_mlp": (lambda: bk.fused_ln_mlp(*mlp_args),
-                                lambda: bk.ln_mlp_reference(*mlp_args)),
+                lambda a=attn_args: bk.fused_ln_attn(*a, num_heads=heads, causal=causal),
+                lambda: bk.ln_attn_reference(*attn_args, num_heads=heads, causal=causal),
+                attn_args),
+            "K6 fused_ln_mlp": (lambda a=mlp_args: bk.fused_ln_mlp(*a),
+                                lambda: bk.ln_mlp_reference(*mlp_args), mlp_args),
         }
         if tower == "vit_l14_image":
-            cases = {"K9 fused_ln_mlp_chunked": (lambda: bk.fused_ln_mlp_chunked(*mlp_args),
-                                                 lambda: bk.ln_mlp_reference(*mlp_args))}
-        for name, (kern, plain) in cases.items():
+            cases = {"K9 fused_ln_mlp_chunked": (lambda a=mlp_args: bk.fused_ln_mlp_chunked(*a),
+                                                 lambda: bk.ln_mlp_reference(*mlp_args),
+                                                 mlp_args)}
+        for name, (kern, plain, args) in cases.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
@@ -376,26 +390,32 @@ def check_block_kernels(results: dict) -> None:
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{name} {tower}: non-finite output")
             ms, plain_ms = cuda_time_ms(kern, 20), cuda_time_ms(plain, 20)
-            prev = baseline_ms(kern, 20, "block_kernels") if name.startswith("K9") else None
+            prev = (baseline_ms(kern, 20, "block_kernels") if name.startswith("K9")
+                    else baseline_block_ms(kern, name, args, heads, causal, 20))
             log(f"{name:18s} {tower:14s} B={b} T={t} D={d} heads={heads} causal={causal}: "
                 f"max|d|={err:.3e} (tol {TOL_BLOCK_MAX}) mean|d|={mean_err:.3e} "
                 f"(tol {TOL_BLOCK_MEAN}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-                + (f"; in turns: baseline {prev[0]:.4f} ms, kernel {prev[1]:.4f} ms" if prev
-                   else ""))
+                + in_turns(prev))
             if err > TOL_BLOCK_MAX or mean_err > TOL_BLOCK_MEAN:
                 raise AssertionError(f"{name} {tower}: kernel disagrees with its plain version")
-            if name.startswith("K9"):
-                # sums in one fixed order: the same bits twice, a sequence alone as among others
-                again = kern()
-                alone = bk.fused_ln_mlp_chunked(x[7:8].contiguous(), *mlp_args[1:])
-                torch.cuda.synchronize()
-                log(f"K9 two runs bit for bit: {torch.equal(got, again)}; sequence 7 alone == "
-                    f"among 32: {torch.equal(alone[0], got[7])}")
-                if not (torch.equal(got, again) and torch.equal(alone[0], got[7])):
-                    raise AssertionError("K9 is not deterministic or a row depends on others")
+            # sums in one fixed order: the same bits twice, a sequence alone as among others
+            again = kern()
+            alone = kern((x[7:8].contiguous(), *args[1:]))
+            torch.cuda.synchronize()
+            log(f"{name.split()[0]} {tower}: two runs bit for bit: {torch.equal(got, again)}; "
+                f"sequence 7 alone == among {b}: {torch.equal(alone[0], got[7])}")
+            if not (torch.equal(got, again) and torch.equal(alone[0], got[7])):
+                raise AssertionError(f"{name} {tower}: not deterministic, or a row depends on "
+                                     f"others")
+            if not name.startswith("K9"):
+                log(f"{name.split()[0]} {tower} chain: " + ", ".join(
+                    f"{step} {step_ms:.4f} ms" for step, step_ms in
+                    block_chain_ms(name, args, heads, causal).items()))
             m = b * t
             weights = 4 * d * d if name.startswith("K5") else 8 * d * d
-            flops = (2 * m * d * 4 * d + 4 * b * heads * t * t * (d // heads)
+            # a causal row's scores and products reach only (t + 1) / 2 keys on average
+            pairs = t * (t + 1) // 2 if causal else t * t
+            flops = (2 * m * d * 4 * d + 4 * b * heads * pairs * (d // heads)
                      if name.startswith("K5") else 2 * 2 * m * d * 4 * d)
             r = results.setdefault(name, {"max_abs_err": 0.0, "shapes": {}, "library_ms": None})
             r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -403,7 +423,61 @@ def check_block_kernels(results: dict) -> None:
                                   **({"baseline_ms": prev[0], "in_turns_ms": prev[1]}
                                      if prev else {}),
                                   **bound(2 * (2 * m * d + weights), flops)}
+        if tower == "vit_b16_image":
+            results["c_fc yardstick"] = gemm_yardstick(x.view(b * t, d), p["fc_w"], p["fc_b"])
     torch.cuda.synchronize()
+
+
+def block_chain_ms(name: str, args, heads: int, causal: bool) -> dict:
+    """The launches of K5's or K6's chain (the wrapper's own list) timed one
+    by one on the call's inputs, after one run of the chain has written every
+    intermediate."""
+    from summer_clip_torch.ops import block_kernels as bk
+
+    if name.startswith("K5"):
+        chain = bk._attn_chain(*args, num_heads=heads, causal=causal, eps=1e-5)
+    else:
+        chain = bk._mlp_chain(*args, eps=1e-5)
+    bk._run(chain)
+    return {step: cuda_time_ms(launch, 20) for step, launch in chain[0]}
+
+
+def gemm_yardstick(y, fc_w, fc_b) -> dict:
+    """cuBLAS (``torch.matmul``) on K6's c_fc product at the ViT-B/16 image
+    shape, beside the port's own GEMM on the same product: a yardstick for the
+    GEMM design, used nowhere in the port. The L2 intake each implies is
+    counted at 128 x 256 tiles (what a tile of that size takes in a call)."""
+    import torch
+
+    from summer_clip_torch.ops import _lib
+    from summer_clip_torch.ops import block_kernels as bk
+
+    m, k = y.shape
+    n = fc_w.shape[0]
+    lib, stream = bk._lib_block(), _lib.torch_stream()
+    mm_ms = cuda_time_ms(lambda: torch.matmul(y, fc_w.t()), 20)
+    ours_ms = cuda_time_ms(lambda: bk._gemm(lib, y, fc_w, fc_b, "bias", stream), 20)
+    flops = 2 * m * n * k
+    intake = -(-m // 128) * -(-n // 256) * (128 + 256) * k * 2
+    # the QuickGELU epilogue against the plain quick_gelu (torch.sigmoid) on
+    # the bias epilogue's h: its sigmoid (the special-function unit's) may
+    # round to the bf16 next to torch.sigmoid's, so an output may move by one
+    # bf16 ulp of the sigmoid times |h|, with the product's rounding |h| 2^-7
+    h = bk._gemm(lib, y, fc_w, fc_b, "bias", stream)
+    got, want = bk._gemm(lib, y, fc_w, fc_b, "gelu", stream), bk.quick_gelu(h)
+    gelu_differ = int((got != want).sum())
+    past = int(((got.float() - want.float()).abs() > h.float().abs() * 2.0 ** -7).sum())
+    out = {"cublas_ms": mm_ms, "gemm_ms": ours_ms, "flops": flops, "intake_bytes_128x256": intake,
+           "gemm_tile": bk.gemm_tile(m, n, k), "gelu_outputs_differing": gelu_differ}
+    log(f"c_fc QuickGELU epilogue against quick_gelu on its bias epilogue's h: {gelu_differ} of "
+        f"{m * n} outputs differ, {past} by more than |h| 2^-7 (gate 0)")
+    if past:
+        raise AssertionError("K6's QuickGELU epilogue is past one sigmoid ulp of quick_gelu")
+    log(f"c_fc yardstick ({m} x {k}) . ({k} x {n}) bf16: cuBLAS {mm_ms:.4f} ms "
+        f"({flops / mm_ms / 1e9:.1f} TFLOP/s, {intake / mm_ms / 1e9:.2f} TB/s of L2 intake at "
+        f"128 x 256 tiles); block_gemm + bias (tile {out['gemm_tile']}) {ours_ms:.4f} ms "
+        f"({flops / ours_ms / 1e9:.1f} TFLOP/s)")
+    return out
 
 
 def label_bound(nt: int, n_real: int, d: int, c: int, nb: int) -> dict:
@@ -598,6 +672,8 @@ def load_baseline(src: str, source: str):
     signatures = dict(_ops_module(source)._SIGNATURES)
     if source == "cache_kernels" and not hasattr(lib, "grouped_stages"):
         signatures.update(PER_GROUP_LABEL_SIGNATURES)   # the label kernels before the template
+    if source == "block_kernels" and not hasattr(lib, "block_gemm_bf16"):
+        signatures.update(PER_HEAD_BLOCK_SIGNATURES)    # K5 and K6 before the GEMM chain
     for fn, argtypes in signatures.items():
         if hasattr(lib, fn):
             f = getattr(lib, fn)
@@ -608,7 +684,7 @@ def load_baseline(src: str, source: str):
 # The label kernels' entry points before the class-grouped template (K2 a
 # dense WMMA product, K3 and K13 a block per 16-class group): the sorted rows
 # and class offsets, or the labels, instead of the template's host tables.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PER_GROUP_LABEL_SIGNATURES = {
     "labels_dense_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "onehot_grouped_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -651,6 +727,40 @@ def per_group_label_call(lib, name: str, f, keys, labels, betas, c: int,
     return out
 
 
+# K5's and K6's entry points before the GEMM chain: K5 a WMMA block per
+# (sequence, head) making q/k/v, scores and o, then linear_residual (out_proj);
+# K6 a WMMA block per 32- or 48-row tile over all D columns
+PER_HEAD_BLOCK_SIGNATURES = {
+    "ln_attn_heads_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "linear_residual_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ln_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+}
+
+
+def per_head_block_call(lib, name: str, args, heads: int, causal: bool):
+    """One K5 or K6 call of the design before the GEMM chain, on its own entries."""
+    import torch
+
+    from summer_clip_torch.ops import _lib
+
+    x, ln_w, ln_b, w1, b1, w2, b2 = args
+    b, t, d = x.shape
+    stream, out = _lib.torch_stream(), torch.empty_like(x)
+    if name.startswith("K5"):
+        o = torch.empty_like(x)
+        _lib.check(lib.ln_attn_heads_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                                          w1.data_ptr(), b1.data_ptr(), o.data_ptr(), b, t, d,
+                                          heads, int(causal), 1e-5, stream), "ln_attn_heads")
+        _lib.check(lib.linear_residual_bf16(o.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                                            x.data_ptr(), out.data_ptr(), b * t, d, d, stream),
+                   "linear_residual")
+    else:
+        _lib.check(lib.ln_mlp_bf16(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+                                   b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                                   b * t, d, w1.shape[0], 1e-5, stream), "ln_mlp")
+    return out
+
+
 BASELINE: dict = {}    # "source" and "lib": the --baseline build, when given
 
 
@@ -690,6 +800,27 @@ def baseline_label_ms(fn, name: str, f, keys, labels, betas, c: int, iters: int 
     old = lambda: per_group_label_call(base, name, f, keys, labels, betas, c,   # noqa: E731
                                        block_n, mode)
     old()
+    b1, k1, k2, b2 = (cuda_time_ms(g, iters) for g in (old, fn, fn, old))
+    return (b1 + b2) / 2, (k1 + k2) / 2
+
+
+def baseline_block_ms(fn, name: str, args, heads: int, causal: bool,
+                      iters: int) -> tp.Optional[tuple]:
+    """K5 or K6 (``fn``) timed on the block baseline and on this tree's build
+    in turns; a baseline of the design before the GEMM chain is called on its
+    own entries with the same inputs (and its output held against the tree's
+    kernel). None without a block baseline."""
+    if BASELINE.get("source") != "block_kernels":
+        return None
+    base = BASELINE["lib"]
+    if hasattr(base, "block_gemm_bf16"):
+        return baseline_ms(fn, iters, "block_kernels")
+    import torch
+
+    old = lambda: per_head_block_call(base, name, args, heads, causal)   # noqa: E731
+    err = float((old().float() - fn().float()).abs().max())
+    torch.cuda.synchronize()
+    log(f"{name.split()[0]} baseline against this tree's kernel: max|d|={err:.3e}")
     b1, k1, k2, b2 = (cuda_time_ms(g, iters) for g in (old, fn, fn, old))
     return (b1 + b2) / 2, (k1 + k2) / 2
 
@@ -1493,7 +1624,8 @@ def _plain_blocks(transformer, x, causal: bool = False):
 def time_towers(results: dict) -> None:
     """Towers at the main paths' batches: every block through the kernels
     against the same blocks through the plain versions. ViT-B/16 image and
-    text (K5 + K6); the ViT-L/14 image tower's 24 blocks (K4 + cuBLAS)."""
+    text and the ViT-L/14 text tower at a CoOp forward's 1000 prompts (K5 +
+    K6); the ViT-L/14 image tower's 24 blocks (K4 + cuBLAS)."""
     import torch
 
     from summer_clip_torch.models.clip import modeling
@@ -1523,6 +1655,8 @@ def time_towers(results: dict) -> None:
                                     32, 197, False),
             "ViT-B/16 text B=256": ((b16.text_width, b16.text_layers, b16.text_heads),
                                     256, 77, True),
+            "ViT-L/14 text B=1000": ((l14.text_width, l14.text_layers, l14.text_heads),
+                                     1000, 77, True),   # a CoOp forward's 1000 class prompts
             "ViT-L/14 image B=32": ((l14.vision_width, l14.vision_layers, l14.vision_heads),
                                     32, 257, False)}.items():
         mod = tower(*cfg_t)
@@ -1539,7 +1673,7 @@ def time_towers(results: dict) -> None:
         if cos < 0.999:
             raise AssertionError(f"tower {name}: kernels disagree with the plain blocks")
         results[f"tower {name}"] = {"ms": ms, "plain_ms": plain_ms}
-        if name.startswith("ViT-L/14"):
+        if name.startswith("ViT-L/14 image"):
             # the "mlp" mode of the same blocks: K4 + K9, against "block" (K4 + cuBLAS MLP)
             modeling.FUSED_BLOCK_MODE = "mlp"
             try:

@@ -1,26 +1,62 @@
 // Fused transformer-block halves for the CLIP towers (bf16, sm_90a).
 //
 // Replaces the TPU kernels of summer_clip_tpu/ops/block_kernels.py:
-//   K5 fused_ln_attn  ->  ln_attn_heads (one block per (sequence, head))
-//                         + linear_residual (out_proj + bias + residual)
-//   K6 fused_ln_mlp   ->  ln_mlp (one block per 32- or 48-row tile, all D columns)
-//   K9 fused_ln_mlp_chunked -> ln_mlp_wide at D = 1024 (a cluster of two CTAs
-//                         per 64-row tile; see below)
+//   K5 fused_ln_attn (:255) -> ln_rows -> block_gemm (in_proj, + bias)
+//                        -> K4's attention device code (attention_kernels.cu)
+//                        -> block_gemm (out_proj, + bias, + residual)
+//   K6 fused_ln_mlp (:75)   -> ln_rows -> block_gemm (c_fc, + bias, QuickGELU)
+//                        -> block_gemm (c_proj, + bias, + residual)
+//   K9 fused_ln_mlp_chunked (:132) -> ln_mlp_wide at D = 1024 (a cluster of two
+//                        CTAs per 64-row tile; see below)
 //
-// What bounds them on Hopper. The TPU keeps all four attention weights
-// (4*D^2 bf16 = 4.7 MB at ViT-B) and both MLP weights resident in 16 MB of
-// VMEM. A Hopper block has at most 227 KB of shared memory, so weights stream
-// through shared memory in 64-wide K slices (L2-resident: every block reads
-// the same weights), and the activations that the TPU keeps on chip stay on
-// chip here too:
-//   - K5: LN(x), the head's q/k/v (T x 64 each) and the score rows live only
-//     in shared memory. The per-head output o (B, T, D) goes through device
-//     memory once to the out_proj launch. Next step: fuse out_proj into the
-//     head kernel (needs a cross-head reduction, e.g. a cluster/DSMEM sum).
-//   - K6: the (MR, 4D) hidden never leaves the SM: it is produced 64 columns
-//     at a time and consumed at once by c_proj, whose MR x D f32 accumulators
-//     stay in registers (so D is 512 or 768). Next step: wgmma + TMA with a
-//     larger row tile.
+// K5 and K6 on this card. Their work is four or two mid-size products: at the
+// ViT-B/16 image shape (6304 rows, D = 768) 59.5 GFLOP for the MLP half (0.060
+// ms at 989 TFLOP/s) against 19 MB of x, out and weights (0.006 ms at 3.35
+// TB/s), so operations bound them. The TPU kernels keep the weights resident in
+// VMEM and the intermediates (LN(x), q/k/v, the per-head o, the MLP hidden) on
+// chip. A Hopper block has 227 KB of shared memory, so the earlier design (one
+// block per 32-48-row tile over all D columns, or per (sequence, head)) streamed
+// all weights from L2 into every short row tile (a weight byte served 32-48
+// rows: 1.3-3.9 GB of L2 intake a call) and recomputed each sequence's
+// LayerNorm once per head. Here the intermediates go through device memory
+// instead, in the bf16 the JAX kernels round them to before their next product,
+// so the function and its rounding points stay the same; their round trip costs
+// 77 MB at the image shape (0.023 ms), 242 MB at ViT-L/14 text (0.072 ms). In
+// exchange every product runs as one wgmma GEMM template with row tiles of 128:
+//   - ln_rows: LayerNorm a warp per row (f32 statistics, f32 scale and bias,
+//     rounded to bf16), once per row: the A operand of the first product.
+//   - block_gemm<BN, epilogue>: out = epilogue(A (M x K) . W^T), W the (N, K)
+//     Linear weight as it lies. A block owns 128 rows x BN columns (BN = 256,
+//     192 or 128, picked by ops/block_kernels.gemm_tile against the card's wave
+//     count); two consumer warpgroups own 64 rows each with a 64 x BN f32
+//     accumulator in registers (wgmma.m64nBNk16, both operands K-major in
+//     shared memory). One producer warp brings A and W tiles 64 deep by TMA
+//     (128-byte swizzle, K as it lies: nothing transposed) into a ring of 4-7
+//     stages guarded by full and empty mbarriers. The epilogue works on bf16x2
+//     pairs and writes the tile into the drained ring, and a TMA store takes
+//     it out in whole lines. A weight byte now serves 128 rows and a 128 x 256
+//     tile takes in 85 operations a byte from L2. Blocks walk the N tiles of a
+//     row tile next to each other, so A is read from device memory about
+//     once. What binds it (PERF.md section 6; tools/torch_block_gemm_tiles.py
+//     --probe): the main loop alone runs at cuBLAS's rate on these products;
+//     the epilogue (bias, QuickGELU's two special-function operations an
+//     output, the residual's loads), which no tensor work overlaps, takes the
+//     rest. 4-byte global stores from the accumulator layout, a 2-block
+//     cluster that multicast each W tile to two row tiles (half the L2 reads),
+//     a persistent grid whose ring ran on across tiles, wgmma.fence once a
+//     tile and two wgmma groups in flight were each slower.
+//   - epilogues, the JAX kernels' rounding points: the dot in f32 rounded to
+//     bf16, the bias added in bf16; QuickGELU as bf16(1.703125 h) in bf16, the
+//     sigmoid in f32 (the special-function unit's, a few f32 ulps from
+//     torch.sigmoid's: see epilogue_pair) rounded to bf16, the product in
+//     bf16; the residual added in bf16 (epilogue_pair). Every output is
+//     summed by one block in one fixed order (64-deep stages in order, 16-deep
+//     steps in order), so two runs give the same bits and a row does not
+//     depend on its neighbours.
+//   - K5's attention is K4's device code (short_attention_bf16) on q, k and v as
+//     strided views of the fused (B, T, 3D) projection, so K5 takes T <= 640 as
+//     K4 does; the wrapper launches it without counting a K4 launch.
+//
 //   - K9 (the ViT-L/14 width, D = 1024, H = 4096): the MLP's 138 GFLOP at
 //     B = 32, T = 257 take 0.14 ms at 989 TFLOP/s, but what binds it on the
 //     card is the weights every row tile reads from L2 (below). Design (wgmma
@@ -49,39 +85,22 @@
 //     output is summed in f32 over the
 //     hidden in one fixed order (chunk by chunk, 16 deep steps in order), so
 //     two runs agree bit for bit and a row does not depend on its neighbours.
-// Weights and activations of K5/K6 are staged 16 bytes a thread, and the next
-// weight slices are in flight (in registers, or by cp.async into a 3-stage
-// ring) while the current one is multiplied; their products use WMMA bf16
-// 16x16x16 tiles with f32 accumulation. Rounding points
-// follow the JAX kernels: every dot is accumulated in f32 and rounded to bf16,
-// the bias is added in bf16, LayerNorm runs in f32 with f32 scale and bias,
-// QuickGELU is (bf16(1.702) * h) in bf16, sigmoid in f32 rounded to bf16, the
-// product in bf16, and the residual add in bf16.
+//     Its rounding points are the epilogues' above; LayerNorm runs in f32 with
+//     f32 scale and bias.
 //
-// Each entry point returns cudaGetLastError() after its launch.
+// Each entry point returns cudaGetLastError() after its launch (or the error of
+// building a tensor map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include "hopper_common.cuh"   // mbarriers, TMA, wgmma, clusters (K9)
+#include "hopper_common.cuh"   // mbarriers, TMA, wgmma, clusters, tensor maps
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kHeadDim = 64;
-constexpr int kPad = 8;  // bf16 row padding of shared tiles (keeps 32-byte alignment)
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBr;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -95,11 +114,6 @@ __device__ __forceinline__ void st16(bf16* p, uint4 v) { *reinterpret_cast<uint4
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -159,492 +173,327 @@ __device__ __forceinline__ uint4 ln8(const float* x, float mean, float rstd,
   return out;
 }
 
+// QuickGELU of a c_fc output with the JAX kernel's rounding (K9): the dot
+// rounded to bf16, the bias added in bf16, bf16(1.702) * h in bf16, the sigmoid
+// in f32 rounded to bf16, the product in bf16
+__device__ __forceinline__ float quick_gelu_bf16(float acc, float bias, float gelu_c) {
+  const float hv = round_bf16(round_bf16(acc) + bias);
+  const float sg = round_bf16(gelu_c * hv);
+  const float sig = round_bf16(1.f / (1.f + expf(-sg)));
+  return round_bf16(hv * sig);
+}
+
 // ---------------------------------------------------------------------------
-// K5 part 1: per (sequence, head): o_h = softmax(q_h k_h^T / sqrt(64)) v_h,
-// with q/k/v = bf16(LN(x) @ W^T) + b computed in the block.
+// K5 / K6 step 1: y = LN(x), a warp per row (the A operand of the first GEMM)
 // ---------------------------------------------------------------------------
-constexpr int kRowChunk = 16 * kWarps;  // rows per projection pass (4 x 2 warps of 32 x 96)
-constexpr int kKc = 64;                  // K slice of the projection
-constexpr int kQkvCols = 3 * kHeadDim;   // q | k | v columns of one head
-constexpr int kColTiles = kQkvCols / 16;
-// Shared-memory row strides padded against bank conflicts: q/k/v rows of 64
-// bf16 (128 bytes) would put all 16 rows of a fragment on the same banks.
-constexpr int kLdh = kHeadDim + kPad;    // q/k/v rows (144 bytes)
-constexpr int kLdo = kHeadDim + 4;       // f32 staging of o (68 words)
+constexpr int kLnRowsPerBlock = 8;
 
-__global__ void __launch_bounds__(kThreads)
-ln_attn_heads_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
-                     const float* __restrict__ lnb, const bf16* __restrict__ w_in,
-                     const bf16* __restrict__ b_in, bf16* __restrict__ o,
-                     int T, int Tp, int D, int H, int causal, float eps, float scale,
-                     int wregion) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* xb = x + (size_t)b * T * D;
-
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + Tp * kLdh;
-  bf16* v_s = k_s + Tp * kLdh;
-  float* mean_s = reinterpret_cast<float*>(v_s + Tp * kLdh);
-  float* rstd_s = mean_s + Tp;
-  unsigned char* region = reinterpret_cast<unsigned char*>(rstd_s + Tp);
-
-  // LayerNorm statistics of every row of the sequence
-  for (int r = warp; r < T; r += kWarps) {
-    float m, rs, row[8 * kRowVecs];
-    row_stats(xb + (size_t)r * D, D, eps, lane, row, &m, &rs);
-    if (lane == 0) { mean_s[r] = m; rstd_s[r] = rs; }
-  }
-  __syncthreads();
-
-  // ---- phase 1: q/k/v of this head for all rows --------------------------
-  bf16* y_t = reinterpret_cast<bf16*>(region);                 // kRowChunk x (kKc+pad)
-  bf16* w_t = y_t + kRowChunk * (kKc + kPad);                  // kQkvCols x (kKc+pad)
-  float* scratch = reinterpret_cast<float*>(w_t + kQkvCols * (kKc + kPad));  // 256 floats/warp
-  float* my_scratch = scratch + warp * 256;
-  const int ldt = kKc + kPad;
-
-  // 16-byte staging; the next (rows, K) slice is fetched into registers while
-  // the current one is multiplied
-  constexpr int kGroups = kKc / 8;
-  constexpr int kXG = kRowChunk * kGroups / kThreads;
-  constexpr int kWG = kQkvCols * kGroups / kThreads;
-  uint4 xr[kXG], wr[kWG];
-  auto fetch = [&](int r0, int k0) {
+__global__ void __launch_bounds__(kLnRowsPerBlock * 32)
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
+               const float* __restrict__ lnb, bf16* __restrict__ y, int M, int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long m = (long long)blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5);
+  if (m >= M) return;
+  float mean, rstd, row[8 * kRowVecs];
+  row_stats(x + m * D, D, eps, lane, row, &mean, &rstd);
 #pragma unroll
-    for (int u = 0; u < kXG; ++u) {
-      const int g = tid + u * kThreads, r = r0 + g / kGroups, j = k0 + (g % kGroups) * 8;
-      xr[u] = r < T ? ld16(xb + (size_t)r * D + j) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < kWG; ++u) {
-      const int g = tid + u * kThreads, n = g / kGroups, j = k0 + (g % kGroups) * 8;
-      const int wrow = (n / kHeadDim) * D + h * kHeadDim + (n % kHeadDim);
-      wr[u] = ld16(w_in + (size_t)wrow * D + j);
-    }
-  };
-  auto stash = [&](int r0, int k0) {
-#pragma unroll
-    for (int u = 0; u < kXG; ++u) {
-      const int g = tid + u * kThreads, i = g / kGroups, jj = (g % kGroups) * 8, r = r0 + i;
-      uint4 out = make_uint4(0, 0, 0, 0);
-      if (r < T) {
-        const bf16* in = reinterpret_cast<const bf16*>(&xr[u]);
-        float xv[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) xv[e] = __bfloat162float(in[e]);
-        out = ln8(xv, mean_s[r], rstd_s[r], lnw + k0 + jj, lnb + k0 + jj);
-      }
-      st16(y_t + i * ldt + jj, out);
-    }
-#pragma unroll
-    for (int u = 0; u < kWG; ++u) {
-      const int g = tid + u * kThreads;
-      st16(w_t + (g / kGroups) * ldt + (g % kGroups) * 8, wr[u]);
-    }
-  };
-
-  // warp tile: 32 rows (2 row tiles) x 96 of the head's 192 q|k|v columns
-  const int pr = warp / 2, pc = warp % 2;
-  fetch(0, 0);
-  for (int r0 = 0; r0 < Tp; r0 += kRowChunk) {
-    FragC acc[2][kColTiles / 2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int c = 0; c < kColTiles / 2; ++c) wmma::fill_fragment(acc[i][c], 0.f);
-    const int rbase = r0 + pr * 32;
-    const bool live0 = rbase < Tp, live1 = rbase + 16 < Tp;   // padded rows are skipped
-    for (int k0 = 0; k0 < D; k0 += kKc) {
-      __syncthreads();
-      stash(r0, k0);
-      __syncthreads();
-      if (k0 + kKc < D) fetch(r0, k0 + kKc);
-      else if (r0 + kRowChunk < Tp) fetch(r0 + kRowChunk, 0);
-      if (live0) {
-#pragma unroll
-        for (int kk = 0; kk < kKc; kk += 16) {
-          FragA a0, a1;
-          wmma::load_matrix_sync(a0, y_t + pr * 32 * ldt + kk, ldt);
-          if (live1) wmma::load_matrix_sync(a1, y_t + (pr * 32 + 16) * ldt + kk, ldt);
-#pragma unroll
-          for (int c = 0; c < kColTiles / 2; ++c) {
-            FragBc bfr;
-            wmma::load_matrix_sync(bfr, w_t + (pc * kColTiles / 2 + c) * 16 * ldt + kk, ldt);
-            wmma::mma_sync(acc[0][c], a0, bfr, acc[0][c]);
-            if (live1) wmma::mma_sync(acc[1][c], a1, bfr, acc[1][c]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (rbase + i * 16 >= Tp) break;
-#pragma unroll
-      for (int c = 0; c < kColTiles / 2; ++c) {
-        wmma::store_matrix_sync(my_scratch, acc[i][c], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = rbase + i * 16 + e / 16;
-          const int n = (pc * kColTiles / 2 + c) * 16 + e % 16;
-          const int sel = n / kHeadDim, col = n % kHeadDim;
-          const float bias = __bfloat162float(b_in[sel * D + h * kHeadDim + col]);
-          const float v = r < T ? round_bf16(my_scratch[e]) + bias : 0.f;
-          bf16* dst = sel == 0 ? q_s : (sel == 1 ? k_s : v_s);
-          dst[r * kLdh + col] = __float2bfloat16(v);
-        }
-        __syncwarp();
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 2: scores, softmax and P @ V, one 16-query tile per warp ----
-  float* sbuf = reinterpret_cast<float*>(region) + (size_t)warp * 16 * wregion;
-  bf16* pbuf = reinterpret_cast<bf16*>(sbuf);
-  const int nkt = Tp / 16;
-  for (int qt = warp; qt < nkt; qt += kWarps) {
-    const int kt_end = causal ? qt + 1 : nkt;
-    FragA qa[kHeadDim / 16];
-#pragma unroll
-    for (int c = 0; c < kHeadDim / 16; ++c)
-      wmma::load_matrix_sync(qa[c], q_s + qt * 16 * kLdh + c * 16, kLdh);
-    for (int kt = 0; kt < kt_end; ++kt) {
-      FragC s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int c = 0; c < kHeadDim / 16; ++c) {
-        FragBc kb;
-        wmma::load_matrix_sync(kb, k_s + kt * 16 * kLdh + c * 16, kLdh);
-        wmma::mma_sync(s, qa[c], kb, s);
-      }
-      wmma::store_matrix_sync(sbuf + kt * 16, s, wregion, wmma::mem_row_major);
-    }
-    __syncwarp();
-    const int ncols = kt_end * 16;
-    for (int i = 0; i < 16; ++i) {
-      const int qi = qt * 16 + i;
-      float vals[8];
-      float m = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int j = lane + 32 * t;
-        const bool ok = j < ncols && j < T && (!causal || j <= qi);
-        vals[t] = ok ? sbuf[i * wregion + j] * scale : -INFINITY;
-        m = fmaxf(m, vals[t]);
-      }
-      m = warp_max(m);
-      float l = 0.f;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        vals[t] = vals[t] == -INFINITY ? 0.f : expf(vals[t] - m);
-        l += vals[t];
-      }
-      l = warp_sum(l);
-      __syncwarp();  // the whole row is read before its bf16 view is written
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int j = lane + 32 * t;
-        if (j < ncols) pbuf[i * 2 * wregion + j] = __float2bfloat16(vals[t] / l);
-      }
-      __syncwarp();
-    }
-    FragC oacc[kHeadDim / 16];
-#pragma unroll
-    for (int c = 0; c < kHeadDim / 16; ++c) wmma::fill_fragment(oacc[c], 0.f);
-    for (int kt = 0; kt < kt_end; ++kt) {
-      FragA p;
-      wmma::load_matrix_sync(p, pbuf + kt * 16, 2 * wregion);
-#pragma unroll
-      for (int c = 0; c < kHeadDim / 16; ++c) {
-        FragBr vb;
-        wmma::load_matrix_sync(vb, v_s + kt * 16 * kLdh + c * 16, kLdh);
-        wmma::mma_sync(oacc[c], p, vb, oacc[c]);
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < kHeadDim / 16; ++c)
-      wmma::store_matrix_sync(sbuf + c * 16, oacc[c], kLdo, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 16 * kHeadDim; e += 32) {
-      const int i = e / kHeadDim, j = e % kHeadDim;
-      const int qi = qt * 16 + i;
-      if (qi < T)
-        o[((size_t)b * T + qi) * D + h * kHeadDim + j] = __float2bfloat16(sbuf[i * kLdo + j]);
-    }
-    __syncwarp();
+  for (int u = 0; u < kRowVecs; ++u) {
+    const int j = (lane + 32 * u) * 8;
+    if (j < D) st16(y + m * D + j, ln8(row + 8 * u, mean, rstd, lnw + j, lnb + j));
   }
 }
 
 // ---------------------------------------------------------------------------
-// K5 part 2: out = res + (bf16(a @ w^T) + bias), w in (N, K) Linear layout.
-// 128 x 128 output tile per block, 8 warps as 4 (M) x 2 (N), K slices of 32.
+// K5 / K6 products: out = epilogue(A . W^T) on wgmma + TMA
 // ---------------------------------------------------------------------------
-constexpr int kBm = 128, kBn = 128, kBk = 32;
-
-__global__ void __launch_bounds__(kThreads)
-linear_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                       const bf16* __restrict__ bias, const bf16* __restrict__ res,
-                       bf16* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(128) bf16 a_t[kBm * (kBk + kPad)];
-  __shared__ __align__(128) bf16 w_t[kBn * (kBk + kPad)];
-  __shared__ __align__(128) float scratch[kWarps * 256];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * kBm, n0 = blockIdx.y * kBn;
-  const int wm = warp / 2, wn = warp % 2;  // warp tile: rows wm*32, cols wn*64
-  const int ld = kBk + kPad;
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // 16-byte staging with the next K slice fetched into registers during the MMAs
-  constexpr int kGroups = kBk / 8;
-  constexpr int kG = kBm * kGroups / kThreads;
-  uint4 ar[kG], wr[kG];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < kG; ++u) {
-      const int g = tid + u * kThreads, i = g / kGroups, j = k0 + (g % kGroups) * 8;
-      ar[u] = m0 + i < M ? ld16(a + (size_t)(m0 + i) * K + j) : make_uint4(0, 0, 0, 0);
-      wr[u] = ld16(w + (size_t)(n0 + i) * K + j);
-    }
-  };
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += kBk) {
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kG; ++u) {
-      const int g = tid + u * kThreads, off = (g / kGroups) * ld + (g % kGroups) * 8;
-      st16(a_t + off, ar[u]);
-      st16(w_t + off, wr[u]);
-    }
-    __syncthreads();
-    if (k0 + kBk < K) fetch(k0 + kBk);
-#pragma unroll
-    for (int kk = 0; kk < kBk; kk += 16) {
-      FragA fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a_t + (wm * 32 + i * 16) * ld + kk, ld);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBc fb;
-        wmma::load_matrix_sync(fb, w_t + (wn * 64 + j * 16) * ld + kk, ld);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
-    }
-  }
-  float* my = scratch + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(my, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m0 + wm * 32 + i * 16 + e / 16;
-        const int n = n0 + wn * 64 + j * 16 + e % 16;
-        if (m < M) {
-          const float v = round_bf16(round_bf16(my[e]) + __bfloat162float(bias[n]));
-          out[(size_t)m * N + n] =
-              __float2bfloat16(__bfloat162float(res[(size_t)m * N + n]) + v);
-        }
-      }
-      __syncwarp();
-    }
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+// one box of shared memory to (c0, c1) of a 2-D tensor map (boxes past the
+// map's edges are clipped), in this thread's bulk group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+               : "memory");
 }
 
-// ---------------------------------------------------------------------------
-// K6: out = x + c_proj(QuickGELU(c_fc(LN(x)))), rows independent.
-// Block: MR rows x all D output columns, so the hidden is made exactly once.
-// LN(x) of the row tile stays in shared memory; the hidden is made 64 columns
-// at a time (one 16 x 16 c_fc tile per warp, so MR / 16 * 4 warps) and
-// consumed at once by c_proj, whose f32 accumulators (MR x D) stay in
-// registers. Weight slices arrive by cp.async into a 3-stage ring: the next
-// two c_fc slices (KS wide) and the chunk's c_proj slice load while the
-// current slice is multiplied.
-// One block fills an SM's shared memory, so the row tile sets the number of
-// waves: at D = 768 a ViT-B/16 batch of 32 (6304 rows) makes 132 blocks of 48
-// rows, one wave on 132 SMs, where 32-row tiles made 197 blocks, two waves
-// with the second one a half empty. The text width (D = 512) keeps 32-row
-// tiles (616 blocks at B = 256).
-// ---------------------------------------------------------------------------
-constexpr int kHc = 64;    // hidden chunk
-constexpr int kStages = 3;
-
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem_ptr) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_ptr));
+// D (64 x BN, f32) (+)= A (64 x 16, shared, K-major) * B (16 x BN, shared,
+// K-major), for BN = 128, 192, 256 (the accumulator's size picks the shape)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {   // m64n128k16
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate)
+      : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+__device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {   // m64n192k16
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {   // m64n256k16
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
+      "%123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate)
+      : "memory");
+}
 
-// NC: output columns a block owns (blockIdx.y picks which NC of the D); K6
-// takes all D.
-template <int D, int MR, int KS, int NC = D>
-struct MlpTile {
-  static constexpr int kD = D, kMR = MR, kKS = KS, kNC = NC;
-  static constexpr int kWarps = MR / 16 * (kHc / 16);  // one c_fc tile per warp
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kRowTiles = MR / 16;
-  static constexpr int kNcf = NC / 16 / kWarps;        // c_proj column tiles per warp
-  static_assert(NC % (16 * kWarps) == 0 && D % NC == 0 && D % KS == 0,
-                "tile does not divide D");
-  static constexpr int kSmemBytes =
-      (MR * (D + kPad) + kStages * kHc * (KS + kPad) + MR * (kHc + kPad) + NC * (kHc + kPad)) * 2
-      + kWarps * 256 * 4;
+namespace gemm {
+constexpr int kRows = 128;                    // rows of a block tile: 64 a warpgroup
+constexpr int kDepth = 64;                    // K of a stage: one 128-byte swizzled row
+constexpr int kConsumerWarps = 8;             // two consumer warpgroups
+constexpr int kThreads = 384;                 // and a loading warpgroup
+constexpr int kABytes = kRows * kDepth * 2;   // 16 KB of A a stage
+constexpr int kSmemLimit = 232448;            // shared memory a block may use
+constexpr int kMaxStages = 8;
+enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2 };
+
+template <int BN>
+struct Tile {
+  static_assert(BN == 128 || BN == 192 || BN == 256, "no wgmma wrapper for this tile");
+  static constexpr int kStageBytes = kABytes + BN * kDepth * 2;
+  // as many stages as fit beside the alignment slack and the barriers
+  static constexpr int kFit = (kSmemLimit - 1024 - 16 * kMaxStages) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 16 * kStages;
+  static_assert(kStages >= 3, "ring too shallow");
 };
-typedef MlpTile<512, 32, 128> MlpText;          // ViT-B text width
-typedef MlpTile<768, 48, 64> MlpImage;          // ViT-B image width
+}  // namespace gemm
 
-template <int D, int MR, int KS, int NC>
-__global__ void __launch_bounds__(MlpTile<D, MR, KS, NC>::kThreads)
-ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
-              const float* __restrict__ lnb, const bf16* __restrict__ w1,
-              const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-              const bf16* __restrict__ b2, bf16* __restrict__ out, int M, int Hd, float eps) {
-  typedef MlpTile<D, MR, KS, NC> Tile;
-  constexpr int kNw = Tile::kWarps, kNt = Tile::kThreads, kRt = Tile::kRowTiles;
-  constexpr int kNcf = Tile::kNcf;
-  constexpr int ldy = D + kPad, ldk = KS + kPad, ldh = kHc + kPad;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * MR;
-  const int n0 = blockIdx.y * NC;                      // first output column of the block
-  bf16* y_s = reinterpret_cast<bf16*>(smem);          // MR x ldy
-  bf16* w1_s = y_s + MR * ldy;                         // kStages x kHc x ldk (hidden, k)
-  bf16* h_s = w1_s + kStages * kHc * ldk;              // MR x ldh
-  bf16* w2_s = h_s + MR * ldh;                         // NC x ldh   (out rows, hidden)
-  float* scratch = reinterpret_cast<float*>(w2_s + NC * ldh);  // 256 floats / warp
-  float* my = scratch + warp * 256;
-
-  constexpr int nk = D / KS;
-  auto issue_w1 = [&](int slice) {                     // slice = chunk * nk + k step
-    const int hc0 = (slice / nk) * kHc, k0 = (slice % nk) * KS;
-    bf16* dst = w1_s + (slice % kStages) * kHc * ldk;
-    for (int g = tid; g < kHc * KS / 8; g += kNt)
-      cp_async16(dst + (g / (KS / 8)) * ldk + (g % (KS / 8)) * 8,
-                 w1 + (size_t)(hc0 + g / (KS / 8)) * D + k0 + (g % (KS / 8)) * 8);
-  };
-  auto issue_w2 = [&](int hc0) {
-    for (int g = tid; g < NC * kHc / 8; g += kNt)
-      cp_async16(w2_s + (g / (kHc / 8)) * ldh + (g % (kHc / 8)) * 8,
-                 w2 + (size_t)(n0 + g / (kHc / 8)) * Hd + hc0 + (g % (kHc / 8)) * 8);
-  };
-  issue_w1(0);
-  cp_async_commit();
-  issue_w1(1);
-  cp_async_commit();
-
-  // LN(x) of the row tile, f32 statistics, rounded to bf16
-  for (int i = warp; i < MR; i += kNw) {
-    const int m = m0 + i;
-    if (m < M) {
-      float mean, rstd, row[8 * kRowVecs];
-      row_stats(x + (size_t)m * D, D, eps, lane, row, &mean, &rstd);
-#pragma unroll
-      for (int u = 0; u < kRowVecs; ++u) {
-        const int j = (lane + 32 * u) * 8;
-        if (j < D) st16(y_s + i * ldy + j, ln8(row + 8 * u, mean, rstd, lnw + j, lnb + j));
-      }
-    } else {
-      for (int j = lane * 8; j < D; j += 256) st16(y_s + i * ldy + j, make_uint4(0, 0, 0, 0));
-    }
-  }
-
-  const float gelu_c = __bfloat162float(__float2bfloat16(1.702f));
-  const int hw_r = warp / (kHc / 16), hw_c = warp % (kHc / 16);  // this warp's c_fc tile
-  FragC oacc[kRt][kNcf];                               // c_proj: all rows, kNcf col tiles of NC
-#pragma unroll
-  for (int i = 0; i < kRt; ++i)
-#pragma unroll
-    for (int c = 0; c < kNcf; ++c) wmma::fill_fragment(oacc[i][c], 0.f);
-
-  const int total = (Hd / kHc) * nk;
-  for (int hc0 = 0, slice = 0; hc0 < Hd; hc0 += kHc) {
-    FragC hacc;
-    wmma::fill_fragment(hacc, 0.f);
-    for (int kstep = 0; kstep < nk; ++kstep, ++slice) {
-      cp_async_wait_one();
-      __syncthreads();           // slice landed for all; stage (slice+2)%3 is free again
-      if (kstep == 0) issue_w2(hc0);      // w2_s and h_s were last read before this barrier
-      if (slice + 2 < total) issue_w1(slice + 2);
-      cp_async_commit();
-      const bf16* w1_t = w1_s + (slice % kStages) * kHc * ldk;
-      const int k0 = kstep * KS;
-#pragma unroll
-      for (int kk = 0; kk < KS; kk += 16) {
-        FragA a;
-        FragBc bfr;
-        wmma::load_matrix_sync(a, y_s + hw_r * 16 * ldy + k0 + kk, ldy);
-        wmma::load_matrix_sync(bfr, w1_t + hw_c * 16 * ldk + kk, ldk);
-        wmma::mma_sync(hacc, a, bfr, hacc);
-      }
-    }
-    // hidden epilogue: bias (bf16), QuickGELU with the JAX kernel's rounding
-    wmma::store_matrix_sync(my, hacc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int i = hw_r * 16 + e / 16, j = hw_c * 16 + e % 16;
-      const float hv = round_bf16(round_bf16(my[e]) + __bfloat162float(b1[hc0 + j]));
-      const float sg = round_bf16(gelu_c * hv);
-      const float sig = round_bf16(1.f / (1.f + expf(-sg)));
-      h_s[i * ldh + j] = __float2bfloat16(hv * sig);
-    }
-    cp_async_wait_all();
-    __syncthreads();             // h_s complete, w2_s landed
-#pragma unroll
-    for (int kk = 0; kk < kHc; kk += 16) {
-      FragA a[kRt];
-#pragma unroll
-      for (int i = 0; i < kRt; ++i)
-        wmma::load_matrix_sync(a[i], h_s + i * 16 * ldh + kk, ldh);
-#pragma unroll
-      for (int c = 0; c < kNcf; ++c) {
-        FragBc bfr;
-        wmma::load_matrix_sync(bfr, w2_s + (warp * kNcf + c) * 16 * ldh + kk, ldh);
-#pragma unroll
-        for (int i = 0; i < kRt; ++i) wmma::mma_sync(oacc[i][c], a[i], bfr, oacc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRt; ++i)
-#pragma unroll
-    for (int c = 0; c < kNcf; ++c) {
-      wmma::store_matrix_sync(my, oacc[i][c], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m0 + i * 16 + e / 16;
-        const int n = n0 + (warp * kNcf + c) * 16 + e % 16;
-        if (m < M) {
-          const float v = round_bf16(round_bf16(my[e]) + __bfloat162float(b2[n]));
-          out[(size_t)m * D + n] =
-              __float2bfloat16(__bfloat162float(x[(size_t)m * D + n]) + v);
-        }
-      }
-      __syncwarp();
-    }
+// An output pair (columns c, c + 1 of a row) with the JAX kernels' rounding
+// points, on bf16x2 values: add.rn / mul.rn.bf16x2 round the exact sum or
+// product once, as rounding the f32 result does (a sum or product of two bf16
+// values is exact in f32, or its tail is below half a bf16 ulp). The dot
+// rounded to bf16, the bias added in bf16; kBiasGelu: bf16(1.702) * h in
+// bf16, the sigmoid in f32 rounded to bf16, the product in bf16. The residual
+// is added by the caller.
+//
+// The sigmoid is the special-function unit's: __expf and __fdividef, a few
+// f32 ulps from 1 / (1 + e^-z) (CUDA's bounds: 2 + 1.173 |z| ulps for __expf,
+// 2 for __fdividef). Where its f32 value lies that close to a bf16 tie it can
+// round to the bf16 next to the one that the plain version's torch.sigmoid
+// (expf and an IEEE division) and the JAX kernel's f32 sigmoid round to: one
+// bf16 ulp of the sigmoid, at most |h| 2^-7 in the output with the product's
+// rounding. expf and a reciprocal rounded to nearest give torch.sigmoid's
+// bits but made K6 1.3-1.4x slower, and taking them only near a tie 1.4-1.5x
+// (PERF.md section 6).
+template <int kEpi>
+__device__ __forceinline__ __nv_bfloat162 epilogue_pair(float a0, float a1, __nv_bfloat162 b2) {
+  const __nv_bfloat162 h = __hadd2(__floats2bfloat162_rn(a0, a1), b2);
+  if (kEpi != gemm::kBiasGelu) return h;
+  const float2 sg = __bfloat1622float2(__hmul2(__float2bfloat162_rn(1.702f), h));
+  return __hmul2(h, __floats2bfloat162_rn(__fdividef(1.f, 1.f + __expf(-sg.x)),
+                                          __fdividef(1.f, 1.f + __expf(-sg.y))));
 }
 
-template <class Tile>
-int launch_ln_mlp(const void* x, const void* lnw, const void* lnb, const void* w1,
-                  const void* b1, const void* w2, const void* b2, void* out, int M, int Hd,
-                  float eps, cudaStream_t stream) {
-  auto kernel = ln_mlp_kernel<Tile::kD, Tile::kMR, Tile::kKS, Tile::kNC>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmemBytes);
-  const dim3 grid((M + Tile::kMR - 1) / Tile::kMR, Tile::kD / Tile::kNC);
-  kernel<<<grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(
-      (const bf16*)x, (const float*)lnw, (const float*)lnb, (const bf16*)w1, (const bf16*)b1,
-      (const bf16*)w2, (const bf16*)b2, (bf16*)out, M, Hd, eps);
+// Grid: one block a (128-row, BN-column) tile, the tiles of a row tile next to
+// each other along blockIdx.x, so the blocks in flight read the same A rows.
+// Threads: warpgroups 0 and 1 multiply (warpgroup w owns rows 64 w .. 64 w + 63
+// of the tile); one warp of warpgroup 2 loads. 384 threads cap a thread at 168
+// registers, which the 128 accumulators of a 256-column tile fit.
+// Ring: stage s holds the A tile (128 rows x 64 deep) and the W tile (BN rows x
+// 64 deep); full[s] completes when its bytes have landed, empty[s] when the 8
+// consumer warps are done with it.
+template <int BN, int kEpi>
+__global__ void __launch_bounds__(gemm::kThreads, 1)
+block_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                  const __grid_constant__ CUtensorMap omap, const bf16* __restrict__ bias,
+                  const bf16* __restrict__ res, int M, int N, int K) {
+  using namespace gemm;
+  typedef Tile<BN> T;
+  constexpr int S = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;        // swizzled tiles at 1024-byte boundaries
+  const uint32_t full = base + S * T::kStageBytes, empty = full + 8 * S;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntn = (N + BN - 1) / BN;
+  const int n0 = ((int)blockIdx.x % ntn) * BN, m0 = ((int)blockIdx.x / ntn) * kRows;
+  const int nk = (K + kDepth - 1) / kDepth;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // the loads: stage kb % S once the consumers are done with load kb - S;
+    // rows past M or N and columns past K arrive as zeros
+    if (lane == 0) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S;
+        if (kb >= S) mbar_wait_bounded(empty + 8 * s, ((kb / S) - 1) & 1);
+        const uint32_t dst = base + s * T::kStageBytes, bar = full + 8 * s;
+        mbar_expect(bar, T::kStageBytes);
+        tma_2d(dst, &amap, bar, kb * kDepth, m0);
+        tma_2d(dst + kABytes, &bmap, bar, kb * kDepth, n0);
+      }
+    }
+    return;
+  }
+  if (warp > kConsumerWarps) return;
+
+  const int w = warp >> 2, wp = warp & 3, g = lane >> 2, t = lane & 3;
+  float acc[BN / 2];   // the first step overwrites it (no register write while products run)
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % S;
+    mbar_wait_bounded(full + 8 * s, (kb / S) & 1);
+    const uint32_t a_t = base + s * T::kStageBytes + w * (kABytes / 2);
+    const uint32_t b_t = base + s * T::kStageBytes + kABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk)
+      wgmma_ss(acc, sw128_desc(a_t + 32 * kk), sw128_desc(b_t + 32 * kk), (kb | kk) != 0);
+    wgmma_commit();
+    wgmma_wait_n<1>();   // the previous stage's products are done: release it
+    if (kb > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * ((kb - 1) % S));
+    }
+  }
+  wgmma_wait_n<0>();
+  keep_n(acc);
+
+  // epilogue: thread 32 wp + 4 g + t holds rows 16 wp + g (+ 8) of the
+  // warpgroup's 64, columns 8 j + 2 t and + 1. The bf16 tile goes to the ring's
+  // memory (once both warpgroups are done with it) as BN / 64 swizzled boxes of
+  // 64 x 64, then out by TMA: whole lines, rows past M and columns past N
+  // clipped by the tensor map.
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+  const uint32_t o_t = base + w * (64 * BN * 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * t, n = n0 + c;
+    const bool live_n = n < N;                         // N is a multiple of 8
+    const __nv_bfloat162 b2 =
+        live_n ? *reinterpret_cast<const __nv_bfloat162*>(bias + n) : __float2bfloat162_rn(0.f);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * wp + g + 8 * hr, m = m0 + 64 * w + r;
+      __nv_bfloat162 v = epilogue_pair<kEpi>(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1], b2);
+      if (kEpi == kBiasResidual && live_n && m < M)
+        v = __hadd2(v, *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)m * N + n));
+      st_shared_u32(o_t + (c >> 6) * 8192 + sw128_offset(r, c & 63),
+                    *reinterpret_cast<const uint32_t*>(&v));
+    }
+  }
+  fence_proxy_async();   // the tile is read by TMA
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + w) : "memory");
+  if ((tid & 127) == 0) {
+    for (int bx = 0; bx < BN / 64 && n0 + 64 * bx < N; ++bx)
+      tma_store_2d(&omap, o_t + bx * 8192, n0 + 64 * bx, m0 + 64 * w);
+    asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+template <int BN, int kEpi>
+int launch_gemm(const void* a, const void* w, const void* bias, const void* res, void* out, int M,
+                int N, int K, cudaStream_t stream) {
+  using namespace gemm;
+  CUtensorMap am, bm, om;
+  int err;
+  if ((err = map_2d(&am, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, 2LL * K, kDepth, kRows,
+                    CU_TENSOR_MAP_SWIZZLE_128B)) != 0 ||
+      (err = map_2d(&bm, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, N, 2LL * K, kDepth, BN,
+                    CU_TENSOR_MAP_SWIZZLE_128B)) != 0 ||
+      (err = map_2d(&om, out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, M, 2LL * N, 64, 64,
+                    CU_TENSOR_MAP_SWIZZLE_128B)) != 0)
+    return err;
+  auto kernel = block_gemm_kernel<BN, kEpi>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::kSmem);
+  const long long blocks = (long long)((M + kRows - 1) / kRows) * ((N + BN - 1) / BN);
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, Tile<BN>::kSmem, stream>>>(
+      am, bm, om, (const bf16*)bias, (const bf16*)res, M, N, K);
   return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_gemm_epi(const void* a, const void* w, const void* bias, const void* res, void* out,
+                    int M, int N, int K, int epilogue, cudaStream_t stream) {
+  switch (epilogue) {
+    case gemm::kBias: return launch_gemm<BN, gemm::kBias>(a, w, bias, res, out, M, N, K, stream);
+    case gemm::kBiasGelu:
+      return launch_gemm<BN, gemm::kBiasGelu>(a, w, bias, res, out, M, N, K, stream);
+    case gemm::kBiasResidual:
+      return launch_gemm<BN, gemm::kBiasResidual>(a, w, bias, res, out, M, N, K, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -678,13 +527,6 @@ constexpr int kBarriers = kRing + 2;      // full a stage; the chunk's h_full, h
 constexpr int kSmem = 1024 + kLnBytes + kRing * kStageBytes + kHBytes + 8 * kBarriers;
 static_assert(kSmem <= 232448, "K9 tile does not fit shared memory");
 }  // namespace k9
-
-__device__ __forceinline__ float quick_gelu_bf16(float acc, float bias, float gelu_c) {
-  const float hv = round_bf16(round_bf16(acc) + bias);
-  const float sg = round_bf16(gelu_c * hv);
-  const float sig = round_bf16(1.f / (1.f + expf(-sg)));
-  return round_bf16(hv * sig);
-}
 
 __global__ void __cluster_dims__(k9::kCluster, 1, 1) __launch_bounds__(k9::kCtaThreads, 1)
 ln_mlp_wide_kernel(const __grid_constant__ CUtensorMap w1map,
@@ -921,49 +763,31 @@ int launch_ln_mlp_wide(const void* x, const void* lnw, const void* lnb, const vo
 
 extern "C" {
 
-// f32 score-row stride of ln_attn_heads' phase 2 (words; 4 of padding keep
-// the 16 rows of a fragment off each other's banks)
-int ln_attn_heads_score_stride(int Tp) { return (Tp > kHeadDim ? Tp : kHeadDim) + 4; }
-
-// Shared memory of ln_attn_heads for a padded length Tp (the wrapper checks the limit).
-int ln_attn_heads_smem_bytes(int Tp) {
-  const int phase1 = (kRowChunk + kQkvCols) * (kKc + kPad) * 2 + kWarps * 256 * 4;
-  const int phase2 = kWarps * 16 * ln_attn_heads_score_stride(Tp) * 4;
-  return 3 * Tp * kLdh * 2 + 2 * Tp * 4 + (phase1 > phase2 ? phase1 : phase2);
-}
-
-int ln_attn_heads_bf16(const void* x, const void* lnw, const void* lnb, const void* w_in,
-                       const void* b_in, void* o, int B, int T, int D, int H, int causal,
-                       float eps, void* stream) {
-  const int Tp = (T + 15) / 16 * 16;
-  const int wregion = ln_attn_heads_score_stride(Tp);
-  const int smem = ln_attn_heads_smem_bytes(Tp);
-  cudaFuncSetAttribute(ln_attn_heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const float scale = 1.0f / sqrtf((float)kHeadDim);
-  ln_attn_heads_kernel<<<B * H, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)lnw, (const float*)lnb, (const bf16*)w_in,
-      (const bf16*)b_in, (bf16*)o, T, Tp, D, H, causal, eps, scale, wregion);
+// K5 / K6 step 1: y (M, D) = LN(x), D % 8 == 0 and D <= 1024 (the wrapper checks)
+int ln_rows_bf16(const void* x, const void* lnw, const void* lnb, void* y, int M, int D,
+                 float eps, void* stream) {
+  if (M < 1 || D < 8 || D % 8 || D > kMaxRow) return (int)cudaErrorInvalidValue;
+  const int blocks = (M + kLnRowsPerBlock - 1) / kLnRowsPerBlock;
+  ln_rows_kernel<<<blocks, kLnRowsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)lnw, (const float*)lnb, (bf16*)y, M, D, eps);
   return (int)cudaGetLastError();
 }
 
-int linear_residual_bf16(const void* a, const void* w, const void* bias, const void* res,
-                         void* out, int M, int N, int K, void* stream) {
-  dim3 grid((M + kBm - 1) / kBm, N / kBn);
-  linear_residual_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)w, (const bf16*)bias, (const bf16*)res, (bf16*)out,
-      M, N, K);
-  return (int)cudaGetLastError();
-}
-
-// D = 512 or 768 (the ViT-B text and image widths); Hd % 64 == 0 (the wrapper checks)
-int ln_mlp_bf16(const void* x, const void* lnw, const void* lnb, const void* w1,
-                const void* b1, const void* w2, const void* b2, void* out, int M, int D,
-                int Hd, float eps, void* stream) {
+// K5 / K6 products: out (M, N) = epilogue(a (M, K) . w (N, K)^T); bias (N,);
+// res (M, N) for the residual epilogue (0: + bias, 1: + bias then QuickGELU,
+// 2: + bias then + res). bn: the block tile's columns (128, 192 or 256, from
+// ops/block_kernels.gemm_tile). N and K multiples of 8, every pointer 16-byte
+// aligned, rows contiguous.
+int block_gemm_bf16(const void* a, const void* w, const void* bias, const void* res, void* out,
+                    int M, int N, int K, int bn, int epilogue, void* stream) {
+  if (M < 1 || N < 8 || N % 8 || K < 8 || K % 8) return (int)cudaErrorInvalidValue;
+  if (epilogue == gemm::kBiasResidual && res == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 512)
-    return launch_ln_mlp<MlpText>(x, lnw, lnb, w1, b1, w2, b2, out, M, Hd, eps, s);
-  if (D == 768)
-    return launch_ln_mlp<MlpImage>(x, lnw, lnb, w1, b1, w2, b2, out, M, Hd, eps, s);
+  switch (bn) {
+    case 128: return launch_gemm_epi<128>(a, w, bias, res, out, M, N, K, epilogue, s);
+    case 192: return launch_gemm_epi<192>(a, w, bias, res, out, M, N, K, epilogue, s);
+    case 256: return launch_gemm_epi<256>(a, w, bias, res, out, M, N, K, epilogue, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

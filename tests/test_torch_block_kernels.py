@@ -151,10 +151,14 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,t,d", [(False, 197, 768), (False, 50, 768), (True, 77, 512),
-                                        (False, 5, 512), (True, bk.MAX_T, 512)])
+                                        (False, 5, 512), (True, bk.MAX_T, 512),
+                                        (False, 257, 768), (True, 577, 512), (False, 61, 320)])
 def test_cuda_kernels_match_plain(cuda, causal, t, d):
-    """Both K6 row tiles (48 rows at D=768, 32 at D=512), ragged last tiles,
-    and K5 at the longest sequence its shared memory holds."""
+    """K5 and K6 against their plain versions: 591, 150, 231, 15, 1920, 771,
+    1731 and 183 rows leave the last 128-row GEMM tile ragged; T up to K4's
+    640, and D = 320 (five heads: no GEMM tile divides 960 or 320). Two runs
+    give the same bits, and the last sequence alone the bits it has among
+    the others."""
     rng = np.random.default_rng(4)
     pa, pm = _attn_inputs(rng, d), _mlp_inputs(rng, d)
     x = torch.from_numpy(rng.standard_normal((3, t, d)).astype(np.float32)).to(cuda, torch.bfloat16)
@@ -163,8 +167,101 @@ def test_cuda_kernels_match_plain(cuda, causal, t, d):
     for kern, plain, args, kw in (
             (bk.fused_ln_attn, bk.ln_attn_reference, attn, dict(num_heads=d // 64, causal=causal)),
             (bk.fused_ln_mlp, bk.ln_mlp_reference, mlp, {})):
-        got = kern(x, *args, **kw).float()
+        got = kern(x, *args, **kw)
+        again = kern(x, *args, **kw)
+        alone = kern(x[-1:].contiguous(), *args, **kw)
         want = plain(x, *args, **kw).float()
         torch.cuda.synchronize()
-        assert (got - want).abs().max() <= 0.0625
-        assert (got - want).abs().mean() <= 2e-3
+        assert (got.float() - want).abs().max() <= 0.0625
+        assert (got.float() - want).abs().mean() <= 2e-3
+        assert torch.equal(got, again) and torch.equal(alone[0], got[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,scale", [(300, 256, 64, 1.0), (300, 256, 64, 12.0),
+                                         (1000, 512, 128, 60.0)])
+def test_cuda_gelu_epilogue_is_quick_gelu_within_a_sigmoid_ulp(cuda, m, n, k, scale):
+    """``block_gemm``'s QuickGELU epilogue against the plain ``quick_gelu``
+    (``torch.sigmoid`` in f32) on its bias epilogue's output, at |1.702 h|
+    from near 0 to far past the special-function unit's exponent range: its
+    f32 sigmoid, a few ulps from torch's, may round to the next bf16, which
+    moves an output by at most |h| 2^-7 with the product's rounding; at
+    activations of unit scale at most one output in a thousand moves."""
+    from summer_clip_torch.ops import _lib
+
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn((m, k), generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn((n, k), generator=gen) * scale * k ** -0.5).to(cuda, torch.bfloat16)
+    b = (torch.randn((n,), generator=gen) * 0.02).to(cuda, torch.bfloat16)
+    lib, stream = bk._lib_block(), _lib.torch_stream()
+    h = bk._gemm(lib, a, w, b, "bias", stream)
+    got, want = bk._gemm(lib, a, w, b, "gelu", stream), bk.quick_gelu(h)
+    assert ((got.float() - want.float()).abs() <= h.float().abs() * 2.0 ** -7).all()
+    if scale == 1.0:
+        assert (got != want).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("mode", ["block", "mlp", "xla"])
+@pytest.mark.parametrize("d", [256, 512, 768, 1024])
+def test_routes_match_the_jax_gates_over_a_grid(d, mode, monkeypatch):
+    """``attn_route`` / ``mlp_route`` (the JAX gates and what K5, K6 and K9
+    take) give the JAX package's own ``_fuse_attn_ok`` / ``_fuse_mlp_ok`` and
+    ``_mlp_dispatch`` route at every T up to past ``SHORT_MAX_T``, head dim
+    64: K5 takes every T <= 640 that the JAX gate admits (it took T <= 240
+    before its attention became K4's device code)."""
+    import summer_clip_tpu.models.clip.modeling as jm
+    from summer_clip_tpu.ops import block_kernels as jbk
+
+    import summer_clip_torch.models.clip.modeling as pm
+
+    monkeypatch.setattr(pm, "FUSED_BLOCK_MODE", mode)
+    monkeypatch.setattr(jm, "FUSED_BLOCK_MODE", mode)
+    monkeypatch.setattr(jm, "FUSED_BLOCK_FORCE", True)  # the backend check, not the geometry
+    heads, fused = d // 64, []
+    chunked = 2 * d * 4 * d * 2 > jbk.FUSED_MLP_MAX_WEIGHT_BYTES
+    for t in (1, 7, 77, 197, 240, 241, 257, 320, 400, 431, 480, 513, 577, 600, 640, 641, 700):
+        jax_attn = "k5" if jm._fuse_attn_ok(d, t, heads, 2) else "module"
+        jax_mlp = ("k9" if chunked else "k6") if jm._fuse_mlp_ok(d, t, heads, 2) else "plain"
+        assert (pm.attn_route(d, t, heads), pm.mlp_route(d, t, heads, 4 * d)) == (jax_attn, jax_mlp)
+        assert bk.fused_attn_ok(t, d, heads) == (0 < t <= 640)
+        if jax_attn == "k5":
+            fused.append(t)
+    if mode == "block" and d in (512, 768):   # the grid reaches past the old limit of 240
+        assert any(t > 240 for t in fused)
+
+
+@pytest.mark.parametrize("m,n,k", [(6304, 2304, 768), (6304, 768, 768), (6304, 3072, 768),
+                                   (6304, 768, 3072), (19712, 1536, 512), (19712, 512, 2048),
+                                   (77000, 768, 3072), (591, 960, 320), (15, 2048, 512)])
+def test_gemm_tile_plan_covers_every_output_once_at_least_cost(m, n, k):
+    """The tile :func:`gemm_tile` picks has the least modelled time of the
+    three (waves x the bytes a tile takes in, fill and epilogue counted as two
+    more stages), and the kernel's block order (column tiles of a row tile
+    next to each other) covers every output element exactly once."""
+    sms = 132
+    bn = bk.gemm_tile(m, n, k, sms)
+    stages = -(-k // bk.GEMM_DEPTH) + 2
+
+    def modelled(tile):
+        waves = -(-(-(-m // bk.GEMM_ROWS) * -(-n // tile)) // sms)
+        return waves * stages * (bk.GEMM_ROWS + tile) * bk.GEMM_DEPTH * 2
+
+    assert modelled(bn) == min(modelled(tile) for tile in bk.GEMM_TILES)
+    ntn = -(-n // bn)
+    cover = np.zeros((m, n), np.int32)
+    for block in range(-(-m // bk.GEMM_ROWS) * ntn):
+        m0, n0 = block // ntn * bk.GEMM_ROWS, block % ntn * bn
+        cover[m0:m0 + bk.GEMM_ROWS, n0:n0 + bn] += 1
+    assert (cover == 1).all()
+
+
+def test_gemm_tile_fills_the_waves_of_the_narrow_products():
+    """At the ViT-B/16 image shape (6304 rows: 50 row tiles) the 768-column
+    products would take 150 tiles of 256 columns for 132 SMs (two waves, the
+    second 14% full); 192 columns make 200 tiles. Where the waves are many
+    (19712 or 77000 rows) every product keeps 256 columns."""
+    assert bk.gemm_tile(6304, 768, 3072) == 192 and bk.gemm_tile(6304, 768, 768) == 192
+    assert bk.gemm_tile(6304, 3072, 768) == 256 and bk.gemm_tile(6304, 2304, 768) == 256
+    for m, d in ((19712, 512), (19712, 768), (77000, 768)):
+        for n, k in ((3 * d, d), (d, d), (4 * d, d), (d, 4 * d)):
+            assert bk.gemm_tile(m, n, k) == 256

@@ -137,24 +137,26 @@ def test_cuda_k1_matches_plain(nt, nc, d, c, nb):
 
 @pytest.mark.cuda
 def test_cuda_k1_affinity_is_k2s_bit_for_bit():
-    """K1's transposed wgmma affinity against K2's WMMA tiles on the same bf16
-    rows: equal in every bit at widths of 1, 4, 12 and 16 sixteen-deep steps."""
+    """K1's transposed wgmma affinity and the class-grouped template's against
+    K2's WMMA tiles on the same bf16 rows (``affinity_probe_bf16``: 8 tiles of
+    64 queries x 128 cache rows): equal in every bit at widths of 1, 4, 12, 16
+    and 64 sixteen-deep steps."""
     _cuda()
     from summer_clip_torch.ops import _lib
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     lib = ck._lib_cache()
-    for d in (16, 64, 192, 256):
-        f = torch.randn(8 * 16, d, device="cuda", generator=gen)
-        c = torch.randn(8 * 64, d, device="cuda", generator=gen)
+    for d in (16, 64, 192, 256, 1024):
+        f = torch.randn(8 * 64, d, device="cuda", generator=gen)
+        c = torch.randn(8 * 128, d, device="cuda", generator=gen)
         f = (f / f.norm(dim=1, keepdim=True)).to(torch.bfloat16)
         c = (c / c.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-        out = torch.zeros(2, 8, 16, 64, device="cuda")
+        out = torch.zeros(3, 8, 64, 128, device="cuda")
         _lib.check(lib.affinity_probe_bf16(f.data_ptr(), c.data_ptr(), out.data_ptr(), d, 8,
                                            _lib.torch_stream()), "affinity_probe")
         torch.cuda.synchronize()
-        assert torch.equal(out[0], out[1])
-        assert torch.allclose(out[0, 0], f[:16].float() @ c[:64].float().t(), atol=1e-5)
+        assert torch.equal(out[0], out[1]) and torch.equal(out[0], out[2])
+        assert torch.allclose(out[0, 0], f[:64].float() @ c[:128].float().t(), atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -44,3 +44,43 @@ def test_no_card_no_result(argv, capsys, monkeypatch):
 def test_baseline_times_nothing_without_a_baseline_build():
     chip_smoke.BASELINE.clear()
     assert chip_smoke.baseline_ms(lambda: None, 3, "cache_kernels") is None
+
+
+def test_block_baseline_times_nothing_without_a_baseline_build():
+    chip_smoke.BASELINE.clear()
+    assert chip_smoke.baseline_block_ms(lambda: None, "K5 fused_ln_attn", (), 12, False, 3) is None
+
+
+def test_per_head_block_entries_are_the_ones_the_gemm_chain_replaced():
+    """A ``block_kernels.cu`` from before the GEMM chain is timed on its own
+    K5 and K6 entries: the tree's source no longer has them, and has the
+    chain's."""
+    from summer_clip_torch.ops import _lib
+
+    src = (_lib.CSRC_DIR / "block_kernels.cu").read_text()
+    for name in chip_smoke.PER_HEAD_BLOCK_SIGNATURES:
+        assert f"int {name}(" not in src
+    assert "int ln_rows_bf16(" in src and "int block_gemm_bf16(" in src
+
+
+@pytest.mark.parametrize("tower", sorted(chip_smoke.BLOCK_SHAPES))
+def test_block_shapes_are_the_towers_the_paths_run(tower):
+    """Each shape the block checks time is a tower's residual block as the
+    paths give it: the model config's widths and tokens, and for CoOp one
+    prompt a class of ``synthetic_1k``, the dataset ``train_coop`` runs on."""
+    from summer_clip_torch.data.datasets import SyntheticImageNetScale
+    from summer_clip_torch.models.clip.configs import CLIP_CONFIGS
+
+    model, half = {"vit_b16_image": ("ViT-B/16", "image"), "vit_b16_text": ("ViT-B/16", "text"),
+                   "vit_l14_text": ("ViT-L/14", "text"), "coop_l14_text": ("ViT-L/14", "text"),
+                   "vit_l14_image": ("ViT-L/14", "image")}[tower]
+    cfg = CLIP_CONFIGS[model]
+    if half == "image":
+        want = ((cfg.image_resolution // cfg.vision_patch_size) ** 2 + 1, cfg.vision_width,
+                cfg.vision_heads, False)
+    else:
+        want = (cfg.context_length, cfg.text_width, cfg.text_heads, True)
+    b, *shape = chip_smoke.BLOCK_SHAPES[tower]
+    assert tuple(shape) == want
+    if tower == "coop_l14_text":
+        assert b == len(SyntheticImageNetScale().classnames)

@@ -24,8 +24,12 @@ from summer_clip_torch.ops import block_kernels as bk
 
 SHAPES = {
     # name: (config, routes of the image tower's halves)
-    "test-L": (CLIPConfig("test-L", 32, 32, "vit", 128, 2, 2, 16, 512, 128, 2, 1),
+    # patch 1: T = 1025, past both packages' fused limit of 640 tokens
+    "test-L": (CLIPConfig("test-L", 32, 32, "vit", 128, 2, 1, 16, 512, 128, 2, 1),
                ("k4", "plain_mlp")),
+    # patch 2: T = 257, inside K5's limit since its attention is K4's code
+    "test-M": (CLIPConfig("test-M", 32, 32, "vit", 128, 2, 2, 16, 512, 128, 2, 1),
+               ("k5", "k6")),
     "test-B": (CLIPConfig("test-B", 32, 32, "vit", 512, 1, 8, 16, 512, 512, 8, 1),
                ("k5", "k6")),
 }
@@ -158,7 +162,8 @@ def test_block_routes_and_towers_match_jax(name, monkeypatch):
                      "k4": 0}   # on the CPU the K4 route runs the plain attention
     t = (cfg.image_resolution // cfg.vision_patch_size) ** 2 + 1
     assert bk.fused_attn_ok(t, cfg.vision_width, cfg.vision_heads) == (routes[0] == "k5")
-    assert bk.fused_mlp_ok(cfg.vision_width, 4 * cfg.vision_width) == (routes[1] == "k6")
+    assert modeling.mlp_route(cfg.vision_width, t, cfg.vision_heads, 4 * cfg.vision_width) == (
+        "k6" if routes[1] == "k6" else "plain")
     with torch.inference_mode():
         got_txt = model.encode_text(torch.from_numpy(tokens)).numpy()
     want_img, want_txt = _encode_jax(model_j, variables, images, tokens)
