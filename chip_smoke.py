@@ -2,18 +2,24 @@
 """Run the PyTorch port (``summer_clip_torch``) on one CUDA card, end to end.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only {attention,block,cache} [--baseline OLD/<source>.cu]
+    python3 chip_smoke.py --only {attention,block,cache,decode} [--baseline OLD/<source>.cu ...]
 
-The second form builds only what one kernel source's checks need and runs only
+The second form builds only what one kernel family's checks need and runs only
 them, then stops (no contract line): ``attention`` (K4, K11, K12 and the
-towers), ``block`` (K5, K6, K9 and the towers) or ``cache`` (K3, K2, K1 with
-the affinity probe, K13). With ``--baseline`` an earlier copy of that source
-(``attention_kernels.cu``, ``block_kernels.cu`` or ``cache_kernels.cu``, e.g.
-from ``git show <commit>:summer_clip_torch/csrc/...``) is built beside this
-tree's, and the attention checks, K5, K6, K9 and K1 (at CLIP-search's shape)
-also time it in turns with the kernel (baseline, kernel, kernel, baseline) on
-the same inputs; a ``block_kernels.cu`` from before the GEMM chain is called on
-its own K5 and K6 entries (``PER_HEAD_BLOCK_SIGNATURES``).
+towers), ``block`` (K5, K6, K9 and the towers), ``cache`` (K3, K2, K1 with
+the affinity probe, K13) or ``decode`` (K7 and K10, then K8). With
+``--baseline`` earlier copies of those sources (``attention_kernels.cu``,
+``block_kernels.cu``, ``cache_kernels.cu``; for ``decode``
+``gemv_kernels.cu`` and/or ``decode_kernels.cu``, e.g. from ``git show
+<commit>:summer_clip_torch/csrc/...``) are built beside this tree's, each
+against the headers (``*.cuh``) that lie beside it (copy its commit's there;
+a header missing there is taken from this tree), and the attention checks,
+K5, K6, K9, K1 (at CLIP-search's shape), K7 and K8 also time them in turns
+with the kernel (baseline, kernel, kernel, baseline) on the same inputs; a
+``block_kernels.cu`` from before the GEMM chain is called on its own K5 and
+K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
+``decode_kernels.cu`` of the workspace-and-ticket design on its own
+(``WORKSPACE_K7_SIGNATURES``, ``WORKSPACE_K8_SIGNATURES``).
 
 1. Refuses to run without CUDA. Prints the card (``nvidia-smi`` name and power
    limit) and the torch, CUDA, nvcc and Triton versions.
@@ -67,6 +73,11 @@ its own K5 and K6 entries (``PER_HEAD_BLOCK_SIGNATURES``).
      same row among others must give the same bits. Both are
      timed as device time in a CUDA graph over copies of the weights (cold,
      as a decode loop finds them) and as calls of the wrapper from Python;
+     K7 also with programmatic dependent launch off, and after a PyTorch
+     kernel that writes its x, and beside ``torch._weight_int8pack_mm``
+     (int8) or a cuBLAS bf16 product (bf16), yardsticks used nowhere in the
+     port; K7 must read the right x after a slow predecessor that writes it
+     (a large reduction, and a K7 whose output is the next one's x);
    - K8 decode_block at gpt2-large (36 blocks, D = 1280, H = 5120, 20 heads)
      with 1, 3 and 8 streams over int8 rings of 256 and 1024 rows filled to
      different indices (an empty ring, a full one, left pads), int8 weights,
@@ -635,10 +646,14 @@ def in_turns(prev: tp.Optional[tuple]) -> str:
     return f"; in turns: baseline {prev[0]:.4f} ms, kernel {prev[1]:.4f} ms" if prev else ""
 
 
-# --only: the checks of one kernel source; --baseline: an earlier copy of that
-# source, built beside it and timed in turns with it
+# --only: the checks of one kernel family (its main source first); --baseline:
+# earlier copies of its sources, built beside them and timed in turns with them
 ONLY_SOURCES = {"attention": "attention_kernels", "block": "block_kernels",
-                "cache": "cache_kernels"}
+                "cache": "cache_kernels", "decode": "decode_kernels"}
+ONLY_BUILDS = {"attention": ("attention_kernels", "block_kernels"),   # the towers run both
+               "block": ("block_kernels", "attention_kernels"),
+               "cache": ("cache_kernels",),
+               "decode": ("gemv_kernels", "decode_kernels")}
 
 
 def _ops_module(source: str):
@@ -647,12 +662,25 @@ def _ops_module(source: str):
     return importlib.import_module(
         {"attention_kernels": "summer_clip_torch.ops.attention",
          "block_kernels": "summer_clip_torch.ops.block_kernels",
-         "cache_kernels": "summer_clip_torch.ops.cache_kernels"}[source])
+         "cache_kernels": "summer_clip_torch.ops.cache_kernels",
+         "gemv_kernels": "summer_clip_torch.ops.gemv",
+         "decode_kernels": "summer_clip_torch.ops.decode_block"}[source])
+
+
+def baseline_source(only: str, src: str) -> str:
+    """The source an old copy given to ``--baseline`` stands for: its file name,
+    which must be one of the ``--only`` family's sources."""
+    name = Path(src).stem
+    if name not in ONLY_BUILDS[only]:
+        raise ValueError(f"--baseline {src}: --only {only} takes "
+                         f"{' or '.join(f'{n}.cu' for n in ONLY_BUILDS[only])}")
+    return name
 
 
 def load_baseline(src: str, source: str):
     """Build another copy of ``csrc/<source>.cu`` (an earlier design,
-    ``--baseline``) with the port's flags, its headers beside it, and declare
+    ``--baseline``) with the port's flags against the headers beside it (its
+    own commit's; a header that is not there comes from this tree), and declare
     the entry points of the tree's wrapper module that it has: its times stand
     beside the kernels' in the checks, in turns on the same inputs."""
     import shutil
@@ -661,6 +689,8 @@ def load_baseline(src: str, source: str):
 
     out_dir = Path(tempfile.mkdtemp(prefix=f"{source}_baseline_"))
     for header in _lib.CSRC_DIR.glob("*.cuh"):     # an older source may include fewer
+        shutil.copy(header, out_dir)
+    for header in Path(src).resolve().parent.glob("*.cuh"):   # the old source's own
         shutil.copy(header, out_dir)
     shutil.copy(src, out_dir / f"{source}.cu")
     out = out_dir / f"lib{source}_baseline.so"
@@ -674,6 +704,10 @@ def load_baseline(src: str, source: str):
         signatures.update(PER_GROUP_LABEL_SIGNATURES)   # the label kernels before the template
     if source == "block_kernels" and not hasattr(lib, "block_gemm_bf16"):
         signatures.update(PER_HEAD_BLOCK_SIGNATURES)    # K5 and K6 before the GEMM chain
+    if source == "gemv_kernels" and not hasattr(lib, "cluster_qmatmul_i8"):
+        signatures.update(WORKSPACE_K7_SIGNATURES)      # K7 before the cluster reduction
+    if source == "decode_kernels" and not hasattr(lib, "decode_stack"):
+        signatures.update(WORKSPACE_K8_SIGNATURES)      # K8 before the weight ring
     for fn, argtypes in signatures.items():
         if hasattr(lib, fn):
             f = getattr(lib, fn)
@@ -761,18 +795,110 @@ def per_head_block_call(lib, name: str, args, heads: int, causal: bool):
     return out
 
 
-BASELINE: dict = {}    # "source" and "lib": the --baseline build, when given
+# K7's and K8's entry points of the workspace-and-ticket design (PR 3's K7,
+# PR 4's K8): split-K partials in a workspace, added by the last block to
+# arrive at a column tile; K8 one cooperative launch
+WORKSPACE_K7_SIGNATURES = {f"streamed_qmatmul_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+                           for t in ("i8", "bf16", "f32")}
+WORKSPACE_K8_SIGNATURES = {"decode_block": [_P, _P, _I, _I, _P, _P]}
+_OLD_SCRATCH: dict = {}
+
+
+def _old_scratch(kind: str, numel: int, dtype):
+    """Zeroed scratch of the old designs, grown on demand (their tickets go
+    back to zero after every launch)."""
+    import torch
+
+    buf = _OLD_SCRATCH.get(kind)
+    if buf is None or buf.numel() < numel:
+        buf = _OLD_SCRATCH[kind] = torch.zeros(max(numel, 1024), dtype=dtype, device="cuda")
+    return buf
+
+
+def workspace_k7_call(lib, x, w, scale):
+    """One K7 call of the workspace-and-ticket design on its own entry: 128-
+    column tiles, K split until the tiles reach 264 blocks, in chunks of 64 to
+    1024 rows (its wrapper's rule)."""
+    import torch
+
+    from summer_clip_torch.ops import _lib
+
+    k, n = w.shape
+    rows, size = x.shape[0], w.element_size()
+    tiles = -(-n // (8 * (16 // size)))
+    splits = max(1, min(round(2 * 132 / tiles), k // 64))
+    chunk = -(-k // splits)
+    chunk = min(1024, -(-chunk // 32) * 32)
+    out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    ws = _old_scratch("k7_partials", -(-k // chunk) * rows * n, torch.float32)
+    tickets = _old_scratch("k7_tickets", tiles, torch.int32)
+    entry = {1: "streamed_qmatmul_i8", 2: "streamed_qmatmul_bf16", 4: "streamed_qmatmul_f32"}[size]
+    _lib.check(getattr(lib, entry)(x.data_ptr(), w.data_ptr(),
+                                   0 if scale is None else scale.data_ptr(), out.data_ptr(),
+                                   ws.data_ptr(), tickets.data_ptr(), rows, k, n, chunk,
+                                   _lib.torch_stream()), entry)
+    return out
+
+
+def workspace_k8_call(lib, x, packed, kv, idx, padv, nh: int):
+    """One K8 call of the workspace-and-ticket design on its own entry (PR 4's
+    cooperative launch: split-K partials and tickets, K chunks of 64 to 1024
+    rows aiming at one work item an SM)."""
+    import torch
+
+    from summer_clip_torch.ops import _lib
+
+    n_layer, batch, t, d = kv["k"].shape
+    h = packed["w1"].shape[2]
+    size = packed["wqkv"].element_size()
+    shapes = ((d, 3 * d), (d, d), (d, h), (h, d))
+
+    def chunk_of(k, n):
+        tiles = -(-n // (8 * (16 // size)))
+        splits = max(1, min(132 // tiles, k // 64))
+        chunk = -(-k // splits)
+        return min(1024, -(-chunk // 32) * 32)
+
+    chunks = [chunk_of(k, n) for k, n in shapes]
+    part = max(-(-k // c) * batch * n for (k, n), c in zip(shapes, chunks))
+    work = _old_scratch("k8_work", batch * (4 * d + h) + part, torch.float32)
+    qkv, att, hid, parts = work.split([batch * 3 * d, batch * d, batch * h,
+                                       work.numel() - batch * (4 * d + h)])
+    tickets = _old_scratch("k8_tickets", 8192, torch.int32)
+    y = x.to(torch.float32).clone()
+    kq = torch.empty((n_layer, batch, d), dtype=kv["k"].dtype, device=x.device)
+    vq = torch.empty_like(kq)
+    ksn = torch.empty((n_layer, batch, 1), dtype=torch.float32, device=x.device)
+    vsn = torch.empty_like(ksn)
+    tensors = [y, packed["wqkv"], packed["wproj"], packed["w1"], packed["w2"], packed["sqkv"],
+               packed["bqkv"], packed["sproj"], packed["bproj"], packed["s1"], packed["b1"],
+               packed["s2"], packed["b2"], packed["ln"], kv["k"], kv["v"], kv["ks"], kv["vs"],
+               idx, padv, kq, vq, ksn, vsn, qkv, att, hid, parts, tickets]
+    ptrs = (ctypes.c_void_p * 30)(*[a.data_ptr() for a in tensors], None)
+    dims = (ctypes.c_int * 10)(n_layer, batch, t, d, h, nh, *chunks)
+    _lib.check(lib.decode_block(ptrs, dims, int(size == 2), int(kv["k"].dtype == torch.bfloat16),
+                                _lib.torch_stream(), None), "decode_block (baseline)")
+    return y, kq, vq, ksn, vsn
+
+
+BASELINE: dict = {}    # source -> the --baseline build of it, when given
+
+
+def in_turns_ms(old, new, timer) -> tuple:
+    """(old, new) timed in turns, old, new, new, old, each pair averaged."""
+    b1, k1, k2, b2 = (timer(f) for f in (old, new, new, old))
+    return (b1 + b2) / 2, (k1 + k2) / 2
 
 
 def baseline_ms(fn, iters: int, source: str) -> tp.Optional[tuple]:
     """The kernel call ``fn`` (from ``csrc/<source>.cu``) timed on the
     baseline build and on this tree's, in turns (baseline, kernel, kernel,
     baseline); None without a baseline of that source."""
-    if BASELINE.get("source") != source:
+    if source not in BASELINE:
         return None
     from summer_clip_torch.ops import _lib
 
-    base = BASELINE["lib"]
+    base = BASELINE[source]
     ours = _lib.load(source, _ops_module(source)._SIGNATURES)
 
     def on(which):
@@ -792,9 +918,9 @@ def baseline_label_ms(fn, name: str, f, keys, labels, betas, c: int, iters: int 
     or K13 ``onehot_variant``) timed on the cache baseline and on this tree's
     build in turns; a baseline of the per-group design is called with its own
     arguments on the same inputs. None without a cache baseline."""
-    if BASELINE.get("source") != "cache_kernels":
+    if "cache_kernels" not in BASELINE:
         return None
-    base = BASELINE["lib"]
+    base = BASELINE["cache_kernels"]
     if hasattr(base, "grouped_stages"):
         return baseline_ms(fn, iters, "cache_kernels")
     old = lambda: per_group_label_call(base, name, f, keys, labels, betas, c,   # noqa: E731
@@ -810,9 +936,9 @@ def baseline_block_ms(fn, name: str, args, heads: int, causal: bool,
     in turns; a baseline of the design before the GEMM chain is called on its
     own entries with the same inputs (and its output held against the tree's
     kernel). None without a block baseline."""
-    if BASELINE.get("source") != "block_kernels":
+    if "block_kernels" not in BASELINE:
         return None
-    base = BASELINE["lib"]
+    base = BASELINE["block_kernels"]
     if hasattr(base, "block_gemm_bf16"):
         return baseline_ms(fn, iters, "block_kernels")
     import torch
@@ -1273,6 +1399,83 @@ def _quant_cols(wf):
     return torch.round(wf.cuda() / scale).clamp(-127, 127).to(torch.int8), scale
 
 
+def k7_library(x, w, scale):
+    """One PyTorch call computing K7's function, a yardstick used nowhere in the
+    port: ``torch._weight_int8pack_mm`` for int8 weights (w as (N, K), x and
+    the scale in f32 where the card's PyTorch takes them, else bf16), a cuBLAS
+    product of the bf16 operands for bf16 weights (f32 out where ``torch.mm``
+    takes ``out_dtype``, else bf16 out). Returns (a call on one copy of the
+    stored weights, (the copy's tensors), a note on where its rounding differs
+    from K7's), or None with the reason when the card's PyTorch has none."""
+    import torch
+
+    xb = x.to(torch.bfloat16)
+    if w.dtype == torch.int8:
+        wt = w.t().contiguous()
+        for dt in (torch.float32, torch.bfloat16):
+            xa, sa = xb.to(dt), scale.reshape(-1).to(dt)
+            try:
+                torch._weight_int8pack_mm(xa, wt, sa)
+            except (RuntimeError, NotImplementedError, TypeError) as exc:
+                reason = f"torch._weight_int8pack_mm: {str(exc).splitlines()[0][:120]}"
+                continue
+            note = ("int8pack_mm, f32 x (bf16-rounded) and scale, f32 out" if dt == torch.float32
+                    else "int8pack_mm in bf16: the scale and the output round to bf16")
+            return (lambda c: torch._weight_int8pack_mm(xa, c, sa)), wt, note
+        return None, None, reason
+    try:
+        torch.mm(xb, w, out_dtype=torch.float32)
+        return (lambda c: torch.mm(xb, c, out_dtype=torch.float32)), w, "cuBLAS bf16, f32 out"
+    except (TypeError, RuntimeError):
+        return (lambda c: torch.mm(xb, c)), w, "cuBLAS bf16: the output rounds to bf16"
+
+
+def check_k7_reads_x_after_its_predecessor(w8, scale) -> None:
+    """Programmatic dependent launch lets K7 start before the kernel before it
+    ends: it must read x only after that kernel's writes. x is filled with NaN,
+    then written by a slow predecessor -- a reduction over 84 MB, or a K7 whose
+    output it is (the decode chain's c_fc -> c_proj) -- and K7 runs at once."""
+    import torch
+
+    from summer_clip_torch.ops import gemv
+
+    k, n = w8.shape                                  # (1280, 5120): c_fc
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    big = torch.randn((8, n, 512), device="cuda", generator=gen)
+    w2 = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+    s2 = torch.full((1, k), 1e-3, device="cuda")
+    x0 = torch.randn((8, k), device="cuda", generator=gen)
+    # what K7 gives on x once x is surely written (a synchronised call each)
+    x_sum = big.sum(-1)
+    torch.cuda.synchronize()
+    want_sum = gemv.streamed_qmatmul(x_sum, w2, s2)
+    torch.cuda.synchronize()
+    hidden = gemv.streamed_qmatmul(x0, w8, scale)
+    torch.cuda.synchronize()
+    want_chain = gemv.streamed_qmatmul(hidden, w2, s2)
+    torch.cuda.synchronize()
+    differ = 0
+    xbuf = torch.empty((8, n), device="cuda")
+    for _ in range(20):
+        xbuf.fill_(float("nan"))
+        torch.sum(big, dim=-1, out=xbuf)
+        got_sum = gemv.streamed_qmatmul(xbuf, w2, s2)
+        # a NaN block of the output's size, freed: the caching allocator hands it
+        # to the first K7's output, so x holds NaN until that K7 writes it
+        del hidden
+        torch.full((8, n), float("nan"), device="cuda")
+        hidden = gemv.streamed_qmatmul(x0, w8, scale)
+        got_chain = gemv.streamed_qmatmul(hidden, w2, s2)
+        differ += int(not torch.equal(got_sum, want_sum)) + int(not torch.equal(got_chain, want_chain))
+    plain = float((want_sum - gemv.matmul_reference(x_sum, w2, s2)).abs().max()
+                  / want_sum.abs().max())
+    log(f"K7 after a slow predecessor that writes its x (20 x two chains, PDL on): {differ} of 40 "
+        f"results differ from the synchronised call's bits; that call against plain "
+        f"{plain:.3e} of max (tol {TOL_GEMV_REL})")
+    if differ or not plain <= TOL_GEMV_REL:
+        raise AssertionError("K7 read its x before the kernel before it had written it")
+
+
 def check_gemv_kernels(results: dict) -> None:
     """K7 at every gpt2-large shape with R = 1, 3 (the batched sampler's rows
     on the third main path) and 8, int8 and bf16 weights, and K10 at D = 1280,
@@ -1282,7 +1485,11 @@ def check_gemv_kernels(results: dict) -> None:
     launches walk copies of the weights, 128 MB in all, so that every launch
     reads its matrix from device memory as a decode loop does (a token reads
     773 MB between two reads of the same matrix). ``eager_ms`` is the time of
-    back-to-back calls of the wrapper from Python, which is the host's time."""
+    back-to-back calls of the wrapper from Python, which is the host's time.
+    At R = 1 K7 is also timed with programmatic dependent launch off
+    (``serial_ms``), and each launch after a PyTorch kernel that writes its x,
+    with it on and off (``after_torch_ms``, ``after_torch_serial_ms``); with a
+    gemv baseline, the earlier design in turns (``baseline_ms``)."""
     import torch
 
     from summer_clip_torch.ops import gemv
@@ -1290,10 +1497,13 @@ def check_gemv_kernels(results: dict) -> None:
     gen = torch.Generator().manual_seed(4)
     r7 = results.setdefault("K7 streamed_qmatmul", {"max_abs_err": 0.0, "shapes": {},
                                                     "library_ms": None})
+    base = BASELINE.get("gemv_kernels")
     for name, (k, n) in GPT2_LARGE_GEMVS.items():
         wf = torch.randn((k, n), generator=gen) * k ** -0.5
         w8, scale = _quant_cols(wf)
         wb = wf.to("cuda", torch.bfloat16)
+        if name == "mlp_c_fc":
+            check_k7_reads_x_after_its_predecessor(w8, scale)
         for wname, w, sc in (("int8", w8, scale), ("bf16", wb, None)):
             ws = [w] + [w.clone() for _ in range(_copies(w.numel() * w.element_size()) - 1)]
             for rows in GEMV_ROWS:
@@ -1307,31 +1517,67 @@ def check_gemv_kernels(results: dict) -> None:
                 if rows > 1 and not torch.equal(got[:1], gemv.streamed_qmatmul(x[:1], w, sc)):
                     raise AssertionError(f"K7 {name} {wname}: a row's result depends on the "
                                          f"rows that ride with it")
-                ms = graph_time_ms([lambda c=c: gemv.streamed_qmatmul(x, c, sc) for c in ws])
+                ours = [lambda c=c: gemv.streamed_qmatmul(x, c, sc) for c in ws]
+                ms = graph_time_ms(ours)
                 plain_ms = graph_time_ms([lambda c=c: gemv.matmul_reference(x, c, sc) for c in ws[:8]])
                 eager_ms = cuda_time_ms(lambda: gemv.streamed_qmatmul(x, w, sc), 20)
                 b = bound(w.numel() * w.element_size() + 4 * rows * (k + n) + (4 * n if sc is not None else 0),
                           2 * rows * k * n)
-                log(f"K7 streamed_qmatmul {name:11s} ({k}, {n}) R={rows} {wname}: max|d|={err:.3e} "
-                    f"(tol {tol:.3e}) kernel {ms:.4f} ms (cold, in a graph; {eager_ms:.4f} ms a call "
-                    f"from Python), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
-                    f"{b['bound_by']}")
+                extra, line = {}, ""
+                call, lib_w, note = k7_library(x, w, sc)
+                if call is not None:
+                    copies = [lib_w] + [lib_w.clone() for _ in range(len(ws) - 1)]
+                    extra["library_ms"] = graph_time_ms([lambda c=c: call(c) for c in copies])
+                    line += f", library {extra['library_ms']:.4f} ms ({note})"
+                    del copies
+                else:
+                    extra["library_ms"] = None
+                    line += f", library: none ({note})"
+                if rows == 1:
+                    gemv.PDL = False
+                    try:
+                        extra["serial_ms"] = graph_time_ms(ours)
+                        extra["after_torch_serial_ms"] = graph_time_ms(
+                            [lambda c=c: (x.mul_(1.0), gemv.streamed_qmatmul(x, c, sc)) for c in ws])
+                    finally:
+                        gemv.PDL = True
+                    extra["after_torch_ms"] = graph_time_ms(
+                        [lambda c=c: (x.mul_(1.0), gemv.streamed_qmatmul(x, c, sc)) for c in ws])
+                    line += (f"; PDL off {extra['serial_ms']:.4f} ms; after a PyTorch kernel "
+                             f"{extra['after_torch_ms']:.4f} ms a pair (PDL off "
+                             f"{extra['after_torch_serial_ms']:.4f})")
+                if base is not None:
+                    old = [lambda c=c: workspace_k7_call(base, x, c, sc) for c in ws]
+                    old_err = float((old[0]() - got).abs().max())
+                    extra["baseline_ms"], extra["in_turns_ms"] = in_turns_ms(old, ours, graph_time_ms)
+                    line += (f"; in turns: baseline {extra['baseline_ms']:.4f} ms, kernel "
+                             f"{extra['in_turns_ms']:.4f} ms (baseline vs kernel max|d| "
+                             f"{old_err:.3e})")
+                log(f"K7 streamed_qmatmul {name:11s} ({k}, {n}) R={rows} {wname} plan "
+                    f"{gemv.k7_plan(k, n, w.element_size())}: max|d|={err:.3e} (tol {tol:.3e}) "
+                    f"kernel {ms:.4f} ms (cold, in a graph; {eager_ms:.4f} ms a call from Python), "
+                    f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}{line}")
                 if not torch.isfinite(got).all() or err > tol:
                     raise AssertionError(f"K7 {name} R={rows} {wname}: kernel disagrees with plain")
                 r7["max_abs_err"] = max(r7["max_abs_err"], err)
                 r7["shapes"][f"{name} R={rows} {wname}"] = {
-                    "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "max_abs_err": err, **b}
+                    "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "max_abs_err": err,
+                    **extra, **b}
             del ws
     # one decoded token's 147 int8 products at R = 1: 36 blocks of 4, 2 adapters, the head
-    token = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "serial_ms") + (
+        ("baseline_ms", "in_turns_ms") if base is not None else ())
+    token = dict.fromkeys(keys, 0.0)
     for name in GPT2_LARGE_GEMVS:
         count = 36 if name in ("c_attn", "c_proj", "mlp_c_fc", "mlp_c_proj") else 1
         for key in token:
             token[key] += count * r7["shapes"][f"{name} R=1 int8"][key]
     r7["shapes"]["token R=1 int8"] = {**token, "bound_by": "bytes", "max_abs_err": r7["max_abs_err"]}
-    log(f"K7 one token (147 products, R=1, int8): kernels {token['ms']:.4f} ms on the device, "
-        f"{token['eager_ms']:.4f} ms called from Python, plain {token['plain_ms']:.4f} ms, bound "
-        f"{token['bound_ms']:.4f} ms by bytes")
+    log(f"K7 one token (147 products, R=1, int8): kernels {token['ms']:.4f} ms on the device "
+        f"(PDL off {token['serial_ms']:.4f}), {token['eager_ms']:.4f} ms called from Python, plain "
+        f"{token['plain_ms']:.4f} ms, bound {token['bound_ms']:.4f} ms by bytes"
+        + (f"; in turns: baseline {token['baseline_ms']:.4f} ms, kernel {token['in_turns_ms']:.4f} ms"
+           if base is not None else ""))
 
     d, h = 1280, 5120
     r10 = results.setdefault("K10 fused_qmlp", {"max_abs_err": 0.0, "shapes": {},
@@ -1456,7 +1702,8 @@ def check_decode_block(results: dict) -> None:
     version's input for that block; the whole stack is held against the plain
     chain; two runs must give the same bits, and a stream of a batched call
     the bits of its solo call. Times: CUDA events around 10 launches (a launch
-    reads 708 MB of weights, so every launch finds them cold)."""
+    reads 708 MB of weights, so every launch finds them cold); with a decode
+    baseline, the earlier design in turns on the same inputs."""
     import torch
 
     from summer_clip_torch.ops import decode_block as DB
@@ -1464,8 +1711,12 @@ def check_decode_block(results: dict) -> None:
     n_layer, d, h, nh = 36, 1280, 5120, 20
     r8 = results.setdefault("K8 decode_block", {"max_abs_err": 0.0, "shapes": {},
                                                 "library_ms": None})
-    log(f"K8 decode_block: persistent grid of {DB.grid_blocks()} blocks, "
-        f"{DB.barriers(n_layer)} grid-wide barriers a launch at {n_layer} blocks")
+    base = BASELINE.get("decode_kernels")
+    log(f"K8 decode_block: persistent grid of {DB.grid_blocks()} CTAs in clusters of "
+        f"{DB.CLUSTER}, {DB.barriers(n_layer)} grid-wide barriers a launch at {n_layer} blocks; "
+        f"tiles (bytes, box rows) of qkv, proj, fc, out: int8 "
+        f"{[DB.stage_plan(k, n, 1) for _, k, n in DB._products(d, h)]}, bf16 "
+        f"{[DB.stage_plan(k, n, 2) for _, k, n in DB._products(d, h)]}")
     cases = [("int8", torch.int8, b, t) for b, t in K8_SHAPES] + [("bf16", torch.bfloat16, 1, 1024)]
     packed, packed_store = None, None
     for store, kv_dtype, batch, t in cases:
@@ -1513,7 +1764,16 @@ def check_decode_block(results: dict) -> None:
                     and all(torch.equal(a, b[:, row:]) for a, b in zip(solo[1:], got[1:]))):
                 raise AssertionError(f"K8 B={batch} T={t}: a stream's result depends on the "
                                      f"streams that ride with it")
-        ms = cuda_time_ms(lambda: DB.decode_block(x, packed, kv, idx, nh=nh, pad=padv), 10)
+        ours = lambda: DB.decode_block(x, packed, kv, idx, nh=nh, pad=padv)   # noqa: E731
+        ms = cuda_time_ms(ours, 10)
+        turns, line = {}, ""
+        if base is not None:
+            old = lambda: workspace_k8_call(base, x, packed, kv, idx, padv, nh)   # noqa: E731
+            old_err = float((old()[0] - got[0]).abs().max() / got[0].abs().max())
+            turns["baseline_ms"], turns["in_turns_ms"] = in_turns_ms(
+                old, ours, lambda f: cuda_time_ms(f, 10))
+            line = (f"; in turns: baseline {turns['baseline_ms']:.4f} ms, kernel "
+                    f"{turns['in_turns_ms']:.4f} ms (their y max|d|/max|y| {old_err:.3e})")
         size = packed["wqkv"].element_size()
         live = sum(max(i - p, 0) for i, p in zip(index, pad))
         moved = (n_layer * (12 * d * d * size + 4 * (2 * (4 * d + h + 2 * d) + 4 * d))   # weights, scales, biases, ln
@@ -1526,7 +1786,7 @@ def check_decode_block(results: dict) -> None:
             f"scales {worst['scale']:.2e} (tol {TOL_K8_SCALE_REL}); whole stack against the "
             f"plain chain {stack_rel:.3e} (tol {TOL_K8_STACK_REL}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
-            f"({moved / 1e6:.1f} MB, {live} live ring rows)")
+            f"({moved / 1e6:.1f} MB, {live} live ring rows){line}")
         if (not all(torch.isfinite(a.float()).all() for a in got)
                 or worst["y"] > TOL_K8_BLOCK_REL or worst["rows"] > TOL_K8_ROWS[store]
                 or worst["scale"] > TOL_K8_SCALE_REL or stack_rel > TOL_K8_STACK_REL):
@@ -1534,7 +1794,7 @@ def check_decode_block(results: dict) -> None:
         r8["max_abs_err"] = max(r8["max_abs_err"], worst["abs"])
         r8["shapes"][f"B={batch} T={t} {store}"] = {
             "ms": ms, "plain_ms": plain_ms, "max_abs_err": worst["abs"], "block_rel": worst["y"],
-            "stack_rel": stack_rel, "live_rows": live, **b}
+            "stack_rel": stack_rel, "live_rows": live, **turns, **b}
         del kv
     del packed
     torch.cuda.empty_cache()
@@ -3208,16 +3468,22 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
 
     parser = argparse.ArgumentParser(description="Run the port on one CUDA card, end to end.")
     parser.add_argument("--only", choices=sorted(ONLY_SOURCES),
-                        help="only build and run the checks of one kernel source, then stop "
+                        help="only build and run the checks of one kernel family, then stop "
                              "(no contract line): attention (K4, K11, K12 and the towers), "
-                             "block (K5, K6, K9 and the towers) or cache (K1, K2, K3, K13)")
-    parser.add_argument("--baseline", metavar="CU",
-                        help="with --only: an earlier copy of that source (attention_kernels.cu, "
-                             "block_kernels.cu or cache_kernels.cu), timed in turns beside this "
-                             "tree's kernels in the checks")
+                             "block (K5, K6, K9 and the towers), cache (K1, K2, K3, K13) or "
+                             "decode (K7, K10, K8)")
+    parser.add_argument("--baseline", metavar="CU", nargs="+",
+                        help="with --only: earlier copies of its sources (attention_kernels.cu, "
+                             "block_kernels.cu, cache_kernels.cu; gemv_kernels.cu and/or "
+                             "decode_kernels.cu), each built against the headers beside it and "
+                             "timed in turns beside this tree's kernels in the checks")
     args = parser.parse_args(argv)
     if args.baseline and not args.only:
         parser.error("--baseline needs --only (the source it is an earlier copy of)")
+    try:
+        old = {baseline_source(args.only, cu): cu for cu in args.baseline or ()}
+    except ValueError as exc:
+        parser.error(str(exc))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs only on a "
               "CUDA card", file=sys.stderr)
@@ -3234,18 +3500,13 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    only = {"attention": ("attention_kernels", "block_kernels"),   # the towers run both
-            "block": ("block_kernels", "attention_kernels"),
-            "cache": ("cache_kernels",)}
-    sources = only[args.only] if args.only else KERNEL_SOURCES
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:   # one nvcc each
+    sources = ONLY_BUILDS[args.only] if args.only else KERNEL_SOURCES
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(old)) as pool:   # one nvcc each
         builds = [pool.submit(_lib.build, name, True) for name in sources]
-        if args.baseline:
-            baseline = pool.submit(load_baseline, args.baseline, ONLY_SOURCES[args.only])
+        baselines = {name: pool.submit(load_baseline, cu, name) for name, cu in old.items()}
         for b in builds:
             b.result()
-        if args.baseline:
-            BASELINE.update(source=ONLY_SOURCES[args.only], lib=baseline.result())
+        BASELINE.update({name: b.result() for name, b in baselines.items()})
     log(f"phase build: {time.perf_counter() - t0:.2f} s")
 
     results: dict = {}
@@ -3256,11 +3517,14 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
             check_attention_kernels(results)
         elif args.only == "block":
             check_block_kernels(results)
+        elif args.only == "decode":
+            check_gemv_kernels(results)
+            check_decode_block(results)
         else:
             check_cache_kernels(results)
             check_dense_cache_kernel(results)
             check_onehot_variant(results)
-        if args.only != "cache":
+        if args.only in ("attention", "block"):
             time_towers(results)
         log(f"phase {args.only}: {time.perf_counter() - t0:.2f} s")
         log(f"card: {card}")

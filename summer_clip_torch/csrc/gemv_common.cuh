@@ -35,7 +35,6 @@ template <> struct Vec<int8_t> {
       f[4 * i + 3] = __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7653)) - 8388736.f;
     }
   }
-  static __device__ __forceinline__ float one(const int8_t* p) { return (float)*p; }
 };
 template <> struct Vec<bf16> {
   static constexpr int n = 8;
@@ -47,7 +46,6 @@ template <> struct Vec<bf16> {
       f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
-  static __device__ __forceinline__ float one(const bf16* p) { return __bfloat162float(*p); }
 };
 template <> struct Vec<float> {
   static constexpr int n = 4;
@@ -58,20 +56,7 @@ template <> struct Vec<float> {
     f[2] = round_bf16(__uint_as_float(raw.z));
     f[3] = round_bf16(__uint_as_float(raw.w));
   }
-  static __device__ __forceinline__ float one(const float* p) { return round_bf16(*p); }
 };
-
-// Columns col .. col + n - 1 of one weight row. ALIGNED: N is a multiple of n
-// and the base is 16-byte aligned, so one 16-byte load; else element by element.
-template <typename W, bool ALIGNED>
-__device__ __forceinline__ void load_cols(const W* row, int col, int N, float (&f)[Vec<W>::n]) {
-  if (ALIGNED) {
-    Vec<W>::unpack(*reinterpret_cast<const uint4*>(row + col), f);
-  } else {
-#pragma unroll
-    for (int j = 0; j < Vec<W>::n; ++j) f[j] = col + j < N ? Vec<W>::one(row + col + j) : 0.f;
-  }
-}
 
 __device__ __forceinline__ float gelu_tanh(float v) {
   const float c = 0.7978845608028654f;   // sqrt(2 / pi)

@@ -1,7 +1,7 @@
 // Weight-streaming products for decode-shaped activations (R <= 8 rows), sm_90a.
 //
 // Replaces the TPU kernels of summer_clip_tpu/ops/gemv.py:
-//   K7  streamed_qmatmul -> streamed_qmatmul_{i8,bf16,f32}
+//   K7  streamed_qmatmul -> cluster_qmatmul_{i8,bf16,f32}
 //       out (R, N) f32 = (bf16(x) (R, K) . w (K, N), f32 sums) * scale (N)
 //   K10 fused_qmlp       -> fused_qmlp_i8
 //       out (R, D) f32 = (bf16(gelu_tanh(bf16(x) . w1 * s1 + b1)) . w2) * s2 + b2
@@ -14,25 +14,28 @@
 //
 // What bounds them on Hopper: bytes. One token reads every stored weight once
 // and does 2 R operations per weight, far under the card's operations per byte.
-// So the kernels read the weights as stored, 16 bytes a thread with adjacent
-// threads on adjacent columns of the row-major matrix, and keep several loads
-// in flight per thread.
 //
-// K7. N = 1280 gives only 80 16-byte column groups, so a block owns 8 of
-// them (128 int8 columns) and its 256 threads split the K rows 32 ways; where
-// the column tiles alone do not fill 132 SMs, the K axis is also split over
-// blocks (grid.y). The 32 row lanes of a block are added in a fixed order
-// (shuffles, then shared memory). Split blocks write their (R, 128) partial
-// sums to a workspace; the block that arrives last at a column tile (an
-// integer ticket, no float atomics) adds the partials in split order and
-// applies the scale. So the result is deterministic, and a row's result does
-// not depend on how many rows ride with it (the split depends on K, N and the
-// weight type only). A first version gave a block 2048 columns and 8-row
-// chunks: the two last blocks of c_attn then added 160 partials of 2048
-// columns alone (0.106 ms at R = 1 and 0.73 ms at R = 8 on an H100, against
-// 0.007 and 0.018 ms of this one). The next step is the K split inside a
-// thread block cluster, added through distributed shared memory, which takes
-// the workspace round trip out of a kernel of a few microseconds.
+// K7. A launch of a few microseconds, so its fixed cost is the target. A CTA
+// owns a (column tile of twb bytes, K chunk) item; the CTAs that split one
+// tile's K form a thread-block cluster (1, 2, 4 or 8; ops/gemv.k7_plan picks
+// twb, the split and the box rows from K, N and the weight type only). At its
+// start a CTA's thread 0 asks TMA for its first ring slots of weight boxes
+// (2-D boxes of a UINT8 map over the rows' bytes; up to 96 KB in flight a
+// CTA), before griddepcontrol.wait: the weights never depend on the kernel
+// before, so under programmatic dependent launch they stream while that kernel
+// ends. x is read only after the wait, rounded to bf16 into shared memory. The
+// consumers multiply each box from shared memory (weight_ring.cuh); a slot, once
+// read, is refilled with the CTA's next box. After the main loop the CTA lets
+// the next launch start (griddepcontrol.launch_dependents), sums its tile in a
+// fixed order and pushes each sum to the rank that owns it (distributed shared
+// memory); after one cluster barrier each rank adds its sums in rank order and
+// scales and stores its share of the tile. No
+// workspace, no ticket, no second pass over L2. The split and the order of
+// every sum depend on the matrix only, so a row's result does not depend on the
+// rows that ride with it, and two runs give the same bits. Rows whose bytes TMA
+// cannot address (N times the item size not a multiple of 16, or a base not
+// 16-byte aligned) are copied element by element into the same boxes by the
+// CTA's threads; none of gpt2-large's matrices takes that path.
 //
 // K10. The hidden chunks are the parallel axis: a block owns 32 hidden units,
 // stages its (D, 32) slab of w1 (32-byte pieces of each row) and the bf16-
@@ -42,181 +45,217 @@
 // them in chunk order and applies s2 and b2: a last-block reduction of 160
 // chunks by one block would take longer than the products.
 //
-// Each entry point returns cudaGetLastError() after its launches.
+// Each entry point returns the launch's error.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "gemv_common.cuh"
+#include "hopper_common.cuh"
+#include "weight_ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // K7: threads a block
-constexpr int kGroups = 8;      // K7: 16-byte column groups a block owns (128 int8 columns)
-constexpr int kLanes = kThreads / kGroups;   // K7: rows of a chunk walked side by side
-constexpr int kMaxChunk = 1024; // K7: rows of x a block keeps in shared memory
+// ---------------------------------------------------------------------------
+// K7
+// ---------------------------------------------------------------------------
+constexpr int kQmmRingBytes = 96 * 1024;   // weight bytes a CTA keeps in flight
+constexpr int kQmmMaxSlots = 16;
+constexpr int kQmmXsRows = 1280;           // rows of x a CTA stages at a time
+constexpr int kSmemLimit = 232448;
 
-// K7. grid.x: column tiles of kGroups 16-byte groups; grid.y: K splits of
-// `chunk` rows. Thread = (k lane, column group): lane & 7 is the group, and
-// the 32 (warp, lane >> 3) pairs walk the chunk's rows 32 apart, so a warp
-// reads four 128-byte row pieces at a time. ws: (splits, rows, N) partial sums;
-// tickets: one int per column tile, 0 at rest.
-template <typename W, int R, bool ALIGNED>
-__global__ void __launch_bounds__(kThreads)
-qmatmul_kernel(const float* __restrict__ x, const W* __restrict__ w,
-               const float* __restrict__ scale, float* __restrict__ out,
-               float* __restrict__ ws, int* __restrict__ tickets, int rows, int K, int N,
-               int chunk) {
-  constexpr int V = Vec<W>::n;
-  constexpr int TILE = kGroups * V;               // columns a block owns
-  __shared__ __align__(16) float xs[8 * kMaxChunk];   // x rows, then the warps' sums
-  __shared__ int is_last;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kb = blockIdx.y * chunk;
-  const int len = min(K, kb + chunk) - kb;
-  const int splits = gridDim.y;
+struct QmmArgs {
+  CUtensorMap map;                 // w as (K rows, N * itemsize bytes), UINT8, box (twb, br)
+  const float* x;                  // (rows, K)
+  const void* w;                   // (K, N) row-major
+  const float* scale;              // (N) or null
+  float* out;                      // (rows, N)
+  int rows, K, N;
+  int twb, split, kc, br;          // tile bytes, CTAs a cluster, rows of K a CTA, rows a box
+  int slots, slot_bytes, seg;      // ring slots, their stride, rows of x staged at a time
+  int tma;                         // 1: TMA boxes; 0: element-wise copies
+};
 
-  // this block's rows kb .. of x, rounded to bf16; rows past `rows` are zero
-  for (int i = tid; i < R * len; i += kThreads) {
-    const int r = i / len, k = i % len;
-    xs[r * kMaxChunk + k] = r < rows ? round_bf16(x[(size_t)r * K + kb + k]) : 0.f;
+template <typename W> struct Bits;
+template <> struct Bits<int8_t> { typedef uint8_t t; };
+template <> struct Bits<bf16> { typedef uint16_t t; };
+template <> struct Bits<float> { typedef uint32_t t; };
+
+// box j of this CTA's chunk by the CTA's threads, zeros past the matrix
+template <typename W>
+__device__ __forceinline__ void copy_box(const QmmArgs& a, int c0, int row0, unsigned char* dst) {
+  typedef typename Bits<W>::t U;
+  const int tw = a.twb / (int)sizeof(W);
+  const U* w = reinterpret_cast<const U*>(a.w);
+  for (int i = threadIdx.x; i < a.br * tw; i += kRingThreads) {
+    const int r = row0 + i / tw, c = c0 + i % tw;
+    reinterpret_cast<U*>(dst)[i] = r < a.K && c < a.N ? w[(size_t)r * a.N + c] : (U)0;
   }
-  __syncthreads();
+}
 
-  const int c0 = blockIdx.x * TILE;
-  const int col = c0 + (lane & (kGroups - 1)) * V;
-  const int klane = warp * (32 / kGroups) + lane / kGroups;   // 0 .. kLanes - 1
+template <typename W, int R>
+__global__ void __launch_bounds__(kRingThreads)
+qmatmul_kernel(const __grid_constant__ QmmArgs a) {
+  constexpr int V = Vec<W>::n;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int tw = a.twb / (int)sizeof(W);
+  unsigned char* ring = smem;
+  float* xs = reinterpret_cast<float*>(smem + (size_t)a.slots * a.slot_bytes);   // (R, seg)
+  float* red = xs + R * a.seg;                     // (warps, R, tw)
+  float* recv = red + kRingWarps * R * tw;         // (split, stride): the ranks' sums, pushed
+  uint64_t* bars = reinterpret_cast<uint64_t*>(recv + R * tw + 8);
+  const int rank = a.split > 1 ? (int)cluster_rank() : 0;
+  const int tile = blockIdx.x / a.split;
+  const int kb = rank * a.kc, c0 = tile * tw;
+  const int nbox = a.kc / a.br;
+  const int box_bytes = a.twb * a.br;
+
+  if (a.tma && tid == 0) {   // the first slots, before the wait: weights only
+    for (int s = 0; s < a.slots; ++s) mbar_init(smem_u32(bars + s), 1);
+    mbar_init_fence();
+    for (int j = 0; j < a.slots && j < nbox; ++j) {
+      mbar_expect(smem_u32(bars + j), box_bytes);
+      tma_2d_hint(smem_u32(ring + (size_t)j * a.slot_bytes), &a.map, smem_u32(bars + j),
+                  tile * a.twb, kb + j * a.br, evict_first_policy());
+    }
+  }
+  grid_dependency_wait();   // x (and the output's memory) belong to the kernel before
+
+  // the epilogue's first scale, asked for with the first rows of x
+  const int i0 = rank + a.split * tid;
+  const float sc0 = a.scale && i0 < a.rows * tw && c0 + i0 % tw < a.N ? a.scale[c0 + i0 % tw] : 1.f;
+  const BoxLanes bl(a.twb);
   float acc[R][V];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[r][j] = 0.f;
   }
-  if (col < N) {
-    constexpr int U = R >= 8 ? 2 : 4;   // rows of w in flight per thread
-    const W* wp = w + (size_t)kb * N;
-    int k = klane;
-    for (; k + (U - 1) * kLanes < len; k += U * kLanes) {
-      float f[U][V];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        load_cols<W, ALIGNED>(wp + (size_t)(k + u * kLanes) * N, col, N, f[u]);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float xv = xs[r * kMaxChunk + k + u * kLanes];
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc[r][j] = fmaf(xv, f[u][j], acc[r][j]);
+  for (int s0 = 0; s0 < a.kc; s0 += a.seg) {
+    __syncthreads();   // the last segment's rows of x are read
+    for (int i = tid; i < R * a.seg; i += kRingThreads) {
+      const int r = i / a.seg, k = kb + s0 + i % a.seg;
+      xs[i] = r < a.rows && k < a.K && s0 + i % a.seg < a.kc ? round_bf16(a.x[(size_t)r * a.K + k])
+                                                             : 0.f;
+    }
+    __syncthreads();
+    // the segment's boxes a ring-full at a time: wait (or copy) and multiply,
+    // then one barrier frees their slots and thread 0 refills them
+    const int j_end = min(nbox, (s0 + a.seg) / a.br);
+    for (int j0 = s0 / a.br; j0 < j_end; j0 += a.slots) {
+      const int jn = min(j_end, j0 + a.slots);
+      for (int j = j0; j < jn; ++j) {
+        const int slot = j % a.slots;
+        if (a.tma) mbar_wait_bounded(smem_u32(bars + slot), (uint32_t)(j / a.slots) & 1u);
+        else copy_box<W>(a, c0, kb + j * a.br, ring + (size_t)slot * a.slot_bytes);
+      }
+      if (!a.tma) __syncthreads();
+      boxes_fma<W, R>(ring, a.slot_bytes, a.slots, j0 % a.slots, jn - j0, a.twb, a.br,
+                      xs + (j0 * a.br - s0), a.seg, bl, acc);
+      __syncthreads();   // the slots are read
+      if (a.tma && tid == 0) {
+        for (int j = j0; j < jn && j + a.slots < nbox; ++j) {
+          const int slot = j % a.slots;
+          mbar_expect(smem_u32(bars + slot), box_bytes);
+          tma_2d_hint(smem_u32(ring + (size_t)slot * a.slot_bytes), &a.map, smem_u32(bars + slot),
+                      tile * a.twb, kb + (j + a.slots) * a.br, evict_first_policy());
         }
       }
     }
-    for (; k < len; k += kLanes) {
-      float f[V];
-      load_cols<W, ALIGNED>(wp + (size_t)k * N, col, N, f);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float xv = xs[r * kMaxChunk + k];
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[r][j] = fmaf(xv, f[j], acc[r][j]);
-      }
-    }
   }
-  // add the k lanes in a fixed order: within the warp by shuffles, then the
-  // warps through shared memory (x is no longer read)
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], kGroups);
-      acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], 2 * kGroups);
-    }
-  }
-  __syncthreads();
-  float* red = xs;   // (warps, R, TILE)
-  if (lane < kGroups) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) red[(warp * R + r) * TILE + lane * V + j] = acc[r][j];
-    }
-  }
-  __syncthreads();
-  const int width = min(N - c0, TILE);
-  for (int i = tid; i < rows * width; i += kThreads) {
-    const int r = i / width, c = i % width;
-    float sum = 0.f;
-#pragma unroll
-    for (int wv = 0; wv < kThreads / 32; ++wv) sum += red[(wv * R + r) * TILE + c];
-    if (splits == 1)
-      out[(size_t)r * N + c0 + c] = sum * (scale ? scale[c0 + c] : 1.f);
-    else
-      ws[((size_t)blockIdx.y * rows + r) * N + c0 + c] = sum;
-  }
-  if (splits == 1) return;
+  launch_dependents();   // the next launch may start streaming its weights
 
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(&tickets[blockIdx.x], 1) == splits - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  // the last block of this column tile: add the partials in split order
-  for (int i = tid; i < rows * width; i += kThreads) {
-    const int r = i / width, c = c0 + i % width;
-    const float* p = ws + (size_t)r * N + c;
-    const size_t step = (size_t)rows * N;
-    float sum = 0.f;
-    int s = 0;
-    for (; s + 4 <= splits; s += 4) {   // four loads in flight, added in split order
-      const float p0 = __ldcg(p + s * step), p1 = __ldcg(p + (s + 1) * step);
-      const float p2 = __ldcg(p + (s + 2) * step), p3 = __ldcg(p + (s + 3) * step);
-      sum += p0;
-      sum += p1;
-      sum += p2;
-      sum += p3;
-    }
-    for (; s < splits; ++s) sum += __ldcg(p + s * step);
-    out[(size_t)r * N + c] = sum * (scale ? scale[c] : 1.f);
+  const int stride = (a.rows * tw + a.split - 1) / a.split;
+  tile_sums<W, R>(acc, bl, tw, 0, a.rows, red, recv, a.split, rank, stride);
+  if (a.split > 1) cluster_sync();   // every rank's sums are pushed
+  else __syncthreads();
+  // this rank's share of the tile: element i = rank, rank + split, ...
+  for (int i = i0; i < a.rows * tw; i += a.split * kRingThreads) {
+    const int r = i / tw, c = c0 + i % tw;
+    const float v = rank_sum(recv, i / a.split, a.split, stride);
+    if (c < a.N) a.out[(size_t)r * a.N + c] = v * (i == i0 ? sc0 : a.scale ? a.scale[c] : 1.f);
   }
-  if (tid == 0) tickets[blockIdx.x] = 0;
 }
 
 template <typename W, int R>
-int launch_qmatmul_r(const void* x, const void* w, const void* scale, void* out, void* ws,
-                     void* tickets, int rows, int K, int N, int chunk, int splits, bool aligned,
-                     cudaStream_t stream) {
-  constexpr int TILE = kGroups * Vec<W>::n;
-  dim3 grid((unsigned)((N + TILE - 1) / TILE), (unsigned)splits);
-  if (aligned)
-    qmatmul_kernel<W, R, true><<<grid, kThreads, 0, stream>>>(
-        (const float*)x, (const W*)w, (const float*)scale, (float*)out, (float*)ws,
-        (int*)tickets, rows, K, N, chunk);
-  else
-    qmatmul_kernel<W, R, false><<<grid, kThreads, 0, stream>>>(
-        (const float*)x, (const W*)w, (const float*)scale, (float*)out, (float*)ws,
-        (int*)tickets, rows, K, N, chunk);
-  return (int)cudaGetLastError();
+int launch_qmatmul_r(QmmArgs& a, int pdl, cudaStream_t stream) {
+  const int tw = a.twb / (int)sizeof(W);
+  const size_t smem = (size_t)a.slots * a.slot_bytes + 4ull * R * a.seg +
+                      4ull * kRingWarps * R * tw + 4ull * (R * tw + 8) + 8ull * a.slots;
+  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  static bool sized = false;   // the largest dynamic shared memory, once
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmatmul_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const int tiles = (a.N * (int)sizeof(W) + a.twb - 1) / a.twb;
+  cudaLaunchAttribute attrs[2];
+  int n = 0;
+  if (a.split > 1) {
+    attrs[n].id = cudaLaunchAttributeClusterDimension;
+    attrs[n].val.clusterDim.x = (unsigned)a.split;
+    attrs[n].val.clusterDim.y = 1;
+    attrs[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl) {
+    attrs[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attrs[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * a.split));
+  cfg.blockDim = dim3(kRingThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = (unsigned)n;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, qmatmul_kernel<W, R>, a);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <typename W>
-int launch_qmatmul(const void* x, const void* w, const void* scale, void* out, void* ws,
-                   void* tickets, int rows, int K, int N, int chunk, void* stream) {
-  if (rows < 1 || rows > 8 || K < 1 || N < 1 || chunk < 1 || chunk > kMaxChunk)
+int launch_qmatmul(const void* x, const void* w, const void* scale, void* out, int rows, int K,
+                   int N, int twb, int split, int kc, int br, int pdl, void* stream) {
+  if (rows < 1 || rows > 8 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if ((twb != 16 && twb != 32 && twb != 64 && twb != 128) || twb < (int)sizeof(W) * 4)
     return (int)cudaErrorInvalidValue;
-  const int splits = (K + chunk - 1) / chunk;
-  if (splits > 65535) return (int)cudaErrorInvalidValue;
-  const bool aligned = N % Vec<W>::n == 0 && (uintptr_t)w % 16 == 0;
+  if ((split != 1 && split != 2 && split != 4 && split != 8) || kc < 8 || kc % 8 ||
+      (long long)kc * (split - 1) >= K || (long long)kc * split < K)
+    return (int)cudaErrorInvalidValue;
+  if (br < 1 || br > 256 || kc % br || twb * br > 16384) return (int)cudaErrorInvalidValue;
+  QmmArgs a = {};
+  a.x = (const float*)x;
+  a.w = w;
+  a.scale = (const float*)scale;
+  a.out = (float*)out;
+  a.rows = rows; a.K = K; a.N = N;
+  a.twb = twb; a.split = split; a.kc = kc; a.br = br;
+  const long long row_bytes = (long long)N * sizeof(W);
+  a.tma = row_bytes % 16 == 0 && (uintptr_t)w % 16 == 0;
+  a.slot_bytes = (twb * br + 127) / 128 * 128;
+  const int nbox = kc / br;
+  a.slots = a.tma ? std::min(std::min(nbox, kQmmMaxSlots), std::max(1, kQmmRingBytes / a.slot_bytes))
+                   : 1;
+  a.seg = std::min(kc, std::max(br, kQmmXsRows / br * br));
+  if (a.tma) {
+    const int err = map_2d(&a.map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, row_bytes, K, row_bytes,
+                           twb, br, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != 0) return err;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  if (rows == 1)
-    return launch_qmatmul_r<W, 1>(x, w, scale, out, ws, tickets, rows, K, N, chunk, splits, aligned, s);
-  if (rows == 2)
-    return launch_qmatmul_r<W, 2>(x, w, scale, out, ws, tickets, rows, K, N, chunk, splits, aligned, s);
-  if (rows <= 4)
-    return launch_qmatmul_r<W, 4>(x, w, scale, out, ws, tickets, rows, K, N, chunk, splits, aligned, s);
-  return launch_qmatmul_r<W, 8>(x, w, scale, out, ws, tickets, rows, K, N, chunk, splits, aligned, s);
+  if (rows == 1) return launch_qmatmul_r<W, 1>(a, pdl, s);
+  if (rows == 2) return launch_qmatmul_r<W, 2>(a, pdl, s);
+  if (rows <= 4) return launch_qmatmul_r<W, 4>(a, pdl, s);
+  return launch_qmatmul_r<W, 8>(a, pdl, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -356,21 +395,24 @@ int launch_qmlp(const void* x, const void* w1, const void* s1, const void* b1, c
 
 extern "C" {
 
-// x (rows <= 8, K) f32, w (K, N) row-major, scale (N) f32 or null, out (rows, N)
-// f32. ws: at least ceil(K / chunk) * rows * N floats; tickets: at least
-// ceil(N / (8 * columns per 16 bytes)) ints, zero before the first call (the
-// kernel leaves them zero). chunk <= 1024 rows of K per block.
-int streamed_qmatmul_i8(const void* x, const void* w, const void* scale, void* out, void* ws,
-                        void* tickets, int rows, int K, int N, int chunk, void* stream) {
-  return launch_qmatmul<int8_t>(x, w, scale, out, ws, tickets, rows, K, N, chunk, stream);
+// K7. x (rows <= 8, K) f32, w (K, N) row-major, scale (N) f32 or null, out
+// (rows, N) f32. The plan (ops/gemv.k7_plan): twb bytes a column tile (16, 32,
+// 64 or 128), split CTAs a cluster (1, 2, 4, 8) over chunks of kc rows of K (a
+// multiple of 8; split - 1 chunks fall short of K, split chunks do not), boxes
+// of br rows (br divides kc, br <= 256, twb * br <= 16384). pdl: launch with
+// programmatic stream serialization (w and scale must not be written by the
+// kernel launched just before on the stream).
+int cluster_qmatmul_i8(const void* x, const void* w, const void* scale, void* out, int rows,
+                       int K, int N, int twb, int split, int kc, int br, int pdl, void* stream) {
+  return launch_qmatmul<int8_t>(x, w, scale, out, rows, K, N, twb, split, kc, br, pdl, stream);
 }
-int streamed_qmatmul_bf16(const void* x, const void* w, const void* scale, void* out, void* ws,
-                          void* tickets, int rows, int K, int N, int chunk, void* stream) {
-  return launch_qmatmul<bf16>(x, w, scale, out, ws, tickets, rows, K, N, chunk, stream);
+int cluster_qmatmul_bf16(const void* x, const void* w, const void* scale, void* out, int rows,
+                         int K, int N, int twb, int split, int kc, int br, int pdl, void* stream) {
+  return launch_qmatmul<bf16>(x, w, scale, out, rows, K, N, twb, split, kc, br, pdl, stream);
 }
-int streamed_qmatmul_f32(const void* x, const void* w, const void* scale, void* out, void* ws,
-                         void* tickets, int rows, int K, int N, int chunk, void* stream) {
-  return launch_qmatmul<float>(x, w, scale, out, ws, tickets, rows, K, N, chunk, stream);
+int cluster_qmatmul_f32(const void* x, const void* w, const void* scale, void* out, int rows,
+                        int K, int N, int twb, int split, int kc, int br, int pdl, void* stream) {
+  return launch_qmatmul<float>(x, w, scale, out, rows, K, N, twb, split, kc, br, pdl, stream);
 }
 
 // x (rows <= 8, D) f32; w1 (D, H), w2 (H, D) int8 row-major, 16-byte aligned;

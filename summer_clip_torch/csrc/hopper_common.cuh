@@ -1,8 +1,9 @@
 // Device and host helpers of the Hopper kernels (sm_90a): mbarriers, TMA,
 // wgmma, thread-block clusters and libcuda's tensor-map encoder.
 //
-// Included by attention_kernels.cu (K4, K11, K12), block_kernels.cu (K9) and
-// cache_kernels.cu (K1). Everything sits in an anonymous namespace: each
+// Included by attention_kernels.cu (K4, K11, K12), block_kernels.cu (K9),
+// cache_kernels.cu (K1) and, through weight_ring.cuh, gemv_kernels.cu (K7) and
+// decode_kernels.cu (K8). Everything sits in an anonymous namespace: each
 // source is its own library.
 //
 // Conventions. Shared-memory addresses are 32-bit (smem_u32). A tile of
@@ -318,6 +319,43 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kTransB)
       : "memory");
+}
+
+// --- added for K7 and K8 ----------------------------------------------------
+// a float from the shared memory of a CTA of the cluster (address from cluster_addr)
+__device__ __forceinline__ float ld_cluster_f32(uint32_t cluster_address) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(cluster_address) : "memory");
+  return v;
+}
+// make mbarrier.init visible to the async proxy (TMA) and the cluster
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// an L2 policy that evicts these lines first: for data read once (a weight
+// stream), so that what is read again stays in L2
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+// tma_2d with an L2 cache policy
+__device__ __forceinline__ void tma_2d_hint(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4}], [%2], %5;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+// Programmatic dependent launch: wait until the grid this one depends on has
+// ended and its writes are visible (a no-op for a grid launched without the
+// attribute), and let the grid launched after this one start early.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 

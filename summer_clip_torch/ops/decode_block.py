@@ -14,8 +14,11 @@ stored and int8 (or bf16) KV rings with a scale per row:
 - :func:`decode_block_reference` -- the plain version, the JAX oracle's
   arithmetic with its rounding points;
 - :func:`decode_block` -- K8, CUDA source ``csrc/decode_kernels.cu``; replaces
-  the TPU kernel ``decode_block`` (ops/decode_block.py:723). One cooperative
-  launch of a persistent grid; ``index`` and ``pad`` are read on the device.
+  the TPU kernel ``decode_block`` (ops/decode_block.py:723). One launch of a
+  persistent grid of 4-CTA clusters; ``index`` and ``pad`` are read on the
+  device. :func:`stage_plan` picks each product's column tile and TMA box from
+  its geometry, and :func:`weight_boxes` walks a CTA's weight stream as the
+  kernel does.
 - :func:`mega_legal` -- the routing rule of ``generation.megakernel=auto``, the
   JAX package's. Its stage plan (VMEM slabs, T chunks) has no counterpart here.
 - :func:`mega_from_numpy` -- the JAX package's packed slabs or rings, as numpy
@@ -35,19 +38,22 @@ import torch
 import torch.nn.functional as F
 
 from summer_clip_torch.ops import _lib
-from summer_clip_torch.ops.gemv import _scratch, is_qleaf, matmul_reference
+from summer_clip_torch.ops.gemv import _scratch, box_rows, is_qleaf, matmul_reference
 
 __all__ = ["mega_legal", "pack_core_params", "init_mega_kv", "cache_to_mega", "mega_update_kv",
            "mega_from_numpy", "decode_block", "decode_block_reference", "barriers", "grid_blocks",
-           "MAX_STREAMS"]
+           "stage_plan", "weight_boxes", "MAX_STREAMS", "CLUSTER"]
 
 MAX_STREAMS = 8      # streams one launch carries
 _TC = 256            # ring rows are padded to a multiple of this; the online softmax's pass
 _CHUNK_CAP = 4 * 1024 * 1024   # the JAX package's slab cap: part of the routing rule only
 _NEG = -1e30
-_ITEMS_TARGET = 132  # work items (column tile x K chunk) a product stage of K8 aims at
-_CHUNK_MAX = 1024    # rows of K a block of K8 keeps in shared memory
-_TICKETS = 8192
+CLUSTER = 4          # CTAs of a K8 cluster: the K split of a product, the row split of a pass
+_PLAN_CLUSTERS = 32  # clusters the tile planner deals to (an H100 holds 32-33 such clusters)
+# a tile's fixed cost (box waits, sums, its cluster barrier, the epilogue: ~1.5 us on
+# an H100 at one stream, against ~1 us of products a 128-byte tile) in bytes of width
+_TILE_COST = 192
+_SLOTS = 8           # boxes K8's ring holds (kSlots of csrc/decode_kernels.cu): a tile's at most
 
 KV = tp.Dict[str, torch.Tensor]
 
@@ -305,27 +311,65 @@ def decode_block_reference(x: torch.Tensor, packed: tp.Mapping[str, torch.Tensor
 # K8
 # ---------------------------------------------------------------------------
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"decode_block": [_P, _P, _I, _I, _P, _P]}
+_SIGNATURES = {"decode_stack": [_P, _P, _I, _I, _P, _P]}
 
 
 def _lib_decode():
     return _lib.load("decode_kernels", _SIGNATURES)
 
 
-def _stage_chunk(k: int, n: int, itemsize: int) -> int:
-    """Rows of K a work item of one product stage takes: K is split until the
-    column tiles times the splits reach about one item an SM, in chunks of at
-    least 64 and at most 1024 rows. Depends on the matrix only, never on the
-    number of streams, so a stream's sums do not depend on its companions."""
-    tiles = -(-n // (8 * (16 // itemsize)))
-    splits = max(1, min(_ITEMS_TARGET // tiles, k // 64))
-    chunk = -(-k // splits)
-    return min(_CHUNK_MAX, -(-chunk // 32) * 32)
+# the four products of a block: (name, K, N) of a (D, H) model
+def _products(d: int, h: int) -> tp.Tuple[tp.Tuple[str, int, int], ...]:
+    return (("qkv", d, 3 * d), ("proj", d, d), ("fc", d, h), ("out", h, d))
+
+
+def stage_plan(k: int, n: int, itemsize: int) -> tp.Tuple[int, int]:
+    """``(twb, br)`` of one product of K8: column tiles of ``twb`` bytes (16 to
+    256) and TMA boxes of ``br`` rows over each rank's K / 4 rows. The tile
+    that makes a stage's critical path shortest when the tiles are dealt to 32
+    clusters: the most tiles a cluster takes times the tile's width plus a
+    fixed cost; on a tie the wider tile; a tile's rows must fit the ring (8
+    boxes). Depends on the matrix alone, so a stream's sums do not depend on
+    its companions."""
+    row = n * itemsize
+    best, best_cost = 0, None
+    for twb in (256, 128, 64, 32, 16):
+        if k // CLUSTER // box_rows(k // CLUSTER, twb) > _SLOTS:
+            continue
+        tiles = -(-row // twb)
+        cost = -(-tiles // _PLAN_CLUSTERS) * (twb + _TILE_COST)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = twb, cost
+    return best, box_rows(k // CLUSTER, best)
+
+
+def weight_boxes(n_layer: int, d: int, h: int, itemsize: int, clusters: int, cluster: int,
+                 rank: int) -> tp.List[tp.Tuple[int, int, int, int, int, int]]:
+    """The weight boxes one CTA of K8 reads over a launch, in the order its
+    ring asks TMA for them: ``(layer, product, first byte of the row, first row
+    of the product's matrix, bytes, rows)``. Block l's product p has its column
+    tiles dealt to the clusters round-robin, continuing from the launch's
+    previous product; a cluster's rank takes rows rank * K / 4 .. of each of its
+    tiles, in boxes. The same walk as the kernel's ``Cursor``."""
+    plans = [stage_plan(k, n, itemsize) for _, k, n in _products(d, h)]
+    tiles = [-(-n * itemsize // twb) for (_, _, n), (twb, _) in zip(_products(d, h), plans)]
+    per_layer = sum(tiles)
+    out = []
+    for lay in range(n_layer):
+        for p, (_, k, _) in enumerate(_products(d, h)):
+            twb, br = plans[p]
+            base = (lay * per_layer + sum(tiles[:p])) % clusters
+            kc = k // CLUSTER
+            for t in range((cluster - base) % clusters, tiles[p], clusters):
+                for j in range(kc // br):
+                    out.append((lay, p, t * twb, rank * kc + j * br, twb, br))
+    return out
 
 
 def barriers(n_layer: int) -> int:
     """Grid-wide barriers of one launch of K8: five stages a block (qkv,
-    attention, proj, fc, out), none after the last."""
+    attention, proj, fc, out), none after the last. (Cluster barriers, one a
+    column tile and one or two a pass of the attention, stay inside a cluster.)"""
     return 5 * n_layer - 1
 
 
@@ -353,11 +397,13 @@ def decode_block(x: torch.Tensor, packed: tp.Mapping[str, torch.Tensor], kv: KV,
     Returns ``(y (B, D) f32, kq (L, B, D), vq, ksn (L, B, 1) f32, vsn)``; the
     caller writes the fresh rows into the rings (:func:`mega_update_kv`).
 
-    ``stamps`` (a measurement aid, CUDA only): an int64 tensor of
+    ``stamps`` (a measurement aid, CUDA only): an int64 tensor of at least
     ``L * 10 * grid_blocks() + 2`` entries that the kernel fills with every
-    block's SM cycle count at the start and the end of its work in each of a
-    block's five stages ((L, 5, 2, grid)), then block 0's clock in ns at its
-    start and end (``tools/torch_k8_stages.py`` reads them)."""
+    CTA's SM cycle count at the start and the end of its work in each of a
+    block's five stages ((L, 5, 2, grid)), then CTA 0's clock in ns at its
+    start and end; a build with ``-DK8_PROBE`` also stamps 7 phases inside each
+    stage after them ((L, 5, 8, grid); ``tools/torch_k8_stages.py [--phases]``
+    reads them)."""
     if x.device.type == "cpu":
         return decode_block_reference(x, packed, kv, index, nh=nh, pad=pad)
     if not x.is_cuda:
@@ -373,8 +419,9 @@ def decode_block(x: torch.Tensor, packed: tp.Mapping[str, torch.Tensor], kv: KV,
     h = packed["w1"].shape[2]
     if not 1 <= batch <= MAX_STREAMS:
         raise ValueError(f"decode_block takes 1..{MAX_STREAMS} streams, got {batch}")
-    if d != 64 * nh or h % 16:
-        raise ValueError(f"decode_block takes heads of 64 features, got D={d}, {nh} heads, H={h}")
+    if d != 64 * nh or d % 128 or d > 2048 or h % 128 or h > 4 * 1280:
+        raise ValueError(f"decode_block takes heads of 64 features, D a multiple of 128 up to "
+                         f"2048 and H a multiple of 128 up to 5120, got D={d}, {nh} heads, H={h}")
     wdt, kvdt = packed["wqkv"].dtype, k.dtype
     if wdt not in (torch.int8, torch.bfloat16) or kvdt not in (torch.int8, torch.bfloat16):
         raise TypeError(f"decode_block takes int8 or bfloat16 weights and rings, got {wdt}, {kvdt}")
@@ -401,23 +448,26 @@ def decode_block(x: torch.Tensor, packed: tp.Mapping[str, torch.Tensor], kv: KV,
     ksn = torch.empty((n_layer, batch, 1), dtype=f32, device=dev)
     vsn = torch.empty_like(ksn)
     size = packed["wqkv"].element_size()
-    chunks = [_stage_chunk(kk, nn, size) for kk, nn in shapes.values()]
-    part = max(-(-kk // c) * batch * nn for (kk, nn), c in zip(shapes.values(), chunks))
-    work = _scratch("k8_work", dev, batch * (4 * d + h) + part, f32)
-    qkv, att, hid, parts = work.split([batch * 3 * d, batch * d, batch * h,
-                                       work.numel() - batch * (4 * d + h)])
-    tickets = _scratch("k8_tickets", dev, _TICKETS, torch.int32)
+    plans = [stage_plan(kk, nn, size) for _, kk, nn in _products(d, h)]
+    work = _scratch("k8_work", dev, batch * (4 * d + h), f32)
+    qkv, att, hid = work[:batch * (4 * d + h)].split([batch * 3 * d, batch * d, batch * h])
+    sync = _scratch("k8_sync", dev, 2, torch.int32)
     tensors = [y, packed["wqkv"], packed["wproj"], packed["w1"], packed["w2"],
                packed["sqkv"], packed["bqkv"], packed["sproj"], packed["bproj"],
                packed["s1"], packed["b1"], packed["s2"], packed["b2"], packed["ln"],
                kv["k"], kv["v"], kv["ks"], kv["vs"], idx, padv, kq, vq, ksn, vsn,
-               qkv, att, hid, parts, tickets]
+               qkv, att, hid, sync]
     if stamps is not None:
-        _check(stamps, "stamps", (n_layer * 10 * grid_blocks(wdt, kvdt, batch) + 2,), torch.int64, dev)
+        need = n_layer * 10 * grid_blocks(wdt, kvdt, batch) + 2
+        if (stamps.dtype != torch.int64 or stamps.device != dev or stamps.dim() != 1
+                or stamps.numel() < need or not stamps.is_contiguous()):
+            raise ValueError(f"stamps: expected a contiguous int64 vector of at least {need} "
+                             f"entries on {dev}")
     ptrs = (ctypes.c_void_p * (len(tensors) + 1))(
         *[a.data_ptr() for a in tensors], None if stamps is None else stamps.data_ptr())
-    dims = (ctypes.c_int * 10)(n_layer, batch, t, d, h, nh, *chunks)
-    _lib.check(_lib_decode().decode_block(
+    dims = (ctypes.c_int * 14)(n_layer, batch, t, d, h, nh, *[twb for twb, _ in plans],
+                               *[br for _, br in plans])
+    _lib.check(_lib_decode().decode_stack(
         ptrs, dims, int(wdt == torch.bfloat16), int(kvdt == torch.bfloat16),
         _lib.torch_stream(), None), "decode_block")
     decode_block.launches += 1
@@ -429,11 +479,12 @@ decode_block.launches = 0
 
 def grid_blocks(weights: torch.dtype = torch.int8, rings: torch.dtype = torch.int8,
                 streams: int = 1) -> int:
-    """Blocks of the persistent grid a launch with these types takes on the
-    current CUDA device (one an SM)."""
+    """CTAs of the persistent grid a launch with these types takes on the
+    current CUDA device: one an SM, in as many 4-CTA clusters as can be
+    resident at once (the same for every geometry K8 takes)."""
     out = ctypes.c_int(0)
-    dims = (ctypes.c_int * 10)(1, streams, 256, 128, 512, 2, 32, 32, 32, 32)
-    _lib.check(_lib_decode().decode_block(
+    dims = (ctypes.c_int * 14)(1, streams, 256, 128, 512, 2, 16, 16, 16, 16, 32, 32, 32, 32)
+    _lib.check(_lib_decode().decode_stack(
         None, dims, int(weights == torch.bfloat16), int(rings == torch.bfloat16), None,
         ctypes.byref(out)), "decode_block (grid query)")
     return out.value

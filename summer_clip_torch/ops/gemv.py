@@ -8,8 +8,9 @@ stored and widened in registers.
 - :func:`matmul_reference` -- plain version of K7: ``(x.bf16 @ w.bf16, f32
   sums) * scale``, the scale applied after the sum, per output column.
 - :func:`streamed_qmatmul` -- K7, CUDA source ``csrc/gemv_kernels.cu``
-  (``streamed_qmatmul_{i8,bf16,f32}``); replaces the TPU kernel
-  ``streamed_qmatmul`` (ops/gemv.py:80).
+  (``cluster_qmatmul_{i8,bf16,f32}``); replaces the TPU kernel
+  ``streamed_qmatmul`` (ops/gemv.py:80). :func:`k7_plan` picks its column
+  tile, K split (a thread-block cluster) and TMA box from the matrix alone.
 - :func:`qdot` -- the dense contraction of ``models/gpt2.QDense`` against a
   plain or int8 leaf, with the JAX package's routing rule: at most 8 rows in
   all and a tile-legal matrix go to K7, everything else runs the same math as
@@ -50,19 +51,25 @@ __all__ = ["QLeaf", "is_qleaf", "matmul_reference", "streamed_qmatmul", "qdot", 
 
 MAX_ROWS = 8          # rows a decode-shaped call may have
 _BUDGET = 8 * 1024 * 1024   # the JAX package's block budget: part of the routing rule only
-_CHUNK_MAX = 1024     # rows of K a block of K7 keeps in shared memory
-_GROUPS = 8           # 16-byte column groups a block of K7 owns
-_TARGET_BLOCKS = 2 * 132
 _MLP_BH = 32          # hidden units a block of K10 owns
+# K7's plan: CTAs a launch aims at (one an H100 SM), the K splits a cluster may
+# take, the fewest rows of K a split keeps, the most bytes a TMA box holds
+_K7_CTAS = 132
+_K7_SPLITS = (1, 2, 4, 8)
+_K7_MIN_ROWS = 64
+_BOX_BYTES = 16384
+# Programmatic dependent launch of K7: its first weight boxes are asked for
+# before the kernel before it has ended. Off, each launch waits for the last.
+PDL = True
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_QMM = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_QMM = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
-    "streamed_qmatmul_i8": _QMM, "streamed_qmatmul_bf16": _QMM, "streamed_qmatmul_f32": _QMM,
+    "cluster_qmatmul_i8": _QMM, "cluster_qmatmul_bf16": _QMM, "cluster_qmatmul_f32": _QMM,
     "fused_qmlp_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
-_ENTRY = {torch.int8: "streamed_qmatmul_i8", torch.bfloat16: "streamed_qmatmul_bf16",
-          torch.float32: "streamed_qmatmul_f32"}
+_ENTRY = {torch.int8: "cluster_qmatmul_i8", torch.bfloat16: "cluster_qmatmul_bf16",
+          torch.float32: "cluster_qmatmul_f32"}
 
 
 def _lib_gemv():
@@ -132,10 +139,10 @@ _SCRATCH: tp.Dict[tp.Tuple[str, torch.device], torch.Tensor] = {}
 
 
 def _scratch(kind: str, device: torch.device, numel: int, dtype: torch.dtype) -> torch.Tensor:
-    """Per-device workspace, grown on demand and reused by every call. The
-    calls on a device must be ordered by one stream (or by a CUDA graph
-    captured after a first call has sized the workspace); each kernel leaves
-    its tickets at zero."""
+    """Per-device workspace (zeros when made), grown on demand and reused by
+    every call. The calls on a device must be ordered by one stream (or by a
+    CUDA graph captured after a first call has sized the workspace); a kernel
+    that keeps counters in it leaves them at zero."""
     buf = _SCRATCH.get((kind, device))
     if buf is None or buf.numel() < numel:
         buf = torch.zeros(max(numel, 1024), dtype=dtype, device=device)
@@ -143,18 +150,43 @@ def _scratch(kind: str, device: torch.device, numel: int, dtype: torch.dtype) ->
     return buf
 
 
-def _col_tiles(n: int, itemsize: int) -> int:
-    return -(-n // (_GROUPS * (16 // itemsize)))
+def box_rows(kc: int, twb: int) -> int:
+    """Rows of a TMA box over a chunk of ``kc`` rows (a multiple of 8): the most
+    that divide the chunk, fit a box of 16 KB and TMA's 256-row limit."""
+    top = min(256, _BOX_BYTES // twb, kc)
+    return max(r for r in range(8, top + 1, 8) if kc % r == 0)
 
 
-def _k_chunk(k: int, n: int, itemsize: int) -> int:
-    """Rows of K per block: K is split only while the column tiles alone leave
-    SMs idle, into chunks of at least 64 and at most ``_CHUNK_MAX`` rows.
-    Depends on the matrix only, never on the rows of x, so a row's sums do not
-    depend on how many rows ride with it."""
-    splits = max(1, min(round(_TARGET_BLOCKS / _col_tiles(n, itemsize)), k // 64))
-    chunk = -(-k // splits)
-    return min(_CHUNK_MAX, -(-chunk // 32) * 32)
+def k7_plan(k: int, n: int, itemsize: int) -> tp.Tuple[int, int, int, int]:
+    """K7's work split: ``(twb, split, kc, br)`` -- column tiles of ``twb``
+    bytes (128, else 64, else the row's own width when it is narrower), the K
+    axis split over a cluster of ``split`` CTAs in chunks of ``kc`` rows, TMA
+    boxes of ``br`` rows. The widest tile and the fewest splits that give one
+    CTA an SM; else the most CTAs. Every sum's order follows from this plan,
+    which depends on the matrix alone, never on the rows of x: a row's result
+    does not depend on the rows that ride with it."""
+    row = n * itemsize
+    best = None
+    for twb in (128, 64):
+        if twb > 64 and row <= 64:
+            continue
+        tiles = -(-row // twb)
+        for split in _K7_SPLITS:
+            if split > 1 and k < _K7_MIN_ROWS * split:
+                break
+            if tiles * split >= _K7_CTAS:
+                best = (tiles * split, twb, split)
+                break
+            if best is None or tiles * split > best[0]:
+                best = (tiles * split, twb, split)
+        if best[0] >= _K7_CTAS:
+            break
+    _, twb, split = best
+    while twb > 16 and twb // 2 >= row:      # a row narrower than the tile: the narrowest tile that holds it
+        twb //= 2
+    kc = -(-k // split)
+    kc = -(-kc // 8) * 8
+    return twb, split, kc, box_rows(kc, twb)
 
 
 def _f32_rows(x: torch.Tensor, name: str, cols: int) -> torch.Tensor:
@@ -177,7 +209,13 @@ def streamed_qmatmul(x: torch.Tensor, w: torch.Tensor,
                      scale: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7. ``x (R <= 8, K) @ w (K, N) -> (R, N) f32``, reading ``w`` as stored:
     int8 with ``scale`` (1, N)/(N,) applied after the sum, or bf16/f32 (scale
-    optional). A ``w`` that is not row-major contiguous is copied first."""
+    optional). A ``w`` that is not row-major contiguous is copied first.
+
+    With :data:`PDL` the launch may start before the kernel launched just
+    before it on the stream has ended: it asks for ``w``'s first boxes then,
+    and reads ``x`` and ``scale`` only after that kernel's writes are visible.
+    So ``w`` must not be written by that kernel (stored weights never are; a
+    ``w`` this wrapper copies is launched without it)."""
     if x.device.type == "cpu":
         return matmul_reference(x, w, scale)
     k, n = w.shape
@@ -185,18 +223,15 @@ def streamed_qmatmul(x: torch.Tensor, w: torch.Tensor,
     if w.device != x.device or w.dtype not in _ENTRY:
         raise TypeError(f"w: expected int8, bfloat16 or float32 on {x.device}, "
                         f"got {w.dtype} on {w.device}")
+    copied = not w.is_contiguous()
     w = w.contiguous()
     s = None if scale is None else _f32_vector(scale, "scale", n, x.device)
     rows = xr.shape[0]
-    chunk = _k_chunk(k, n, w.element_size())
-    splits = -(-k // chunk)
+    twb, split, kc, br = k7_plan(k, n, w.element_size())
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
-    stream = _lib.torch_stream()
-    ws = _scratch("k7_partials", x.device, splits * rows * n, torch.float32)
-    tickets = _scratch("k7_tickets", x.device, _col_tiles(n, w.element_size()), torch.int32)
     _lib.check(getattr(_lib_gemv(), _ENTRY[w.dtype])(
-        xr.data_ptr(), w.data_ptr(), 0 if s is None else s.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), tickets.data_ptr(), rows, k, n, chunk, stream), "streamed_qmatmul")
+        xr.data_ptr(), w.data_ptr(), 0 if s is None else s.data_ptr(), out.data_ptr(), rows, k, n,
+        twb, split, kc, br, int(PDL and not copied), _lib.torch_stream()), "streamed_qmatmul")
     streamed_qmatmul.launches += 1
     return out
 

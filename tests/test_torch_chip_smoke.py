@@ -1,5 +1,5 @@
 """``chip_smoke.py``'s options on a machine without a card: ``--only`` picks
-one kernel source's checks, ``--baseline`` an earlier copy of that source to
+one kernel family's checks, ``--baseline`` earlier copies of its sources to
 time in turns, and the script refuses to run (exit 2, no result) without
 CUDA. The checks themselves run only on the card."""
 
@@ -11,7 +11,8 @@ import chip_smoke
 
 @pytest.mark.parametrize("only,source", [("attention", "attention_kernels"),
                                          ("block", "block_kernels"),
-                                         ("cache", "cache_kernels")])
+                                         ("cache", "cache_kernels"),
+                                         ("decode", "decode_kernels")])
 def test_only_names_a_source_whose_wrappers_declare_its_entries(only, source):
     assert chip_smoke.ONLY_SOURCES[only] == source
     assert source in chip_smoke.KERNEL_SOURCES
@@ -33,12 +34,40 @@ def test_unknown_only_is_refused():
 
 
 @pytest.mark.parametrize("argv", [[], ["--only", "block"],
-                                  ["--only", "cache", "--baseline", "old/cache_kernels.cu"]])
+                                  ["--only", "cache", "--baseline", "old/cache_kernels.cu"],
+                                  ["--only", "decode", "--baseline", "old/gemv_kernels.cu",
+                                   "old/decode_kernels.cu"]])
 def test_no_card_no_result(argv, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main(argv) == 2
     out = capsys.readouterr()
     assert out.out == "" and "only on a CUDA card" in out.err
+
+
+def test_baseline_must_be_a_source_of_the_family(capsys):
+    """``--only decode`` builds gemv_kernels and decode_kernels; an old copy of
+    any other source is refused before anything is built."""
+    assert chip_smoke.ONLY_BUILDS["decode"] == ("gemv_kernels", "decode_kernels")
+    assert chip_smoke.baseline_source("decode", "x/gemv_kernels.cu") == "gemv_kernels"
+    with pytest.raises(SystemExit) as exc:
+        chip_smoke.main(["--only", "decode", "--baseline", "old/cache_kernels.cu"])
+    assert exc.value.code == 2
+    assert "gemv_kernels.cu or decode_kernels.cu" in capsys.readouterr().err
+
+
+def test_workspace_entries_are_the_ones_the_cluster_designs_replaced():
+    """An earlier ``gemv_kernels.cu`` or ``decode_kernels.cu`` (the workspace-
+    and-ticket design) is timed on its own entries: the tree's sources no
+    longer have them, and have the cluster designs'."""
+    from summer_clip_torch.ops import _lib
+
+    gemv_src = (_lib.CSRC_DIR / "gemv_kernels.cu").read_text()
+    decode_src = (_lib.CSRC_DIR / "decode_kernels.cu").read_text()
+    for name in chip_smoke.WORKSPACE_K7_SIGNATURES:
+        assert f"int {name}(" not in gemv_src
+    assert "int cluster_qmatmul_i8(" in gemv_src
+    assert "int decode_block(" not in decode_src and "int decode_stack(" in decode_src
+    assert "tickets" not in gemv_src.split("// K10")[0] and "tickets" not in decode_src
 
 
 def test_baseline_times_nothing_without_a_baseline_build():

@@ -214,17 +214,86 @@ def test_mega_legal_is_the_jax_packages_rule(d, h, nh):
     assert DB.mega_legal(d, h, nh) == JDB.mega_legal(d, h, nh)
 
 
+GPT2_WIDTHS = {"gpt2": (768, 3072), "gpt2-medium": (1024, 4096), "gpt2-large": (1280, 5120)}
+
+
 def test_stage_chunks_depend_on_the_geometry_only():
-    """K8's K split: whole chunks of 32 rows, at most 1024, and at gpt2-large
-    about one work item an SM a stage."""
-    for k, n in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (128, 384), (512, 128)):
-        for size in (1, 2):
-            c = DB._stage_chunk(k, n, size)
-            assert c % 32 == 0 and 32 <= c <= 1024
-    items = [-(-k // DB._stage_chunk(k, n, 1)) * -(-n // 128)
-             for k, n in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))]
-    assert all(100 <= i <= 132 for i in items), items
+    """K8's work split of a product: column tiles of 16 to 256 bytes, the K
+    axis split over a cluster's 4 CTAs in TMA boxes that divide the chunk, hold
+    at most 16 KB and fit the ring 8 at a time; a function of (K, N, item size)
+    alone. At gpt2-large a cluster of 32 takes one tile of each product."""
+    import inspect
+
+    assert list(inspect.signature(DB.stage_plan).parameters) == ["k", "n", "itemsize"]
+    for d, h in GPT2_WIDTHS.values():
+        for _, k, n in DB._products(d, h):
+            for size in (1, 2):
+                twb, br = DB.stage_plan(k, n, size)
+                kc = k // DB.CLUSTER
+                assert twb in (16, 32, 64, 128, 256) and k % DB.CLUSTER == 0
+                assert kc % br == 0 and br % 8 == 0 and br <= 256 and twb * br <= 16384
+                assert kc // br <= 8          # a tile's boxes fit the ring
+    tiles = {name: -(-n // DB.stage_plan(k, n, 1)[0]) for name, k, n in DB._products(1280, 5120)}
+    assert tiles == {"qkv": 30, "proj": 20, "fc": 20, "out": 20}
     assert DB.barriers(36) == 179
+
+
+def _cursor_walk(n_layer, d, h, size, clusters, cl, rank):
+    """The kernel's Cursor (settle, step) in Python: the order in which a CTA's
+    ring asks TMA for its boxes, one box after another across the launch."""
+    prods = DB._products(d, h)
+    plans = [DB.stage_plan(k, n, size) for _, k, n in prods]
+    tiles = [-(-n * size // twb) for (_, _, n), (twb, _) in zip(prods, plans)]
+    prefix = [sum(tiles[:p]) for p in range(4)]
+
+    def first(lay, p):
+        return (cl - (lay * sum(tiles) + prefix[p]) % clusters + clusters) % clusters
+
+    lay, p, t, j = 0, 0, first(0, 0), 0
+    out = []
+    while True:
+        while lay < n_layer and t >= tiles[p]:        # settle
+            p += 1
+            if p == 4:
+                p, lay = 0, lay + 1
+            j = 0
+            if lay < n_layer:
+                t = first(lay, p)
+        if lay >= n_layer:
+            return out
+        k = prods[p][1]
+        twb, br = plans[p]
+        out.append((lay, p, t * twb, rank * (k // DB.CLUSTER) + j * br, twb, br))
+        j += 1                                          # step
+        if j * br == k // DB.CLUSTER:
+            j, t = 0, t + clusters
+
+
+@pytest.mark.parametrize("model", sorted(GPT2_WIDTHS))
+@pytest.mark.parametrize("store", ["int8", "bf16"])
+def test_weight_boxes_cover_every_weight_once_in_the_consumers_order(model, store):
+    """Over all CTAs of a grid (32 or 33 clusters of 4), the boxes the ring
+    asks for cover every row and every byte of every product's matrix exactly
+    once, and each CTA asks for its boxes in the order its stages consume
+    them (the device cursor's walk equals the stages' nested loops)."""
+    d, h = GPT2_WIDTHS[model]
+    size = 1 if store == "int8" else 2
+    n_layer = 3
+    for clusters in (32, 33):
+        cover = {(lay, p): np.zeros((k, -(-n * size // 16)), np.int32)
+                 for lay in range(n_layer) for p, (_, k, n) in enumerate(DB._products(d, h))}
+        for cl in range(clusters):
+            for rank in range(DB.CLUSTER):
+                boxes = DB.weight_boxes(n_layer, d, h, size, clusters, cl, rank)
+                assert boxes == _cursor_walk(n_layer, d, h, size, clusters, cl, rank)
+                assert boxes == sorted(boxes, key=lambda b: (b[0], b[1]))   # stage by stage
+                for lay, p, col, row, twb, br in boxes:
+                    kc = DB._products(d, h)[p][1] // DB.CLUSTER
+                    assert rank * kc <= row and row + br <= (rank + 1) * kc   # the rank's chunk
+                    cover[lay, p][row:row + br, col // 16:(col + twb) // 16] += 1
+        for (lay, p), c in cover.items():
+            n = DB._products(d, h)[p][2]
+            assert (c[:, :n * size // 16] == 1).all(), (clusters, lay, p)
 
 
 @pytest.mark.cuda
@@ -256,3 +325,6 @@ def test_cuda_kernel_agrees_with_the_plain_version(store, kv):
     solo = DB.decode_block(x[:1], packed, {n: t[:, :1].contiguous() for n, t in rings.items()},
                            index[:1], nh=cfg.n_head, pad=pad[:1])
     assert torch.equal(solo[0], got[0][:1])
+    grid = DB.grid_blocks(packed["wqkv"].dtype, kv, 3)     # whole clusters, one CTA an SM
+    assert grid % DB.CLUSTER == 0
+    assert 0 < grid <= torch.cuda.get_device_properties(0).multi_processor_count

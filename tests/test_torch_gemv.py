@@ -94,6 +94,38 @@ def test_tile_legal_and_block_rule_equal_the_jax_packages(k, n, itemsize):
     assert gemv.MAX_ROWS == jgemv._ROWS
 
 
+GPT2_LARGE = {"c_attn": (1280, 3840), "c_proj": (1280, 1280), "mlp_c_fc": (1280, 5120),
+              "mlp_c_proj": (5120, 1280), "lm_head": (1280, 49408), "adapter_fc1": (512, 1024),
+              "adapter_fc2": (1024, 1280)}
+
+
+@pytest.mark.parametrize("k,n", sorted(GPT2_LARGE.values()) + [(256, 768), (64, 200), (96, 130),
+                                                              (5, 16), (65536, 128)])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_k7_plan_covers_the_matrix_once_from_its_geometry_alone(k, n, itemsize):
+    """K7's plan is a function of (K, N, item size), never of the rows of x, and
+    its CTAs' boxes cover every row and byte of w exactly once: a column tile's
+    K chunks are disjoint, the last one may reach past K (TMA reads zeros
+    there) but none starts past it. At gpt2-large every matrix but the first
+    adapter gets at least one CTA an SM."""
+    import inspect
+
+    assert list(inspect.signature(gemv.k7_plan).parameters) == ["k", "n", "itemsize"]
+    twb, split, kc, br = gemv.k7_plan(k, n, itemsize)
+    assert twb in (16, 32, 64, 128) and split in (1, 2, 4, 8)
+    assert kc % 8 == 0 and kc * split >= k > kc * (split - 1)
+    assert kc % br == 0 and br % 8 == 0 and br <= 256 and twb * br <= 16384
+    row = n * itemsize
+    tiles = -(-row // twb)
+    cover = np.zeros((kc * split, tiles), np.int32)
+    for rank in range(split):
+        for j in range(kc // br):
+            cover[rank * kc + j * br:rank * kc + (j + 1) * br, :] += 1
+    assert (cover[:k] == 1).all()
+    if (k, n) in GPT2_LARGE.values() and (k, n) != GPT2_LARGE["adapter_fc1"]:
+        assert tiles * split >= 132
+
+
 @pytest.mark.parametrize("d,h,itemsize", [(256, 1024, 1), (1280, 5120, 1), (32, 128, 1),
                                           (128, 192, 1), (768, 3072, 1), (1600, 6400, 1)])
 def test_fused_mlp_legal_equals_the_jax_packages(d, h, itemsize):
@@ -283,7 +315,7 @@ def _cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("wtype", ["int8", "bf16", "f32"])
 @pytest.mark.parametrize("rows,k,n", [(1, 256, 768), (8, 1280, 1280), (3, 5120, 1280), (5, 64, 200),
-                                      (2, 1280, 49408), (7, 96, 130)])
+                                      (2, 1280, 49408), (7, 96, 130), (2, 16384, 256)])
 def test_cuda_k7_matches_plain(rows, k, n, wtype):
     _cuda()
     rng = np.random.default_rng(rows + k + n)
@@ -299,6 +331,59 @@ def test_cuda_k7_matches_plain(rows, k, n, wtype):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     assert torch.equal(got, gemv.streamed_qmatmul(x, w, scale))               # repeats bit for bit
     assert torch.equal(got[:1], gemv.streamed_qmatmul(x[:1], w, scale))       # whoever rides along
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdl", [True, False])
+def test_cuda_k7_reads_x_after_a_slow_predecessor(monkeypatch, pdl):
+    """With programmatic dependent launch K7 asks for its weights before the
+    kernel before it has ended, and must read x only after that kernel's
+    writes: x filled with NaN, then written by a slow reduction (or by the K7
+    whose output it is), gives the bits of a synchronised call."""
+    _cuda()
+    monkeypatch.setattr(gemv, "PDL", pdl)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k, n = 1280, 5120
+    w1 = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
+    w2 = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+    s1, s2 = torch.full((1, n), 1e-3, device="cuda"), torch.full((1, k), 1e-3, device="cuda")
+    big = torch.randn((4, n, 256), device="cuda", generator=gen)
+    x0 = torch.randn((4, k), device="cuda", generator=gen)
+    want_sum = gemv.streamed_qmatmul(big.sum(-1), w2, s2)
+    torch.cuda.synchronize()
+    hidden = gemv.streamed_qmatmul(x0, w1, s1)
+    torch.cuda.synchronize()
+    want_chain = gemv.streamed_qmatmul(hidden, w2, s2)
+    torch.cuda.synchronize()
+    xbuf = torch.empty((4, n), device="cuda")
+    for _ in range(10):
+        xbuf.fill_(float("nan"))
+        torch.sum(big, dim=-1, out=xbuf)
+        assert torch.equal(gemv.streamed_qmatmul(xbuf, w2, s2), want_sum)
+        del hidden
+        torch.full((4, n), float("nan"), device="cuda")    # the block the next output takes
+        hidden = gemv.streamed_qmatmul(x0, w1, s1)
+        assert torch.equal(gemv.streamed_qmatmul(hidden, w2, s2), want_chain)
+
+
+@pytest.mark.cuda
+def test_cuda_k7_captures_into_a_graph():
+    """A chain of K7 launches (programmatic dependent launch on) captured into
+    a CUDA graph gives the eager chain's bits."""
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    w1 = torch.randint(-127, 128, (1280, 3840), dtype=torch.int8, device="cuda", generator=gen)
+    w2 = torch.randint(-127, 128, (3840, 1280), dtype=torch.int8, device="cuda", generator=gen)
+    s1, s2 = torch.full((1, 3840), 1e-3, device="cuda"), torch.full((1, 1280), 1e-3, device="cuda")
+    x = torch.randn((2, 1280), device="cuda", generator=gen)
+    want = gemv.streamed_qmatmul(gemv.streamed_qmatmul(x, w1, s1), w2, s2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = gemv.streamed_qmatmul(gemv.streamed_qmatmul(x, w1, s1), w2, s2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
