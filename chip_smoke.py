@@ -14,12 +14,14 @@ the affinity probe, K13) or ``decode`` (K7 and K10, then K8). With
 <commit>:summer_clip_torch/csrc/...``) are built beside this tree's, each
 against the headers (``*.cuh``) that lie beside it (copy its commit's there;
 a header missing there is taken from this tree), and the attention checks,
-K5, K6, K9, K1 (at CLIP-search's shape), K7 and K8 also time them in turns
-with the kernel (baseline, kernel, kernel, baseline) on the same inputs; a
-``block_kernels.cu`` from before the GEMM chain is called on its own K5 and
+K5, K6, K9, K1 (at CLIP-search's shape), K7, K10 and K8 also time them in
+turns with the kernel (baseline, kernel, kernel, baseline) on the same inputs;
+a ``block_kernels.cu`` from before the GEMM chain is called on its own K5 and
 K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
 ``decode_kernels.cu`` of the workspace-and-ticket design on its own
-(``WORKSPACE_K7_SIGNATURES``, ``WORKSPACE_K8_SIGNATURES``).
+(``WORKSPACE_K7_SIGNATURES``, ``WORKSPACE_K8_SIGNATURES``), a
+``gemv_kernels.cu`` with the two-launch K10 on its own K10 entry
+(``TWO_LAUNCH_K10_SIGNATURES``).
 
 1. Refuses to run without CUDA. Prints the card (``nvidia-smi`` name and power
    limit) and the torch, CUDA, nvcc and Triton versions.
@@ -69,7 +71,8 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
      the head (1280, 49408), the adapters (512, 1024) and (1024, 1280)) with
      R = 1, 3 (the batched sampler's rows) and 8 rows, int8 and bf16 weights;
      K10 fused_qmlp at D = 1280, H = 5120 with the same rows, also beside the
-     unfused pair through K7; for both, two runs and a row alone against the
+     unfused pair through K7, its plan logged with the clusters the card holds
+     at once; for both, two runs and a row alone against the
      same row among others must give the same bits. Both are
      timed as device time in a CUDA graph over copies of the weights (cold,
      as a decode loop finds them) and as calls of the wrapper from Python;
@@ -706,6 +709,9 @@ def load_baseline(src: str, source: str):
         signatures.update(PER_HEAD_BLOCK_SIGNATURES)    # K5 and K6 before the GEMM chain
     if source == "gemv_kernels" and not hasattr(lib, "cluster_qmatmul_i8"):
         signatures.update(WORKSPACE_K7_SIGNATURES)      # K7 before the cluster reduction
+    lib.two_launch_k10 = source == "gemv_kernels" and "qmlp_reduce_kernel" in Path(src).read_text()
+    if lib.two_launch_k10:
+        signatures.update(TWO_LAUNCH_K10_SIGNATURES)    # K10 before the single launch
     if source == "decode_kernels" and not hasattr(lib, "decode_stack"):
         signatures.update(WORKSPACE_K8_SIGNATURES)      # K8 before the weight ring
     for fn, argtypes in signatures.items():
@@ -879,6 +885,41 @@ def workspace_k8_call(lib, x, packed, kv, idx, padv, nh: int):
     _lib.check(lib.decode_block(ptrs, dims, int(size == 2), int(kv["k"].dtype == torch.bfloat16),
                                 _lib.torch_stream(), None), "decode_block (baseline)")
     return y, kq, vq, ksn, vsn
+
+
+# K10's entry point of the two-launch design: blocks of 32 hidden units write (H / 32,
+# rows, D) partials to a workspace, a second kernel adds them in chunk order
+TWO_LAUNCH_K10_SIGNATURES = {"fused_qmlp_i8": [_P] * 9 + [_I] * 3 + [_P]}
+
+
+def two_launch_k10_call(lib, x, w1, s1, b1, w2, s2, b2):
+    """One K10 call of the two-launch design on its own entry."""
+    import torch
+
+    from summer_clip_torch.ops import _lib
+
+    rows, d = x.shape
+    h = w1.shape[1]
+    out = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    part = _old_scratch("k10_partials", (h // 32) * rows * d, torch.float32)
+    _lib.check(lib.fused_qmlp_i8(x.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+                                 w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                                 part.data_ptr(), rows, d, h, _lib.torch_stream()),
+               "fused_qmlp (baseline)")
+    return out
+
+
+def on_baseline(source: str, fn):
+    """``fn()`` with the wrapper module of ``source`` calling its ``--baseline``
+    build (an earlier copy of the source with the same entry points)."""
+    from summer_clip_torch.ops import _lib
+
+    ours = _lib.load(source, _ops_module(source)._SIGNATURES)
+    _lib._LIBS[source] = BASELINE[source]
+    try:
+        return fn()
+    finally:
+        _lib._LIBS[source] = ours
 
 
 BASELINE: dict = {}    # source -> the --baseline build of it, when given
@@ -1489,10 +1530,11 @@ def check_gemv_kernels(results: dict) -> None:
     At R = 1 K7 is also timed with programmatic dependent launch off
     (``serial_ms``), and each launch after a PyTorch kernel that writes its x,
     with it on and off (``after_torch_ms``, ``after_torch_serial_ms``); with a
-    gemv baseline, the earlier design in turns (``baseline_ms``)."""
+    gemv baseline, K7's and K10's earlier designs in turns (``baseline_ms``).
+    K10's plan is logged with the clusters the card holds at once."""
     import torch
 
-    from summer_clip_torch.ops import gemv
+    from summer_clip_torch.ops import _lib, gemv
 
     gen = torch.Generator().manual_seed(4)
     r7 = results.setdefault("K7 streamed_qmatmul", {"max_abs_err": 0.0, "shapes": {},
@@ -1546,8 +1588,13 @@ def check_gemv_kernels(results: dict) -> None:
                     line += (f"; PDL off {extra['serial_ms']:.4f} ms; after a PyTorch kernel "
                              f"{extra['after_torch_ms']:.4f} ms a pair (PDL off "
                              f"{extra['after_torch_serial_ms']:.4f})")
-                if base is not None:
+                if base is not None and hasattr(base, "cluster_qmatmul_i8"):
+                    old = [lambda c=c: on_baseline("gemv_kernels",
+                                                   lambda: gemv.streamed_qmatmul(x, c, sc))
+                           for c in ws]
+                elif base is not None:
                     old = [lambda c=c: workspace_k7_call(base, x, c, sc) for c in ws]
+                if base is not None:
                     old_err = float((old[0]() - got).abs().max())
                     extra["baseline_ms"], extra["in_turns_ms"] = in_turns_ms(old, ours, graph_time_ms)
                     line += (f"; in turns: baseline {extra['baseline_ms']:.4f} ms, kernel "
@@ -1591,7 +1638,23 @@ def check_gemv_kernels(results: dict) -> None:
         hidden = torch.nn.functional.gelu(gemv.streamed_qmatmul(x, a, s1) + b1, approximate="tanh")
         return gemv.streamed_qmatmul(hidden, b, s2) + b2
 
+    def old_k10(x, a, b):   # the --baseline build's K10, on its own entry if it is two launches
+        if base.two_launch_k10:
+            return two_launch_k10_call(base, x, a, s1, b1, b, s2, b2)
+        return on_baseline("gemv_kernels", lambda: gemv.fused_qmlp(x, a, s1, b1, b, s2, b2))
+
+    plan = gemv.k10_plan(d, h)
+    r10["plan"] = plan._asdict()
     for rows in GEMV_ROWS:
+        held = ctypes.c_int(0)
+        _lib.check(gemv._lib_gemv().fused_qmlp_clusters(rows, d, h, plan.hc, plan.split, plan.br1,
+                                                        plan.twb2, plan.br2,
+                                                        ctypes.addressof(held)), "fused_qmlp_clusters")
+        log(f"K10 plan D={d} H={h}: {plan} -> {plan.ctas} CTAs in {plan.clusters} clusters of "
+            f"{plan.split}; R={rows}: {gemv.k10_smem(plan, rows)} bytes of shared memory a CTA, the "
+            f"card holds {held.value} such clusters at once"
+            + ("" if held.value >= plan.clusters else " (fewer than the launch has: not every "
+               "weight byte is asked for at launch)"))
         x = _randn((rows, d), gen, dtype=torch.float32)
         got = gemv.fused_qmlp(x, w1, s1, b1, w2, s2, b2)
         want = gemv.fused_qmlp_reference(x, w1, s1, b1, w2, s2, b2)
@@ -1608,15 +1671,23 @@ def check_gemv_kernels(results: dict) -> None:
         pair_ms = graph_time_ms([lambda a=a, b=b: unfused(x, a, b) for a, b in pairs])
         eager_ms = cuda_time_ms(lambda: gemv.fused_qmlp(x, w1, s1, b1, w2, s2, b2), 20)
         b = bound(2 * d * h + 4 * (2 * rows * d + 2 * h + 2 * d), 4 * rows * d * h)
+        extra, line = {}, ""
+        if base is not None:
+            old = [lambda a=a, b=b: old_k10(x, a, b) for a, b in pairs]
+            ours = [lambda a=a, b=b: gemv.fused_qmlp(x, a, s1, b1, b, s2, b2) for a, b in pairs]
+            old_err = float((old[0]() - got).abs().max())
+            extra["baseline_ms"], extra["in_turns_ms"] = in_turns_ms(old, ours, graph_time_ms)
+            line = (f"; in turns: baseline {extra['baseline_ms']:.4f} ms, kernel "
+                    f"{extra['in_turns_ms']:.4f} ms (baseline vs kernel max|d| {old_err:.3e})")
         log(f"K10 fused_qmlp D={d} H={h} R={rows}: max|d|={err:.3e} (tol {tol:.3e}) kernel "
             f"{ms:.4f} ms (cold, in a graph; {eager_ms:.4f} ms a call from Python), plain "
             f"{plain_ms:.4f} ms, the unfused K7 pair {pair_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-            f"by {b['bound_by']}")
+            f"by {b['bound_by']}{line}")
         if not torch.isfinite(got).all() or err > tol:
             raise AssertionError(f"K10 R={rows}: kernel disagrees with its plain version")
         r10["max_abs_err"] = max(r10["max_abs_err"], err)
         r10["shapes"][f"R={rows}"] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                                      "k7_pair_ms": pair_ms, "max_abs_err": err, **b}
+                                      "k7_pair_ms": pair_ms, "max_abs_err": err, **extra, **b}
     torch.cuda.synchronize()
 
 

@@ -37,13 +37,30 @@
 // 16-byte aligned) are copied element by element into the same boxes by the
 // CTA's threads; none of gpt2-large's matrices takes that path.
 //
-// K10. The hidden chunks are the parallel axis: a block owns 32 hidden units,
-// stages its (D, 32) slab of w1 (32-byte pieces of each row) and the bf16-
-// rounded x in shared memory, computes its (R, 32) slice of the hidden, and
-// multiplies it by its 32 contiguous rows of w2. The (chunks, R, D) partials
-// go to a workspace and a second small kernel of the same entry point adds
-// them in chunk order and applies s2 and b2: a last-block reduction of 160
-// chunks by one block would take longer than the products.
+// K10. One launch of clusters of 1-8 CTAs, at most one CTA an SM
+// (ops/gemv.k10_plan, from D and H only): cluster c owns hc hidden units, its
+// rank r rows [r kc, (r + 1) kc) of w1 (kc = D / split) and the same columns of
+// w2 and of the output. A CTA asks TMA for all of its weight bytes at its start
+// (w1: kc rows of the chunk's hc-byte column slab, before griddepcontrol.wait,
+// so that under programmatic dependent launch they stream while the kernel
+// before ends; w2: the chunk's hc rows restricted to its kc columns, right
+// after it has asked for x, which an SM's queue would otherwise hold behind
+// them), every box with its own mbarrier. The first product runs box by box as
+// they land; the CTA's (R, hc) sums go to every rank of the cluster over
+// distributed shared memory, and after one cluster barrier each rank adds them
+// in rank order, applies s1, b1 and gelu_tanh and rounds to bf16: every rank
+// holds the same hidden. The second product, (R, hc) by the resident w2 boxes,
+// leaves the cluster's partial of the rank's kc output columns in a workspace.
+// The warps' sums lie swizzled in shared memory (weight_ring.cuh, kSwz): at a
+// 256-byte tile the unswizzled layout put 16 lanes of a store on one bank. The
+// sum over the clusters is in the same launch: each CTA draws one ticket per
+// group of 16 columns (an acquire-release atomic after a CTA barrier); the CTA
+// that draws a group's last ticket reads the group's partials by TMA (a 3-D
+// box: 16 columns, every row, the clusters), adds them in cluster order,
+// scales, adds b2, stores and resets the ticket. No grid barrier, no second
+// launch. The order of every sum follows from (D, H) only, so a row's result
+// does not depend on the rows that ride with it, and two runs give the same
+// bits. tools/torch_k10_phases.py times the phases (a -DK10_PROBE build).
 //
 // Each entry point returns the launch's error.
 
@@ -261,134 +278,433 @@ int launch_qmatmul(const void* x, const void* w, const void* scale, void* out, i
 // ---------------------------------------------------------------------------
 // K10
 // ---------------------------------------------------------------------------
-constexpr int kMlpThreads = 256;
-constexpr int kMlpWarps = kMlpThreads / 32;
-constexpr int kBh = 32;          // hidden units per block
+constexpr int kMlpGroup = 16;   // output columns a ticket covers
 
-// Shared memory: xs (R, D) f32 | w1s (D, 32) int8 | red (8 warps, R, 32) f32 |
-// hs (R, 32) f32. part: (H / 32, rows, D).
+#ifdef K10_PROBE   // tools/torch_k10_phases.py: a CTA's globaltimer (ns) at the end of each phase
+constexpr int kProbeSlots = 16;   // 15 phases, then the column groups the CTA added
+__device__ long long k10_stamps[1024 * kProbeSlots];
+#define K10_STAMP(slot, value)                                                  \
+  if (threadIdx.x == 0 && blockIdx.x < 1024) k10_stamps[blockIdx.x * kProbeSlots + (slot)] = (value)
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K10_PHASE(slot) \
+  do {                  \
+    __syncthreads();    \
+    K10_STAMP(slot, global_ns()); \
+  } while (0)
+#else
+#define K10_STAMP(slot, value)
+#define K10_PHASE(slot)
+#endif
+
+// *p += v at gpu scope with release and acquire semantics; returns the old *p
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// 16 bytes from device memory (through L2) to shared memory, asynchronously
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copies_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// The plan (ops/gemv.k10_plan): cluster c owns hidden units [c hc, (c + 1) hc);
+// its rank r owns rows [r kc, (r + 1) kc) of w1 (kc = D / split) and the same
+// columns of w2 and of the output. w1 comes in nb1 boxes of (br1 rows, hc
+// bytes), w2 in nt2 column tiles of twb2 bytes, each nb2 boxes of (br2 rows,
+// twb2 bytes), every box in its own slot with its own mbarrier.
+struct MlpArgs {
+  CUtensorMap map1;        // w1 as (D rows, H bytes), UINT8, box (hc, br1)
+  CUtensorMap map2;        // w2 as (H rows, D bytes), UINT8, box (twb2, br2)
+  const float* x;          // (rows, D)
+  const float *s1, *b1;    // (H)
+  const float *s2, *b2;    // (D)
+  float* out;              // (rows, D)
+  float* part;             // (clusters, rows, D): each cluster's second product
+  int* tickets;            // (D / kMlpGroup), zero between launches
+  CUtensorMap map3;        // part as (clusters, rows, D) f32, box (16 columns, rows, cq clusters)
+  int rows, D, H;
+  int hc, split, kc, br1, twb2, br2;
+  int nb1, nt2, nb2, slot1, slot2, a_bytes;
+  int cq;                  // clusters a box of partials spans
+};
+
+// Shared memory of a K10 CTA, as qmlp_kernel<R> lays it out:
+//   A: w1's boxes, then x (R, kc) f32; once both are read, the warps' sums
+//      (kRingWarps, R, hc or twb2) f32 | w2's boxes | recv (split, R, hc) f32:
+//      every rank's sums of the first product | hs (R, hc) f32: the hidden
+//   mbarriers (one a box, one for the partials) | the count and list of the
+//   column groups the CTA adds | s2 and b2 of the rank's kc columns (2, kc) f32.
+// At the end everything before the mbarriers holds the running sums of the
+// groups the CTA adds and a box of partials a group (cq clusters: as many as
+// fit, one at least).
+inline size_t up16(size_t v) { return (v + 15) / 16 * 16; }
+
+inline size_t mlp_layout(MlpArgs& a, int R) {
+  const auto up = [](size_t v) { return (v + 127) / 128 * 128; };
+  a.kc = a.D / a.split;
+  a.nb1 = a.kc / a.br1;
+  a.nt2 = a.kc / a.twb2;
+  a.nb2 = a.hc / a.br2;
+  a.slot1 = (int)up((size_t)a.br1 * a.hc);
+  a.slot2 = (int)up((size_t)a.br2 * a.twb2);
+  const size_t staged = (size_t)a.nb1 * a.slot1 + 4ull * R * a.kc;
+  const size_t red = 4ull * kRingWarps * R * std::max(a.hc, a.twb2);
+  const size_t rest = (size_t)a.nt2 * a.nb2 * a.slot2 + 4ull * (a.split + 1) * R * a.hc;
+  // the final sums: running sums of every column of the rank's share, and a box
+  // of one cluster's partials a column group at least
+  const size_t sums = up(4ull * R * a.kc) + (a.kc / kMlpGroup) * up(4ull * kMlpGroup * R);
+  a.a_bytes = (int)up(std::max(std::max(staged, red), sums > rest ? sums - rest : 0));
+  const size_t before_bars = (size_t)a.a_bytes + rest;
+  const int clusters = a.H / a.hc;
+  for (a.cq = std::min(clusters, 256); a.cq > 1; --a.cq)
+    if (up(4ull * a.rows * a.kc) + (a.kc / kMlpGroup) * up(4ull * kMlpGroup * a.rows * a.cq) <=
+        before_bars)
+      break;
+  return before_bars + 8ull * ((a.nb1 + a.nt2 * a.nb2 + 2) & ~1) +
+         up16(4ull * (a.kc / kMlpGroup + 1)) + 8ull * a.kc;
+}
+
+// The partials of this CTA's nm column groups (groups[]), cq clusters at a
+// time: one TMA box a group (16 columns, every row, cq clusters) into shared
+// memory, added in cluster order to running sums; then scaled, biased, stored.
+__device__ __forceinline__ void add_groups(const MlpArgs& a, int nm, const int* groups,
+                                           int clusters, int k0, unsigned char* smem,
+                                           uint64_t* done, const float* sb2) {
+  const int tid = threadIdx.x;
+  const int n4 = a.rows * nm * 4;   // 4 adjacent columns: row e / (4 nm), group e / 4 % nm
+  const int blk = (a.cq * a.rows * kMlpGroup + 31) / 32 * 32;   // floats a box takes
+  float4* sums = reinterpret_cast<float4*>(smem);
+  const float* stage = reinterpret_cast<const float*>(smem) + (4 * n4 + 31) / 32 * 32;
+  for (int e = tid; e < n4; e += kRingThreads) sums[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q0 = 0, n = 0; q0 < clusters; q0 += a.cq, ++n) {
+    if (tid < 32) {
+      // the partials were written by other CTAs (acquired with the tickets) and
+      // the shared memory by this one's threads: both before the async proxy's copies
+      asm volatile("fence.proxy.async;" ::: "memory");
+      if (tid == 0) mbar_expect(smem_u32(done), nm * a.cq * a.rows * kMlpGroup * 4);
+      __syncwarp();
+      for (int m = tid; m < nm; m += 32)
+        tma_tile(smem_u32(stage + m * blk), &a.map3, smem_u32(done), k0 + groups[m] * kMlpGroup, 0,
+                 q0);
+    }
+    mbar_wait_bounded(smem_u32(done), (uint32_t)n & 1u);
+    K10_STAMP(12, global_ns());   // the partials landed
+    const int nq = min(a.cq, clusters - q0);
+    for (int e = tid; e < n4; e += kRingThreads) {
+      const float4* p = reinterpret_cast<const float4*>(stage + e / 4 % nm * blk +
+                                                        e / (4 * nm) * kMlpGroup) + e % 4;
+      float4 s = sums[e];
+      for (int j0 = 0; j0 < nq; j0 += 8) {   // eight loads in flight, then their adds in order
+        float4 v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (j0 + u < nq) v[u] = p[(j0 + u) * a.rows * 4];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (j0 + u < nq) {
+            s.x += v[u].x; s.y += v[u].y; s.z += v[u].z; s.w += v[u].w;
+          }
+      }
+      sums[e] = s;
+    }
+    __syncthreads();   // the boxes are read before the next ones land
+    K10_STAMP(13, global_ns());   // the partials added
+  }
+  for (int e = tid; e < n4; e += kRingThreads) {
+    const int c = groups[e / 4 % nm] * kMlpGroup + e % 4 * 4;   // of the rank's kc columns
+    const float4 s = sums[e], sc = *reinterpret_cast<const float4*>(sb2 + c),
+                 bs = *reinterpret_cast<const float4*>(sb2 + a.kc + c);
+    *reinterpret_cast<float4*>(a.out + (size_t)(e / (4 * nm)) * a.D + k0 + c) =
+        make_float4(__fadd_rn(__fmul_rn(s.x, sc.x), bs.x), __fadd_rn(__fmul_rn(s.y, sc.y), bs.y),
+                    __fadd_rn(__fmul_rn(s.z, sc.z), bs.z), __fadd_rn(__fmul_rn(s.w, sc.w), bs.w));
+  }
+  K10_PHASE(14);   // the groups stored
+}
+
 template <int R>
-__global__ void __launch_bounds__(kMlpThreads)
-qmlp_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w1,
-                    const float* __restrict__ s1, const float* __restrict__ b1,
-                    const int8_t* __restrict__ w2, float* __restrict__ part, int rows, int D,
-                    int H) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  int8_t* w1s = reinterpret_cast<int8_t*>(xs + R * D);
-  float* red = reinterpret_cast<float*>(w1s + (size_t)D * kBh);
-  float* hs = red + kMlpWarps * R * kBh;
+__global__ void __launch_bounds__(kRingThreads)
+qmlp_kernel(const __grid_constant__ MlpArgs a) {
+  constexpr int V = Vec<int8_t>::n;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int h0 = blockIdx.x * kBh;
+  unsigned char* w1s = smem;
+  float* xs = reinterpret_cast<float*>(smem + (size_t)a.nb1 * a.slot1);
+  float* red = reinterpret_cast<float*>(smem);
+  unsigned char* w2s = smem + a.a_bytes;
+  const int nbox = a.nb1 + a.nt2 * a.nb2;
+  float* recv = reinterpret_cast<float*>(w2s + (size_t)a.nt2 * a.nb2 * a.slot2);
+  float* hs = recv + a.split * R * a.hc;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(hs + R * a.hc);
+  int* mine = reinterpret_cast<int*>(bars + ((nbox + 2) & ~1));   // a count, then groups
+  float* sb2 = reinterpret_cast<float*>(mine + (a.kc / kMlpGroup + 4) / 4 * 4);
+  const int rank = a.split > 1 ? (int)cluster_rank() : 0;
+  const int chunk = blockIdx.x / a.split, clusters = gridDim.x / a.split;
+  const int h0 = chunk * a.hc, k0 = rank * a.kc;
 
-  // the (D, 32) slab of w1: two 16-byte pieces a row, several rows in flight
-  for (int i = tid; i < D * 2; i += kMlpThreads) {
-    const int k = i >> 1, half = i & 1;
-    *reinterpret_cast<uint4*>(w1s + k * kBh + half * 16) =
-        *reinterpret_cast<const uint4*>(w1 + (size_t)k * H + h0 + half * 16);
-  }
-  for (int i = tid; i < R * D; i += kMlpThreads) {
-    const int r = i / D, k = i % D;
-    xs[i] = r < rows ? round_bf16(x[(size_t)r * D + k]) : 0.f;
+  K10_STAMP(0, global_ns());
+  if (a.split > 1) cluster_arrive_relaxed();
+  if (tid == 0) {
+    for (int b = 0; b <= nbox; ++b) mbar_init(smem_u32(bars + b), 1);
+    mbar_init_fence();
   }
   __syncthreads();
-
-  // first product: warp = slice of K (D / 8 rows), lane = hidden unit
-  {
-    const int slice = D / kMlpWarps;
-    const int k0 = warp * slice;
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    for (int k = k0; k < k0 + slice; k += 4) {
-      float wv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) wv[u] = (float)w1s[(k + u) * kBh + lane];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + r * D + k);
-        acc[r] = fmaf(xv.x, wv[0], acc[r]);
-        acc[r] = fmaf(xv.y, wv[1], acc[r]);
-        acc[r] = fmaf(xv.z, wv[2], acc[r]);
-        acc[r] = fmaf(xv.w, wv[3], acc[r]);
+  // Every weight byte of the CTA asked for at once, lane 0 of warp w asking
+  // for boxes w, w + 8, ...: w1's before the wait (the weights never depend on
+  // the kernel before), w2's just after x's loads, so that x does not queue
+  // behind them.
+  const uint64_t policy = evict_first_policy();
+  const auto ask = [&](int b0, int b1) {
+    for (int b = b0 + warp; b < b1 && lane == 0; b += kRingWarps) {
+      const uint32_t bar = smem_u32(bars + b);
+      if (b < a.nb1) {
+        mbar_expect(bar, a.br1 * a.hc);
+        tma_2d_hint(smem_u32(w1s + (size_t)b * a.slot1), &a.map1, bar, h0, k0 + b * a.br1, policy);
+      } else {
+        const int j = b - a.nb1, t = j / a.nb2, i = j % a.nb2;
+        mbar_expect(bar, a.br2 * a.twb2);
+        tma_2d_hint(smem_u32(w2s + (size_t)j * a.slot2), &a.map2, bar, k0 + t * a.twb2,
+                    h0 + i * a.br2, policy);
       }
     }
+  };
+  ask(0, a.nb1);
+  grid_dependency_wait();   // x, the scales and biases belong to the kernel before
+
+  const int hcol = tid % a.hc;   // hc divides 256: the hidden unit this thread finishes
+  const float s1v = a.s1[h0 + hcol], b1v = a.b1[h0 + hcol];
+  for (int i = 4 * tid; i < 2 * a.kc; i += 4 * kRingThreads)   // needed at the end only
+    copy16_async(sb2 + i, i < a.kc ? a.s2 + k0 + i : a.b2 + k0 + i - a.kc);
+  // this rank's chunk of x as bf16, four 16-byte loads in flight a thread
+  for (int base = 0; base < R * a.kc / 4; base += 4 * kRingThreads) {
+    float4 v[4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) red[(warp * R + r) * kBh + lane] = acc[r];
+    for (int u = 0; u < 4; ++u) {
+      const int e = 4 * (base + u * kRingThreads + tid), r = e / a.kc;
+      v[u] = e < R * a.kc && r < a.rows
+                 ? *reinterpret_cast<const float4*>(a.x + (size_t)r * a.D + k0 + e % a.kc)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (base == 0) ask(a.nb1, nbox);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = 4 * (base + u * kRingThreads + tid);
+      if (e < R * a.kc)
+        *reinterpret_cast<float4*>(xs + e) = make_float4(round_bf16(v[u].x), round_bf16(v[u].y),
+                                                         round_bf16(v[u].z), round_bf16(v[u].w));
+    }
   }
   __syncthreads();
-  if (tid < R * kBh) {
-    const int r = tid >> 5;
-    float sum = 0.f;
+  K10_STAMP(1, global_ns());   // the weights asked for, the wait over, x staged
+
+  float acc[R][V];
+  {   // first product, box by box as they land: (R, kc) . (kc, hc)
+    const BoxLanes bl(a.hc);
 #pragma unroll
-    for (int wv = 0; wv < kMlpWarps; ++wv) sum += red[(wv * R + r) * kBh + lane];
-    const float t = sum * s1[h0 + lane] + b1[h0 + lane];
-    hs[r * kBh + lane] = round_bf16(gelu_tanh(t));
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[r][e] = 0.f;
+    for (int j = 0; j < a.nb1; ++j) {
+      mbar_wait_bounded(smem_u32(bars + j), 0u);
+      boxes_fma<int8_t, R>(w1s, a.slot1, a.nb1, j, 1, a.hc, a.br1, xs + j * a.br1, a.kc, bl, acc);
+    }
+    __syncthreads();   // w1's boxes and x are read: the warps' sums take their place
+    K10_STAMP(2, global_ns());   // w1's boxes landed and multiplied
+    warp_sums<int8_t, R, true>(acc, bl, a.hc, red);
+    __syncthreads();
+    K10_STAMP(10, global_ns());   // the first product's warp sums
+  }
+  // The CTA's (R, hc) sums to every rank of the cluster, recv[rank][r][c]:
+  // each rank adds them in rank order, so every rank holds the same hidden.
+  if (a.split > 1) cluster_wait();   // every CTA of the cluster has started
+  for (int e0 = 32 * warp; e0 < R * a.hc; e0 += kRingThreads) {   // R hc is a multiple of 16
+    const int e = e0 + lane;
+    const float v = e < R * a.hc ? warps_sum<R, true>(red, e / a.hc, e % a.hc, a.hc) : 0.f;
+    // lanes 4 j .. 4 j + 3 hold four adjacent sums: lane 4 j stores them at once
+    const float4 v4 = make_float4(v, __shfl_down_sync(0xffffffffu, v, 1),
+                                  __shfl_down_sync(0xffffffffu, v, 2),
+                                  __shfl_down_sync(0xffffffffu, v, 3));
+    float* dst = recv + rank * R * a.hc + e;
+    if (e < R * a.hc && lane % 4 == 0) {
+      if (a.split == 1) *reinterpret_cast<float4*>(dst) = v4;
+      else
+        for (int q = 0; q < a.split; ++q) st_cluster_v4(cluster_addr(smem_u32(dst), (uint32_t)q), v4);
+    }
+  }
+  K10_PHASE(3);   // the sums pushed
+  if (a.split > 1) cluster_sync();
+  else __syncthreads();
+  K10_STAMP(4, global_ns());   // the sums exchanged
+  for (int i0 = tid; i0 < R * a.hc; i0 += 4 * kRingThreads) {   // four chains in flight
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < a.split; ++q)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u * kRingThreads < R * a.hc) t[u] += recv[q * R * a.hc + i0 + u * kRingThreads];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (i0 + u * kRingThreads < R * a.hc)
+        hs[i0 + u * kRingThreads] = round_bf16(gelu_tanh(__fadd_rn(__fmul_rn(t[u], s1v), b1v)));
   }
   __syncthreads();
+  K10_STAMP(5, global_ns());   // the hidden
 
-  // second product: a thread owns 16 adjacent output columns and walks the
-  // block's 32 rows of w2, which are contiguous in device memory
-  for (int cg = tid; cg < D / 16; cg += kMlpThreads) {
-    const int col = cg * 16;
-    float acc[R][16];
+  {   // second product, a column tile at a time: (R, hc) . (hc, twb2)
+    const BoxLanes bl(a.twb2);
+    for (int t = 0; t < a.nt2; ++t) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
+      for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < 16; ++j) acc[r][j] = 0.f;
-    }
-    const int8_t* wp = w2 + (size_t)h0 * D + col;
-    constexpr int U = R >= 8 ? 4 : 8;
-    for (int j0 = 0; j0 < kBh; j0 += U) {
-      float f[U][16];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        Vec<int8_t>::unpack(*reinterpret_cast<const uint4*>(wp + (size_t)(j0 + u) * D), f[u]);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float hv = hs[r * kBh + j0 + u];
-#pragma unroll
-          for (int j = 0; j < 16; ++j) acc[r][j] = fmaf(hv, f[u][j], acc[r][j]);
-        }
+        for (int e = 0; e < V; ++e) acc[r][e] = 0.f;
+      // the tile's boxes landed while the first product ran: all of them at once
+      for (int i = 0; i < a.nb2; ++i) mbar_wait_bounded(smem_u32(bars + a.nb1 + t * a.nb2 + i), 0u);
+      boxes_fma<int8_t, R>(w2s + (size_t)t * a.nb2 * a.slot2, a.slot2, a.nb2, 0, a.nb2, a.twb2,
+                           a.br2, hs, a.hc, bl, acc);
+      if (t == a.nt2 - 1) {
+        launch_dependents();   // the next launch may ask for its weights
+        K10_PHASE(6);   // the second product
       }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < rows) {
-        float4* dst = reinterpret_cast<float4*>(part + ((size_t)blockIdx.x * rows + r) * D + col);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          dst[j] = make_float4(acc[r][4 * j], acc[r][4 * j + 1], acc[r][4 * j + 2],
-                               acc[r][4 * j + 3]);
+      warp_sums<int8_t, R, true>(acc, bl, a.twb2, red);
+      __syncthreads();
+      K10_STAMP(11, global_ns());   // the second product's warp sums
+      for (int i = tid; i < a.rows * a.twb2; i += kRingThreads) {
+        const int r = i / a.twb2, c = k0 + t * a.twb2 + i % a.twb2;
+        a.part[((size_t)chunk * a.rows + r) * a.D + c] =
+            warps_sum<R, true>(red, r, i % a.twb2, a.twb2);
       }
+      __syncthreads();   // red is read
     }
   }
+
+  // The sum over the clusters: the CTA that draws a column group's last ticket
+  // adds the group's partials in cluster order, scales, adds the bias and
+  // stores, and puts the ticket back to zero. A ticket is drawn by one thread
+  // after the barrier, with release (every partial of the CTA, ordered before
+  // it by the barrier, visible first) and acquire (the partials of the CTAs
+  // that drew before it visible after).
+  K10_STAMP(7, global_ns());   // the partials written
+  const int ng = a.kc / kMlpGroup, g0 = k0 / kMlpGroup;
+  int* groups = mine + 1;
+  for (int g = tid; g < ng; g += kRingThreads) {
+    const bool last = atomic_add_acq_rel(a.tickets + g0 + g, 1) == clusters - 1;
+    if (last) a.tickets[g0 + g] = 0;
+    groups[g] = last;
+  }
+  __syncthreads();
+  K10_STAMP(8, global_ns());   // the tickets drawn
+  if (warp == 0) {   // the groups this CTA adds, listed in order
+    int n = 0;
+    for (int g0w = 0; g0w < ng; g0w += 32) {
+      const bool last = g0w + lane < ng && groups[g0w + lane];
+      const uint32_t ballot = __ballot_sync(0xffffffffu, last);
+      __syncwarp();
+      if (last) groups[n + __popc(ballot & ((1u << lane) - 1u))] = g0w + lane;
+      n += __popc(ballot);
+      __syncwarp();
+    }
+    if (lane == 0) mine[0] = n;
+  }
+  __syncthreads();
+  const int nm = mine[0];
+  K10_STAMP(15, nm);
+  copies_wait();   // s2 and b2
+  __syncthreads();
+  if (nm > 0) add_groups(a, nm, mine + 1, clusters, k0, smem, bars + nbox, sb2);
+  K10_PHASE(9);   // the groups added
 }
 
-// out[r, n] = (sum over chunks, in chunk order, of part[c, r, n]) * s2[n] + b2[n]
-__global__ void qmlp_reduce_kernel(const float* __restrict__ part, const float* __restrict__ s2,
-                                   const float* __restrict__ b2, float* __restrict__ out,
-                                   int rows, int D, int chunks) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * D) return;
-  const int n = i % D;
-  float sum = 0.f;
-  for (int c = 0; c < chunks; ++c) sum += part[(size_t)c * rows * D + i];
-  out[i] = sum * s2[n] + b2[n];
+// The workspace of partials as a 3-D f32 map (D columns, rows, clusters), read
+// in boxes of 16 columns, every row and cq clusters.
+inline int map_partials(CUtensorMap* map, const float* part, int D, int rows, int clusters,
+                        int cq) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(part) % 16) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)clusters};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)rows * D * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)kMlpGroup, (cuuint32_t)rows, (cuuint32_t)cq};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(part), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// split > 1 (or `cluster`: the occupancy query needs one): a cluster of split CTAs
 template <int R>
-int launch_qmlp(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
-                void* part, int rows, int D, int H, cudaStream_t stream) {
-  const int smem = R * D * 4 + D * kBh + kMlpWarps * R * kBh * 4 + R * kBh * 4;
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(qmlp_partial_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  qmlp_partial_kernel<R><<<H / kBh, kMlpThreads, smem, stream>>>(
-      (const float*)x, (const int8_t*)w1, (const float*)s1, (const float*)b1, (const int8_t*)w2,
-      (float*)part, rows, D, H);
-  return (int)cudaGetLastError();
+cudaLaunchConfig_t mlp_config(MlpArgs& a, int pdl, cudaStream_t stream, cudaLaunchAttribute* attrs,
+                              bool cluster) {
+  cudaLaunchConfig_t cfg = {};
+  int n = 0;
+  if (a.split > 1 || cluster) {
+    attrs[n].id = cudaLaunchAttributeClusterDimension;
+    attrs[n].val.clusterDim.x = (unsigned)a.split;
+    attrs[n].val.clusterDim.y = 1;
+    attrs[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl) {
+    attrs[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attrs[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cfg.gridDim = dim3((unsigned)(a.H / a.hc * a.split));
+  cfg.blockDim = dim3(kRingThreads);
+  cfg.dynamicSmemBytes = mlp_layout(a, R);
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = (unsigned)n;
+  return cfg;
+}
+
+// launch (clusters == null) or count the clusters an H100 holds at once
+template <int R>
+int launch_qmlp_r(MlpArgs& a, int pdl, cudaStream_t stream, int* clusters) {
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t cfg = mlp_config<R>(a, pdl, stream, attrs, clusters != nullptr);
+  if (cfg.dynamicSmemBytes > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmlp_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  if (clusters != nullptr) return (int)cudaOccupancyMaxActiveClusters(clusters, qmlp_kernel<R>, &cfg);
+  const int map_err = map_partials(&a.map3, a.part, a.D, a.rows, a.H / a.hc, a.cq);
+  if (map_err != 0) return map_err;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, qmlp_kernel<R>, a);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+inline bool pow2_in(int v, int lo, int hi) { return v >= lo && v <= hi && (v & (v - 1)) == 0; }
+
+// the plan's fields of a, or an error for a plan the kernel does not take
+int mlp_plan(MlpArgs& a, int rows, int D, int H, int hc, int split, int br1, int twb2, int br2) {
+  if (rows < 1 || rows > 8 || D < 16 || H < 16) return (int)cudaErrorInvalidValue;
+  if (!pow2_in(hc, 16, 256) || H % hc || split < 1 || split > 8 || D % split ||
+      (D / split) % kMlpGroup)
+    return (int)cudaErrorInvalidValue;
+  const int kc = D / split;
+  if (br1 < 1 || br1 > 256 || kc % br1 || !pow2_in(twb2, 16, 256) || kc % twb2 || br2 < 1 ||
+      br2 > 256 || hc % br2)
+    return (int)cudaErrorInvalidValue;
+  a.rows = rows; a.D = D; a.H = H;
+  a.hc = hc; a.split = split; a.br1 = br1; a.twb2 = twb2; a.br2 = br2;
+  return 0;
+}
+
+int launch_qmlp(MlpArgs& a, int pdl, cudaStream_t stream, int* clusters) {
+  if (a.rows == 1) return launch_qmlp_r<1>(a, pdl, stream, clusters);
+  if (a.rows == 2) return launch_qmlp_r<2>(a, pdl, stream, clusters);
+  if (a.rows <= 4) return launch_qmlp_r<4>(a, pdl, stream, clusters);
+  return launch_qmlp_r<8>(a, pdl, stream, clusters);
 }
 
 }  // namespace
@@ -415,27 +731,52 @@ int cluster_qmatmul_f32(const void* x, const void* w, const void* scale, void* o
   return launch_qmatmul<float>(x, w, scale, out, rows, K, N, twb, split, kc, br, pdl, stream);
 }
 
-// x (rows <= 8, D) f32; w1 (D, H), w2 (H, D) int8 row-major, 16-byte aligned;
-// s1, b1 (H), s2, b2 (D) f32; out (rows, D) f32; part: (H / 32) * rows * D floats.
-// D a multiple of 32, H a multiple of 32.
+// K10. x (rows <= 8, D) f32; w1 (D, H), w2 (H, D) int8 row-major, 16-byte
+// aligned; s1, b1 (H), s2, b2 (D) f32; out (rows, D) f32. The plan
+// (ops/gemv.k10_plan): hc hidden units a cluster (16 to 256, a power of two
+// dividing H), split CTAs a cluster (1 to 8, D / split a multiple of 16), w1
+// boxes of br1 rows (dividing D / split), w2 column tiles of twb2 bytes (16 to
+// 256, a power of two dividing D / split) in boxes of br2 rows (dividing hc).
+// part: (H / hc) * rows * D floats; tickets: D / 16 ints, zero (each launch
+// leaves them so). pdl: launch with programmatic stream serialization (w1 and
+// w2 must not be written by the kernel launched just before on the stream).
 int fused_qmlp_i8(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
-                  const void* s2, const void* b2, void* out, void* part, int rows, int D, int H,
+                  const void* s2, const void* b2, void* out, void* part, void* tickets, int rows,
+                  int D, int H, int hc, int split, int br1, int twb2, int br2, int pdl,
                   void* stream) {
-  if (rows < 1 || rows > 8 || D < 32 || D % 32 || H < kBh || H % kBh)
-    return (int)cudaErrorInvalidValue;
-  if ((uintptr_t)w1 % 16 || (uintptr_t)w2 % 16 || (uintptr_t)part % 16)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int err;
-  if (rows == 1) err = launch_qmlp<1>(x, w1, s1, b1, w2, part, rows, D, H, s);
-  else if (rows == 2) err = launch_qmlp<2>(x, w1, s1, b1, w2, part, rows, D, H, s);
-  else if (rows <= 4) err = launch_qmlp<4>(x, w1, s1, b1, w2, part, rows, D, H, s);
-  else err = launch_qmlp<8>(x, w1, s1, b1, w2, part, rows, D, H, s);
+  MlpArgs a = {};
+  int err = mlp_plan(a, rows, D, H, hc, split, br1, twb2, br2);
   if (err != 0) return err;
-  const int total = rows * D;
-  qmlp_reduce_kernel<<<(total + 127) / 128, 128, 0, s>>>(
-      (const float*)part, (const float*)s2, (const float*)b2, (float*)out, rows, D, H / kBh);
-  return (int)cudaGetLastError();
+  if ((uintptr_t)w1 % 16 || (uintptr_t)w2 % 16) return (int)cudaErrorInvalidValue;
+  a.x = (const float*)x;
+  a.s1 = (const float*)s1; a.b1 = (const float*)b1;
+  a.s2 = (const float*)s2; a.b2 = (const float*)b2;
+  a.out = (float*)out;
+  a.part = (float*)part;
+  a.tickets = (int*)tickets;
+  err = map_2d(&a.map1, w1, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, H, D, H, hc, br1,
+               CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  err = map_2d(&a.map2, w2, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, H, D, twb2, br2,
+               CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  return launch_qmlp(a, pdl, (cudaStream_t)stream, nullptr);
 }
+
+// How many of fused_qmlp_i8's clusters the card holds at once for this plan
+// and rows (cudaOccupancyMaxActiveClusters), into *clusters. Launches nothing.
+int fused_qmlp_clusters(int rows, int D, int H, int hc, int split, int br1, int twb2, int br2,
+                        void* clusters) {
+  MlpArgs a = {};
+  const int err = mlp_plan(a, rows, D, H, hc, split, br1, twb2, br2);
+  return err != 0 ? err : launch_qmlp(a, 0, nullptr, (int*)clusters);
+}
+
+#ifdef K10_PROBE
+// the probe's stamps of the last launch: n values of k10_stamps into host memory
+int fused_qmlp_stamps(void* dst, int n) {
+  return (int)cudaMemcpyFromSymbol(dst, k10_stamps, (size_t)n * sizeof(long long));
+}
+#endif
 
 }  // extern "C"

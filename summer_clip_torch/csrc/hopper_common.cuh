@@ -2,7 +2,7 @@
 // wgmma, thread-block clusters and libcuda's tensor-map encoder.
 //
 // Included by attention_kernels.cu (K4, K11, K12), block_kernels.cu (K9),
-// cache_kernels.cu (K1) and, through weight_ring.cuh, gemv_kernels.cu (K7) and
+// cache_kernels.cu (K1) and, through weight_ring.cuh, gemv_kernels.cu (K7, K10) and
 // decode_kernels.cu (K8). Everything sits in an anonymous namespace: each
 // source is its own library.
 //
@@ -56,7 +56,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (++spins == (1u << 26)) __trap();
   } while (!done);
 }
-// one 64 x 64 bf16 tile at (column c0, row c1, sequence c2) of a 3-D tensor map
+// one box at (c0, c1, c2) of a 3-D tensor map (e.g. a 64 x 64 bf16 tile at
+// column c0, row c1, sequence c2)
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                          int c1, int c2) {
   asm volatile(
@@ -173,6 +174,12 @@ __device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
 __device__ __forceinline__ void st_cluster_u32(uint32_t cluster_address, uint32_t v) {
   asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(cluster_address), "r"(v) : "memory");
 }
+// 16 bytes (16-byte aligned) to the shared memory of a CTA of the cluster
+__device__ __forceinline__ void st_cluster_v4(uint32_t cluster_address, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(cluster_address),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
 // arrive on a barrier of another CTA of the cluster (address from cluster_addr),
 // releasing this thread's earlier writes at cluster scope
 __device__ __forceinline__ void mbar_arrive_remote(uint32_t cluster_address) {
@@ -209,6 +216,15 @@ __device__ __forceinline__ void mbar_wait_bounded(uint32_t bar, uint32_t parity)
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;" :::
                    "memory");
+}
+// cluster_sync in two halves: arrive (orders nothing) early, wait where every
+// CTA of the cluster must have started, e.g. before the first store to its
+// shared memory
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 // order this thread's generic-proxy writes to shared memory before later
 // async-proxy reads (wgmma operands written by threads, not by TMA)

@@ -1,4 +1,4 @@
-// Device code shared by K7 (gemv_kernels.cu) and K8 (decode_kernels.cu): a box
+// Device code shared by K7 and K10 (gemv_kernels.cu) and K8 (decode_kernels.cu): a box
 // of weight rows that TMA wrote to shared memory, times the staged bf16 rows of
 // x; the sums of a column tile in a fixed order, first inside the CTA, then over
 // the CTAs of a thread-block cluster that split the tile's K.
@@ -97,24 +97,61 @@ __device__ __forceinline__ void reduce_scatter(float* a, int lane, int& base, in
   }
 }
 
-template <typename W, int R, int G>
+// Column c of a tile's row as it lies in red. Swizzled (kSwz, for 16 columns a
+// lane group, int8 weights): c's place in its 16-column group XORed with
+// (c / 32) % 16, so that lanes of one warp holding the same place of
+// different groups store to different banks; without it a row of 256 bytes
+// puts 16 lanes of a store on one bank.
+template <bool kSwz>
+__device__ __forceinline__ int red_col(int c) {
+  return kSwz ? c ^ ((c >> 5) & 15) : c;
+}
+
+// kSwz also flattens the accumulator column-major (the first halvings of the
+// reduce-scatter split columns, not rows, so the lanes that keep different
+// halves store to different banks too); which lane adds a pair does not
+// change its sum, so the bits are those of the row-major order.
+template <typename W, int R, int G, bool kSwz>
 __device__ __forceinline__ void warp_tile_sums(float (&acc)[R][Vec<W>::n], int gq, int tw,
                                                float* red) {
   constexpr int V = Vec<W>::n, N = R * V;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float a[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) a[i] = acc[i / V][i % V];
+  for (int i = 0; i < N; ++i) a[i] = kSwz ? acc[i % R][i / R] : acc[i / V][i % V];
   int base = 0, dup = 0;
   reduce_scatter<N, 16, G>(a, lane, base, dup);
   constexpr int HELD = N >= 32 / G ? N / (32 / G) : 1;
   if ((lane & dup) == 0) {
 #pragma unroll
     for (int k = 0; k < HELD; ++k) {
-      const int i = base + k;
-      red[(warp * R + i / V) * tw + gq * V + i % V] = a[k];
+      const int i = base + k, r = kSwz ? i % R : i / V, e = kSwz ? i / R : i % V;
+      red[(warp * R + r) * tw + red_col<kSwz>(gq * V + e)] = a[k];
     }
   }
+}
+
+// Each warp's sums of a tile of tw columns, red[(warp * R + r) * tw +
+// red_col<kSwz>(c)]: the row lanes of a warp added by reduce-scatter shuffles.
+template <typename W, int R, bool kSwz = false>
+__device__ __forceinline__ void warp_sums(float (&acc)[R][Vec<W>::n], const BoxLanes& bl, int tw,
+                                          float* red) {
+  switch (bl.g) {
+    case 1: warp_tile_sums<W, R, 1, kSwz>(acc, bl.gq, tw, red); break;
+    case 2: warp_tile_sums<W, R, 2, kSwz>(acc, bl.gq, tw, red); break;
+    case 4: warp_tile_sums<W, R, 4, kSwz>(acc, bl.gq, tw, red); break;
+    case 8: warp_tile_sums<W, R, 8, kSwz>(acc, bl.gq, tw, red); break;
+    default: warp_tile_sums<W, R, 16, kSwz>(acc, bl.gq, tw, red); break;
+  }
+}
+
+// The sum over the warps, in warp order, of column c of row r of red.
+template <int R, bool kSwz = false>
+__device__ __forceinline__ float warps_sum(const float* red, int r, int c, int tw) {
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kRingWarps; ++w) s += red[(w * R + r) * tw + red_col<kSwz>(c)];
+  return s;
 }
 
 // The CTA's sums of a tile of tw columns for rows r0 .. r0 + R - 1, sum i =
@@ -128,19 +165,10 @@ template <typename W, int R>
 __device__ __forceinline__ void tile_sums(float (&acc)[R][Vec<W>::n], const BoxLanes& bl, int tw,
                                           int r0, int rows_out, float* red, float* recv, int split,
                                           int rank, int stride) {
-  switch (bl.g) {
-    case 1: warp_tile_sums<W, R, 1>(acc, bl.gq, tw, red); break;
-    case 2: warp_tile_sums<W, R, 2>(acc, bl.gq, tw, red); break;
-    case 4: warp_tile_sums<W, R, 4>(acc, bl.gq, tw, red); break;
-    case 8: warp_tile_sums<W, R, 8>(acc, bl.gq, tw, red); break;
-    default: warp_tile_sums<W, R, 16>(acc, bl.gq, tw, red); break;
-  }
+  warp_sums<W, R>(acc, bl, tw, red);
   __syncthreads();
   for (int i = threadIdx.x; i < min(R, rows_out - r0) * tw; i += kRingThreads) {
-    const int r = i / tw, c = i % tw;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kRingWarps; ++w) s += red[(w * R + r) * tw + c];
+    const float s = warps_sum<R>(red, i / tw, i % tw, tw);
     const int idx = r0 * tw + i;
     if (split == 1) recv[idx] = s;
     else

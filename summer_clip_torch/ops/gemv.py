@@ -16,10 +16,11 @@ stored and widened in registers.
   all and a tile-legal matrix go to K7, everything else runs the same math as
   one ``torch.matmul``.
 - :func:`fused_qmlp_reference`, :func:`fused_qmlp` -- K10, the int8 MLP pair
-  ``gelu_tanh(x @ w1 * s1 + b1) @ w2 * s2 + b2`` in one call
+  ``gelu_tanh(x @ w1 * s1 + b1) @ w2 * s2 + b2`` in one launch
   (``fused_qmlp_i8``); replaces the TPU kernel ``fused_qmlp`` (ops/gemv.py:186).
-  :func:`qmlp` dispatches to it under ``SUMMER_CLIP_FUSED_MLP=1``, as the JAX
-  package does.
+  :func:`k10_plan` picks its hidden chunks, K split (a thread-block cluster) and
+  TMA boxes from (D, H) alone. :func:`qmlp` dispatches to it under
+  ``SUMMER_CLIP_FUSED_MLP=1``, as the JAX package does.
 - :func:`gather_rows` -- embedding rows straight off a plain or int8 table.
 
 An int8 leaf is a :class:`QLeaf`: a small module holding ``q`` (int8) and
@@ -37,6 +38,7 @@ default).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import typing as tp
 
@@ -47,26 +49,34 @@ from torch import nn
 from summer_clip_torch.ops import _lib
 
 __all__ = ["QLeaf", "is_qleaf", "matmul_reference", "streamed_qmatmul", "qdot", "gather_rows",
-           "fused_qmlp", "fused_qmlp_reference", "qmlp", "fused_mlp_legal", "MAX_ROWS"]
+           "fused_qmlp", "fused_qmlp_reference", "qmlp", "fused_mlp_legal", "k10_plan", "K10Plan",
+           "MAX_ROWS"]
 
 MAX_ROWS = 8          # rows a decode-shaped call may have
 _BUDGET = 8 * 1024 * 1024   # the JAX package's block budget: part of the routing rule only
-_MLP_BH = 32          # hidden units a block of K10 owns
 # K7's plan: CTAs a launch aims at (one an H100 SM), the K splits a cluster may
 # take, the fewest rows of K a split keeps, the most bytes a TMA box holds
 _K7_CTAS = 132
 _K7_SPLITS = (1, 2, 4, 8)
 _K7_MIN_ROWS = 64
 _BOX_BYTES = 16384
-# Programmatic dependent launch of K7: its first weight boxes are asked for
-# before the kernel before it has ended. Off, each launch waits for the last.
+# K10's plan: the most CTAs a launch takes (one an SM, as many as an H100 holds
+# at once in clusters: 120 in K8's clusters of 4), the hidden units a cluster
+# may own, output columns a ticket covers, shared memory a CTA may take
+_K10_CTAS = 120
+_K10_HC = (256, 128, 64, 32, 16)
+_K10_GROUP = 16
+_SMEM_LIMIT = 232448
+# Programmatic dependent launch of K7 and K10: their weight boxes are asked for
+# before the kernel before has ended. Off, each launch waits for the last.
 PDL = True
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _QMM = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "cluster_qmatmul_i8": _QMM, "cluster_qmatmul_bf16": _QMM, "cluster_qmatmul_f32": _QMM,
-    "fused_qmlp_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "fused_qmlp_i8": [_P] * 10 + [_I] * 9 + [_P],
+    "fused_qmlp_clusters": [_I] * 8 + [_P],
 }
 _ENTRY = {torch.int8: "cluster_qmatmul_i8", torch.bfloat16: "cluster_qmatmul_bf16",
           torch.float32: "cluster_qmatmul_f32"}
@@ -273,9 +283,82 @@ def _pick_bh(d: int, h: int, itemsize: int) -> int:
 
 def fused_mlp_legal(d: int, h: int, itemsize: int) -> bool:
     """What :func:`qmlp` sends to K10: the JAX package's rule (D a multiple of
-    128, a hidden chunk of a multiple of 128 that divides H), which implies
-    what the CUDA kernel needs (D and H multiples of 32)."""
+    128, a hidden chunk of a multiple of 128 that divides H). :func:`k10_plan`
+    has a plan for each such shape."""
     return d % 128 == 0 and _pick_bh(d, h, itemsize) > 0
+
+
+class K10Plan(tp.NamedTuple):
+    """K10's work split. Cluster c owns hidden units ``[c hc, (c + 1) hc)``;
+    its ``split`` CTAs (ranks) split the first product's K and the second
+    product's columns: rank r owns rows ``[r kc, (r + 1) kc)`` of w1 and the
+    same columns of w2 and of the output. w1 arrives in boxes of ``br1`` rows
+    of ``hc`` bytes; w2 in column tiles of ``twb2`` bytes, boxes of ``br2``
+    rows."""
+    hc: int
+    split: int
+    kc: int
+    br1: int
+    twb2: int
+    br2: int
+    clusters: int
+
+    @property
+    def ctas(self) -> int:
+        return self.clusters * self.split
+
+
+def k10_smem(plan: K10Plan, rows: int = MAX_ROWS) -> int:
+    """Shared memory of a K10 CTA (bytes) for ``rows`` rows of x, as the kernel
+    lays it out (``mlp_layout`` in ``csrc/gemv_kernels.cu``), for the kernel's
+    template of that many rows."""
+    r = 1 if rows == 1 else 2 if rows == 2 else 4 if rows <= 4 else 8
+
+    def up(v):
+        return -(-v // 128) * 128
+
+    nb1, nt2, nb2 = plan.kc // plan.br1, plan.kc // plan.twb2, plan.hc // plan.br2
+    staged = nb1 * up(plan.br1 * plan.hc) + 4 * r * plan.kc
+    red = 4 * 8 * r * max(plan.hc, plan.twb2)
+    rest = nt2 * nb2 * up(plan.br2 * plan.twb2) + 4 * (plan.split + 1) * r * plan.hc
+    # the final sums: running sums and one cluster's box of partials a column group
+    sums = up(4 * r * plan.kc) + plan.kc // _K10_GROUP * up(4 * _K10_GROUP * r)
+    return (up(max(staged, red, sums - rest)) + rest + 8 * ((nb1 + nt2 * nb2 + 2) // 2 * 2)
+            + -(-4 * (plan.kc // _K10_GROUP + 1) // 16) * 16 + 8 * plan.kc)
+
+
+@functools.lru_cache(maxsize=None)
+def k10_plan(d: int, h: int) -> K10Plan:
+    """K10's plan for w1 (d, h) and w2 (h, d), from the geometry alone (kept per
+    shape: a decoded token calls K10 once a block). Of the
+    plans whose CTAs fit shared memory at 8 rows: the most CTAs up to
+    ``_K10_CTAS`` (one wave, one an SM: every weight byte asked for at launch),
+    else the fewest; then the widest hidden chunk (fewer partials to add), then
+    the widest column tile of w2. Every sum's order follows from this plan,
+    never from the rows of x: a row's result does not depend on the rows that
+    ride with it. Raises ValueError for a shape no plan takes."""
+    best, best_key = None, None
+    for hc in _K10_HC:
+        if h % hc:
+            continue
+        for split in range(1, 9):
+            if d % split or (d // split) % _K10_GROUP:
+                continue
+            kc = d // split
+            twb2 = 256
+            while kc % twb2:
+                twb2 //= 2
+            plan = K10Plan(hc, split, kc, box_rows(kc, hc), twb2, box_rows(hc, twb2), h // hc)
+            if k10_smem(plan) > _SMEM_LIMIT:
+                continue
+            fits = plan.ctas <= _K10_CTAS
+            key = (fits, plan.ctas if fits else -plan.ctas, hc, twb2)
+            if best_key is None or key > best_key:
+                best, best_key = plan, key
+    if best is None:
+        raise ValueError(f"fused_qmlp: no plan takes D={d} H={h} (D and H multiples of "
+                         f"{_K10_GROUP}, a CTA's share within {_SMEM_LIMIT} bytes of shared memory)")
+    return best
 
 
 def fused_qmlp_reference(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
@@ -290,8 +373,14 @@ def fused_qmlp_reference(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
 def fused_qmlp(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
                w2: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """K10. ``gelu_tanh(x @ w1 * s1 + b1) @ w2 * s2 + b2`` for x (R <= 8, D),
-    w1 (D, H) and w2 (H, D) int8; the hidden never reaches device memory.
-    (R, D) f32 out."""
+    w1 (D, H) and w2 (H, D) int8, in one launch (:func:`k10_plan`); the hidden
+    never reaches device memory. (R, D) f32 out.
+
+    With :data:`PDL` the launch asks for every weight byte before the kernel
+    launched just before it on the stream has ended, and reads x, the scales
+    and the biases after. So w1 and w2 must not be written by that kernel
+    (stored weights never are; weights this wrapper copies are launched
+    without it)."""
     if x.device.type == "cpu":
         return fused_qmlp_reference(x, w1, s1, b1, w2, s2, b2)
     d, h = w1.shape
@@ -300,19 +389,22 @@ def fused_qmlp(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor, b1: torch.Te
         if w.dtype != torch.int8 or w.device != x.device or tuple(w.shape) != shape:
             raise TypeError(f"{name}: expected int8 {shape} on {x.device}, got {w.dtype} "
                             f"{tuple(w.shape)} on {w.device}")
-    if d % 32 or h % _MLP_BH:
-        raise ValueError(f"fused_qmlp takes D and H that are multiples of 32, got D={d} H={h}")
+    plan = k10_plan(d, h)
+    copied = not (w1.is_contiguous() and w2.is_contiguous())
     w1, w2 = w1.contiguous(), w2.contiguous()
     s1v, b1v = _f32_vector(s1, "s1", h, x.device), _f32_vector(b1, "b1", h, x.device)
     s2v, b2v = _f32_vector(s2, "s2", d, x.device), _f32_vector(b2, "b2", d, x.device)
+    # the kernel reads x, s2 and b2 16 bytes at a time
+    xr, s2v, b2v = (t.clone() if t.data_ptr() % 16 else t for t in (xr, s2v, b2v))
     rows = xr.shape[0]
     out = torch.empty((rows, d), dtype=torch.float32, device=x.device)
-    stream = _lib.torch_stream()
-    part = _scratch("k10_partials", x.device, (h // _MLP_BH) * rows * d, torch.float32)
+    part = _scratch("k10_partials", x.device, plan.clusters * rows * d, torch.float32)
+    tickets = _scratch("k10_tickets", x.device, d // _K10_GROUP, torch.int32)
     _lib.check(_lib_gemv().fused_qmlp_i8(
         xr.data_ptr(), w1.data_ptr(), s1v.data_ptr(), b1v.data_ptr(), w2.data_ptr(),
-        s2v.data_ptr(), b2v.data_ptr(), out.data_ptr(), part.data_ptr(), rows, d, h, stream),
-        "fused_qmlp")
+        s2v.data_ptr(), b2v.data_ptr(), out.data_ptr(), part.data_ptr(), tickets.data_ptr(), rows,
+        d, h, plan.hc, plan.split, plan.br1, plan.twb2, plan.br2, int(PDL and not copied),
+        _lib.torch_stream()), "fused_qmlp")
     fused_qmlp.launches += 1
     return out
 

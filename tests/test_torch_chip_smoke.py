@@ -70,6 +70,23 @@ def test_workspace_entries_are_the_ones_the_cluster_designs_replaced():
     assert "tickets" not in gemv_src.split("// K10")[0] and "tickets" not in decode_src
 
 
+def test_two_launch_k10_entry_is_the_one_the_single_launch_replaced():
+    """An earlier ``gemv_kernels.cu`` whose K10 is two launches (it has
+    ``qmlp_reduce_kernel``) is timed on its own K10 entry; the tree's source
+    launches K10 once, and each of its entries takes as many parameters as the
+    wrapper module declares."""
+    import re
+
+    from summer_clip_torch.ops import _lib, gemv
+
+    src = (_lib.CSRC_DIR / "gemv_kernels.cu").read_text()
+    assert "qmlp_reduce_kernel" not in src
+    for name, argtypes in gemv._SIGNATURES.items():
+        params = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
+        assert len(params.split(",")) == len(argtypes), name
+    assert len(chip_smoke.TWO_LAUNCH_K10_SIGNATURES["fused_qmlp_i8"]) == 13
+
+
 def test_baseline_times_nothing_without_a_baseline_build():
     chip_smoke.BASELINE.clear()
     assert chip_smoke.baseline_ms(lambda: None, 3, "cache_kernels") is None

@@ -7,8 +7,9 @@ bf16 value is exact in f32, so the two sides differ by the order of their f32
 sums only: rtol 1e-5 of the largest output. K10's hidden is rounded to bf16
 before the second product; a hidden that differs in its last f32 bit may round
 to the neighbouring bf16 value (2^-8 relative, one term of H), hence 1e-4
-there. The ``cuda`` tests compare the CUDA kernels with the plain versions on a
-card and skip without one.
+there. K10's plan is walked in numpy and held against the plain version. The
+``cuda`` tests compare the CUDA kernels with the plain versions on a card and
+skip without one.
 """
 
 import numpy as np
@@ -211,6 +212,135 @@ def test_k10_plain_version_matches_jax_kernel_and_reference(rows, d, h):
     assert gemv.fused_qmlp.launches == 0
 
 
+# (D, H) that K10 must plan: the gpt2 family's widths and small test widths at
+# the usual ratios, a few others; the ones the JAX rule sends to K10
+K10_GRID = sorted({(d, m * d) for d in (128, 256, 384, 512, 640, 768, 1024, 1280, 1536, 2048, 4096)
+                   for m in (1, 2, 3, 4, 8)} | {(1280, 1280 * 4 + 128), (16384, 128), (128, 65536)})
+K10_LEGAL = [dh for dh in K10_GRID if gemv.fused_mlp_legal(*dh, 1)]
+
+
+def test_k10_grid_holds_the_main_path_and_test_widths():
+    for dh in ((1280, 5120), (1024, 4096), (768, 3072), (256, 1024), (128, 512)):
+        assert dh in K10_LEGAL
+
+
+@pytest.mark.parametrize("d,h", K10_LEGAL)
+def test_k10_plan_covers_h_once_with_legal_boxes(d, h):
+    """K10's plan is a function of (D, H) alone, never of the rows of x. Its
+    clusters cover H exactly once; a cluster's ranks cover D exactly once, as
+    w1's rows and as w2's and the output's columns; every TMA box is legal (at
+    most 256 rows, a width of 16 to 256 bytes, a multiple of 16) and so is the
+    cluster (at most 8 CTAs); a CTA's shared memory stays within 227 KB for
+    every count of rows; at gpt2-large every CTA is one of at most 132."""
+    import inspect
+
+    assert list(inspect.signature(gemv.k10_plan).parameters) == ["d", "h"]
+    plan = gemv.k10_plan(d, h)
+    assert plan == gemv.k10_plan(d, h)
+    assert 1 <= plan.split <= 8 and plan.kc * plan.split == d and plan.kc % 16 == 0
+    hidden = np.zeros(h, np.int32)
+    for c in range(plan.clusters):
+        hidden[c * plan.hc:(c + 1) * plan.hc] += 1
+    assert (hidden == 1).all()
+    rows, cols = np.zeros(d, np.int32), np.zeros(d, np.int32)
+    for rank in range(plan.split):
+        k0 = rank * plan.kc
+        for j in range(plan.kc // plan.br1):                    # w1's boxes of this rank
+            rows[k0 + j * plan.br1:k0 + (j + 1) * plan.br1] += 1
+        for t in range(plan.kc // plan.twb2):                   # w2's column tiles
+            cols[k0 + t * plan.twb2:k0 + (t + 1) * plan.twb2] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    assert plan.kc % plan.br1 == 0 and plan.kc % plan.twb2 == 0 and plan.hc % plan.br2 == 0
+    for width, box_rows in ((plan.hc, plan.br1), (plan.twb2, plan.br2)):
+        assert 16 <= width <= 256 and width % 16 == 0 and width & (width - 1) == 0
+        assert 1 <= box_rows <= 256
+    for r in range(1, gemv.MAX_ROWS + 1):
+        assert gemv.k10_smem(plan, r) <= 227 * 1024
+    if (d, h) == (1280, 5120):
+        assert plan.ctas <= 132
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _gelu_tanh(v):
+    c = np.float32(0.7978845608028654)
+    inner = c * (v + np.float32(0.044715) * v * v * v)
+    return (np.float32(0.5) * v * (np.float32(1.0) + np.tanh(inner))).astype(np.float32)
+
+
+def _k10_walk(plan, x, w1, s1, b1, w2, s2, b2, hidden=None):
+    """K10's plan walked in numpy, f32: each cluster's chunk of hidden units;
+    in it each rank's K chunk of the first product, rows in order, the ranks
+    added in rank order; s1, b1, gelu_tanh, bf16; each rank's columns of the
+    second product, hidden units in order; then each ticketed group of 16
+    columns added over the clusters in cluster order, scaled and biased.
+    ``hidden``: a (rows, H) hidden to use in place of the walk's own.
+    Returns the output and the pre-activation."""
+    n, d = x.shape
+    h = w1.shape[1]
+    xb, w1f, w2f = _bf16(x), w1.astype(np.float32), w2.astype(np.float32)
+    s1, b1, s2, b2 = (np.asarray(v, np.float32).reshape(-1) for v in (s1, b1, s2, b2))
+    part = np.zeros((plan.clusters, n, d), np.float32)
+    pre = np.zeros((n, h), np.float32)
+    for c in range(plan.clusters):
+        hc = slice(c * plan.hc, (c + 1) * plan.hc)
+        t = np.zeros((n, plan.hc), np.float32)
+        for rank in range(plan.split):
+            acc = np.zeros((n, plan.hc), np.float32)
+            for k in range(rank * plan.kc, (rank + 1) * plan.kc):
+                acc += xb[:, k:k + 1] * w1f[k, hc]
+            t += acc
+        t = t * s1[hc] + b1[hc]
+        pre[:, hc] = t
+        hid = _bf16(_gelu_tanh(t)) if hidden is None else hidden[:, hc]
+        for rank in range(plan.split):
+            cols = slice(rank * plan.kc, (rank + 1) * plan.kc)
+            acc = np.zeros((n, plan.kc), np.float32)
+            for j in range(plan.hc):
+                acc += hid[:, j:j + 1] * w2f[c * plan.hc + j, cols]
+            part[c, :, cols] = acc
+    out = np.zeros((n, d), np.float32)
+    covered = np.zeros(d, np.int32)
+    for g in range(d // 16):
+        cols = slice(16 * g, 16 * (g + 1))
+        acc = np.zeros((n, 16), np.float32)
+        for c in range(plan.clusters):
+            acc += part[c, :, cols]
+        out[:, cols] = acc * s2[cols] + b2[cols]
+        covered[cols] += 1
+    assert (covered == 1).all()
+    return out, pre
+
+
+@pytest.mark.parametrize("d,h", [(128, 512), (256, 1024), (768, 3072), (1280, 5120)])
+def test_k10_plan_walked_in_numpy_matches_the_plain_version(d, h):
+    """The order of K10's sums, walked in numpy on the plan, computes the plain
+    version's function: the pre-activation within 1e-5 of its largest (f32 sums
+    in another order); fed the plain version's bf16 hidden, the output within
+    1e-5 of the largest; with its own hidden within 1e-4 (a hidden that differs
+    in its last f32 bit may round to the neighbouring bf16 value, as in the
+    JAX comparisons above). Row 0 alone gives the bits it gives among 8."""
+    rng = np.random.default_rng(d + h)
+    x = rng.standard_normal((8, d)).astype(np.float32)
+    (w1, s1), (w2, s2) = _quant(rng, d, h), _quant(rng, h, d)
+    b1 = (rng.standard_normal(h) * 0.1).astype(np.float32)
+    b2 = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    args = (x, w1, s1, b1, w2, s2, b2)
+    plan = gemv.k10_plan(d, h)
+    targs = list(map(torch.from_numpy, args))
+    want = gemv.fused_qmlp_reference(*targs).numpy()
+    want_pre = (gemv.matmul_reference(targs[0], targs[1], targs[2]) + targs[3]).numpy()
+    hidden = _bf16(torch.nn.functional.gelu(torch.from_numpy(want_pre), approximate="tanh").numpy())
+    got, pre = _k10_walk(plan, *args)
+    _close(pre, want_pre, 1e-5)
+    _close(_k10_walk(plan, *args, hidden=hidden)[0], want, 1e-5)
+    _close(got, want, 1e-4)
+    alone, _ = _k10_walk(plan, x[:1], *args[1:])
+    np.testing.assert_array_equal(alone[0], got[0])
+
+
 def test_k10_plain_version_keeps_the_hidden_in_f32():
     """The hidden is not rounded to a model type between the products: with a
     bf16 rounding of the pre-activation the result moves by more than the
@@ -401,6 +531,78 @@ def test_cuda_k10_matches_plain(rows, d, h):
     want = gemv.fused_qmlp_reference(*args)
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
     assert torch.equal(got, gemv.fused_qmlp(*args))
+
+
+def _k10_args(rows, d, h, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32)).cuda()
+    (w1, s1), (w2, s2) = _quant(rng, d, h), _quant(rng, h, d)
+    b1 = (rng.standard_normal(h) * 0.1).astype(np.float32)
+    b2 = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    return [x] + [torch.from_numpy(a).cuda() for a in (w1, s1, b1, w2, s2, b2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", range(1, 9))
+def test_cuda_k10_row_alone_and_repeat_bit_for_bit(rows):
+    """At gpt2-large width, one launch a call; every row gives the bits it
+    gives alone, and two runs give the same bits."""
+    _cuda()
+    x, *weights = _k10_args(rows, 1280, 5120, 40 + rows)
+    before = gemv.fused_qmlp.launches
+    got = gemv.fused_qmlp(x, *weights)
+    torch.cuda.synchronize()
+    assert gemv.fused_qmlp.launches == before + 1
+    assert torch.equal(got, gemv.fused_qmlp(x, *weights))
+    for r in range(rows):
+        assert torch.equal(got[r:r + 1], gemv.fused_qmlp(x[r:r + 1], *weights))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdl", [True, False])
+def test_cuda_k10_reads_x_after_a_slow_predecessor(monkeypatch, pdl):
+    """With programmatic dependent launch K10 asks for its weights before the
+    kernel before it has ended, and must read x only after that kernel's
+    writes: x filled with NaN, then written by a slow reduction (or by the K10
+    whose output it is), gives the bits of a synchronised call."""
+    _cuda()
+    monkeypatch.setattr(gemv, "PDL", pdl)
+    x0, w1, s1, b1, w2, s2, b2 = _k10_args(4, 1280, 5120, 8)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    big = torch.randn((4, 1280, 512), device="cuda", generator=gen)
+    want_sum = gemv.fused_qmlp(big.sum(-1), w1, s1, b1, w2, s2, b2)
+    torch.cuda.synchronize()
+    y = gemv.fused_qmlp(x0, w1, s1, b1, w2, s2, b2)
+    torch.cuda.synchronize()
+    want_chain = gemv.fused_qmlp(y, w1, s1, b1, w2, s2, b2)
+    torch.cuda.synchronize()
+    xbuf = torch.empty((4, 1280), device="cuda")
+    for _ in range(10):
+        xbuf.fill_(float("nan"))
+        torch.sum(big, dim=-1, out=xbuf)
+        assert torch.equal(gemv.fused_qmlp(xbuf, w1, s1, b1, w2, s2, b2), want_sum)
+        del y
+        torch.full((4, 1280), float("nan"), device="cuda")    # the block the next output takes
+        y = gemv.fused_qmlp(x0, w1, s1, b1, w2, s2, b2)
+        assert torch.equal(gemv.fused_qmlp(y, w1, s1, b1, w2, s2, b2), want_chain)
+
+
+@pytest.mark.cuda
+def test_cuda_k10_captures_into_a_graph():
+    """A chain of K10 launches (programmatic dependent launch on) captured into
+    a CUDA graph gives the eager chain's bits, replay after replay: the tickets
+    are back at zero after every launch."""
+    _cuda()
+    x, w1, s1, b1, w2, s2, b2 = _k10_args(2, 1280, 5120, 12)
+    want = gemv.fused_qmlp(gemv.fused_qmlp(x, w1, s1, b1, w2, s2, b2), w1, s1, b1, w2, s2, b2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = gemv.fused_qmlp(gemv.fused_qmlp(x, w1, s1, b1, w2, s2, b2), w1, s1, b1, w2, s2, b2)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
