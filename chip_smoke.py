@@ -172,6 +172,27 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
      "xla"``, ``SHORT_FUSED_ENABLED=False``), ``loss.backward()`` launching no
      kernel, a planted fault's readings beside the limits, and the ms of a
      CoOp step (forward and backward apart, both routes) and its peak memory.
+   - Prompt search and few-shot adaptation (``prompt_search``): (g)
+     train_autoprompt in AutoPrompt mode at ViT-L/14 over ``synthetic_1k``
+     (1000 classes, 1 shot, batch 125: 4 HotFlip steps of 10 candidates on 2
+     batches), (h) the same app in FluentPrompt mode (batch 250: 4 SGLD
+     steps), (i) train_coop with Gumbelv3a1 (the adapter head on the gen_gpt
+     path's gpt2-large checkpoint, 8 positions, the suffix fluency loss) at
+     ViT-B/16 on ``synthetic``, (j) train_prolip at ViT-B/16 on ``synthetic``
+     (8 shots, 60 full-batch steps), (k) image_attention over the CLIP-search
+     path's prototype store with a weights strategy the kernels do not know
+     (``tip_formula_weights``: Tip-Adapter's formula by its own
+     ``transform``), so that it takes the dense route. Checks each app's K4,
+     K5 and K6 launches exactly; then, outside the counted run: every HotFlip
+     loss against the route that launches no kernel and the yaml heap, the
+     FluentPrompt prompt on vocabulary rows after every step, Gumbelv3a1's
+     fluency term (loss and proposer gradient) on one batch against the plain
+     route, its CLIP term (through the bf16 text tower) no farther from the
+     route with an f32 tower than 1.5x the plain route's distance, ProLIP's
+     W against the same training on the CPU and its CE falling, the dense
+     route's saved predictions against its plain f32 function on the stored
+     arrays, and its records against the kernel route's record by record
+     (accuracies within 1 point: the 1% of rows the prediction gates allow).
    - The sweep tool's first geometry (``onehot_sweep``:
      ``tools/torch_sweep_onehot_variants.bench``): K1 over int8 one-hots
      twice, each of K13's three arms at block_n 1024 and 2048 twice, checksums
@@ -2186,7 +2207,7 @@ def check_against_cpu(store: Path, model_name: str, n: int, outs: bool = False,
     from summer_clip_torch.models.clip import build_clip
     from summer_clip_torch.store import FeatureStore
 
-    model, cfg = build_clip(model_name, torch.Generator().manual_seed(0))
+    model, cfg = build_clip(model_name, torch.Generator().manual_seed(0), device="cpu")
     ds = {"synthetic": SyntheticDataset, "synthetic_1k": SyntheticImageNetScale}[ds_name]()
     fs, tag = FeatureStore(store), model_name.replace("/", "")
     images = np.stack([SyntheticDataset.render(i.impath, cfg.image_resolution)
@@ -2198,7 +2219,7 @@ def check_against_cpu(store: Path, model_name: str, n: int, outs: bool = False,
         if not outs:
             return float(cos.min()), None
         classifier = zeroshot_classifier(model.encode_text, ds.classnames, ds.template,
-                                         chunk_size=len(ds.classnames))
+                                         chunk_size=len(ds.classnames), device="cpu")
         feats = torch.from_numpy(np.array(fs.load(f"synthetic_train-{tag}", "features")))
         want = clip_logits(feats, classifier, scale=1.0).numpy()
     stored = fs.load(f"synthetic_train_outs-{tag}", "outs")
@@ -2230,15 +2251,20 @@ def write_prototype_outs(store: Path, ds: str, tag: str) -> int:
 
 
 def check_search_predictions(run_root: Path, store: Path, ds: str, tag: str,
-                             outs_key: str) -> dict:
+                             outs_key: str, compute_dtype: str = "bfloat16",
+                             witness_dtype: tp.Optional[str] = None) -> dict:
     """Every ``searcher_result`` record of one image_attention run, made with
     ``run_saves.save_logits``, ``save_cache_inds`` and ``save_preds``: the
     predictions the app saved (its kernels, its resident sorted cache, its
     gathers and label tables) against predictions rebuilt here from the stored
     arrays, the saved selection and the plain dense version of the cache
-    logits. Returns the least share of test rows on which the two agree, the
-    share of rows whose prediction the cache changed at the largest alpha, and
-    the number of records compared."""
+    logits, computed in ``compute_dtype`` (the kernels' bf16, or f32 for the
+    dense route of another weights strategy). Returns the least share of test
+    rows on which the two agree, the share of rows whose prediction the cache
+    changed at the largest alpha, and the number of records compared; with
+    ``witness_dtype``, also ``witness``: for each record in the file's order,
+    the share of rows on which the plain rebuild in ``compute_dtype`` and the
+    plain rebuild in ``witness_dtype`` agree (what rounding alone flips)."""
     import numpy as np
     import torch
 
@@ -2262,7 +2288,7 @@ def check_search_predictions(run_root: Path, store: Path, ds: str, tag: str,
     zero_preds = clip.argmax(1)
     top_alpha = max(r["alpha"] for r in recs if r.get("type") == "searcher_result")
 
-    worst, changed, n = 1.0, 0.0, 0
+    worst, changed, n, witness = 1.0, 0.0, 0, []
     inds, plain = None, {}
     for r in recs:
         if r.get("type") == "cache_info":
@@ -2271,18 +2297,22 @@ def check_search_predictions(run_root: Path, store: Path, ds: str, tag: str,
             continue
         vkey = json.dumps(r["cache_value_strategy"], sort_keys=True)
         beta = float(r["cache_weights_strategy"]["beta"])
-        if (vkey, beta) not in plain:
-            values = C.instantiate(r["cache_value_strategy"]).transform(outs[inds])
-            plain[vkey, beta] = ck.cache_attention_dense_reference(
-                test, cache[torch.from_numpy(inds).cuda()], torch.from_numpy(values).cuda(),
-                torch.tensor([beta]), compute_dtype=torch.bfloat16)[0]
-        want = (clip + r["alpha"] * plain[vkey, beta]).argmax(1)
+        for dtype in filter(None, (compute_dtype, witness_dtype)):
+            if (vkey, beta, dtype) not in plain:
+                values = C.instantiate(r["cache_value_strategy"]).transform(outs[inds])
+                plain[vkey, beta, dtype] = ck.cache_attention_dense_reference(
+                    test, cache[torch.from_numpy(inds).cuda()], torch.from_numpy(values).cuda(),
+                    torch.tensor([beta]), compute_dtype=getattr(torch, dtype))[0]
+        want = (clip + r["alpha"] * plain[vkey, beta, compute_dtype]).argmax(1)
         got = torch.from_numpy(np.load(run_dir / r["preds_path"])).cuda()
         worst = min(worst, float((got == want).float().mean()))
+        if witness_dtype:
+            other = (clip + r["alpha"] * plain[vkey, beta, witness_dtype]).argmax(1)
+            witness.append(float((other == want).float().mean()))
         if r["alpha"] == top_alpha:
             changed = max(changed, float((want != zero_preds).float().mean()))
         n += 1
-    return {"agree_min": worst, "changed_max": changed, "records": n}
+    return {"agree_min": worst, "changed_max": changed, "records": n, "witness": witness}
 
 
 SEARCH_STRATEGIES = ("topk", "topk_prob", "topk_per_gold", "topk_prob_per_gold",
@@ -3379,10 +3409,10 @@ def run_training(work: Path, search_store: Path, tip_store: Path, gpt_ckpt: Path
     return {"times_s": times, "store": store, "trainer": captured["trainer"]}
 
 
-def _epoch_record(run_root: Path) -> dict:
+def _epoch_record(run_root: Path, key: str = "loss/total") -> dict:
     rec_file, = run_root.rglob("records.jsonl")
     recs = [json.loads(line) for line in rec_file.read_text().splitlines()]
-    return [r for r in recs if "epoch" in r and "loss/total" in r][-1]
+    return [r for r in recs if "epoch" in r and key in r][-1]
 
 
 def check_training(trainer) -> None:
@@ -3423,13 +3453,6 @@ def check_training(trainer) -> None:
         if out[2]:
             raise AssertionError(f"gate ({name}): loss.backward() launched {out[2]}")
         return out, fwd
-
-    def plain_route(fn):
-        modeling.FUSED_BLOCK_MODE, at.SHORT_FUSED_ENABLED = "xla", False
-        try:
-            return fn()
-        finally:
-            modeling.FUSED_BLOCK_MODE, at.SHORT_FUSED_ENABLED = "block", True
 
     def readings(a, b):
         return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]),
@@ -3479,6 +3502,516 @@ def check_training(trainer) -> None:
             f"{name} route: forward {fwd:.2f} ms, backward {bwd:.2f} ms, step {fwd + bwd:.2f} ms, "
             f"peak memory of a step {peak / 2 ** 30:.3f} GiB above the resident "
             f"{base / 2 ** 30:.3f} GiB")
+
+
+# --------------------------------------------------------------------------- #
+# prompt_search: AutoPrompt, FluentPrompt, Gumbelv3a1, ProLIP, the dense route
+# --------------------------------------------------------------------------- #
+# the losses of a HotFlip step on the kernel route against the route that
+# launches no kernel: CE over the classes through two bf16 towers that round
+# in other places (the CoOp gate reads its loss at 2.5e-4)
+TOL_SEARCH_LOSS_REL = 1e-3
+# ProLIP's W trained on the card against the same training on the CPU from the
+# same pre-projection features: |W_card - W_cpu| / |W_cpu - W0| (Frobenius),
+# f32 with TF32 off on both sides, sums in another order over 60 Adam steps
+TOL_PROLIP_W_REL = 1e-3
+# Gumbelv3a1's fluency term, its loss and proposer gradient: an f32 ClipGPT on
+# both routes, K4's f32 forward against the plain attention (the backward
+# recomputes)
+TOL_FLUENCY_REL = 1e-4
+# ... and its CLIP term, which crosses the bf16 text tower over 4 classes: the
+# kernel route's text features and proposer gradient, vectors, no farther from
+# the route with an f32 tower than this many times the plain route's are (two
+# bf16 routes part by rounding, ROADMAP Queue 3).
+TOL_F32_RATIO = 1.5
+# The CLIP loss is the same f32 function of F on every route, so it moves from
+# the plain route's by its first-order change <dL/dF, F_k - F_p> and, beyond
+# that, by at most this share of |dL/dF| |F_k - F_p| (the second order; read
+# at 1e-4 of it) and a few f32 units of the loss.
+TOL_LOSS_SECOND_ORDER = 0.05
+F32_UNIT = 2.0 ** -23
+PROMPT_SEARCH_PATH = ("K4 short_attention_packed", "K5 fused_ln_attn", "K6 fused_ln_mlp")
+
+
+def tip_formula_weights(beta: float):
+    """A weights strategy the cache kernels do not know, computing Tip-Adapter's
+    formula by its own ``transform`` (``image_attention`` takes its dense
+    route); ``_target_: chip_smoke.tip_formula_weights``."""
+    import numpy as np
+
+    from summer_clip_torch.methods.cache import CacheWeightsStrategy
+
+    def unit(x):
+        x = np.asarray(x, np.float32)
+        return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
+
+    class TipFormula(CacheWeightsStrategy):
+        def transform(self, test_image_features, cache_image_features):
+            return np.exp(-beta * (1.0 - unit(test_image_features) @ unit(cache_image_features).T))
+    return TipFormula()
+
+
+def plain_route(fn):
+    """``fn()`` on the route that launches no kernel: the towers' blocks
+    through XLA's counterpart and K4 off (``FUSED_BLOCK_MODE="xla"``,
+    ``SHORT_FUSED_ENABLED=False``)."""
+    from summer_clip_torch.models.clip import modeling
+    from summer_clip_torch.ops import attention as at
+
+    modeling.FUSED_BLOCK_MODE, at.SHORT_FUSED_ENABLED = "xla", False
+    try:
+        return fn()
+    finally:
+        modeling.FUSED_BLOCK_MODE, at.SHORT_FUSED_ENABLED = "block", True
+
+
+def prompt_search_sizes(search_store: Path, search_dir: Path, tip_store: Path,
+                        gpt_ckpt: Path) -> dict:
+    """The full-width sizes: (g), (h), (k) at ViT-L/14 over ``synthetic_1k``
+    (1000 classes, the CLIP-search path's store), (i) at ViT-B/16 on
+    ``synthetic`` through the gen_gpt path's gpt2-large checkpoint, (j) at
+    ViT-B/16 on ``synthetic``."""
+    return dict(
+        text_clip=["clip=vit_l14"], text_layers=12, text_store=search_store,
+        text_ds="synthetic_1k", text_tag="ViT-L14", k_shots=1, n_train=1000, ap_batch=125,
+        fluent_batch=250,
+        gumbel_clip=["clip=vit_b16"], gumbel_layers=12, gumbel_store=tip_store,
+        gumbel_tag="ViT-B16", gpt_ckpt=gpt_ckpt, gpt_layers=36,
+        prolip_clip=["clip=vit_b16"], prolip_layers=(12, 12),
+        search_dir=search_dir / "image_attention_synthetic_1k_protos_hard_cache",
+        search_outs="synthetic_1k_train_protos-ViT-L14",
+        search_sizes=[f"cache_strategies.{n}.topk=[1,4,32]" for n in SEARCH_STRATEGIES])
+
+
+def run_prompt_search(work: Path, s: dict, launches_of, phases: str = "ghijk") -> dict:
+    """The sixth main path, ``prompt_search`` (module docstring, step 4): (g)
+    train_autoprompt in AutoPrompt mode, (h) in FluentPrompt mode, (i)
+    train_coop with Gumbelv3a1 (adapter head) and fluency, (j) train_prolip,
+    (k) image_attention with a weights strategy the kernels do not know.
+    Returns the times, each app's own launch counts, the trainers and what
+    the gates read afterwards (:func:`check_prompt_search`)."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.apps import image_attention, train_autoprompt, train_coop, train_prolip
+    from summer_clip_torch.methods import fluentprompt
+
+    out = {"launches": {}, "trainers": {}, "losses": [], "projections": [], "sizes": s,
+           "phases": phases, "work": work}
+    last = launches_of()
+
+    def counted_app(name, fn, capture=None):
+        def run(argv):
+            nonlocal last
+            real = capture.run_trainer if capture else None
+            if capture:
+                capture.run_trainer = lambda cls, cfg: out["trainers"].setdefault(
+                    name, real(cls, cfg))
+            try:
+                fn(argv=argv)
+            finally:
+                if capture:
+                    capture.run_trainer = real
+            now = launches_of()
+            out["launches"][name] = {k: now[k] - last[k] for k in now if now[k] != last[k]}
+            last = now
+        return run
+
+    ds, tag = s["text_ds"], s["text_tag"]
+    search = [*s["text_clip"], f"store.root={s['text_store']}", f"dataset_name={ds}",
+              "dataset=synthetic_train", f"dataset.dataset={ds}", "dataset.load_images=false",
+              "val_dataset=null", f"data.features_key={ds}_train-{tag}",
+              f"dataset_info.k_shots={s['k_shots']}", "training.epochs_num=1"]
+    runs = []
+    if "g" in phases:
+        runs.append(("g_train_autoprompt", counted_app("g", train_autoprompt.run, train_autoprompt),
+                     search + [f"data.batch_size={s['ap_batch']}", "search.num_cands=10",
+                               "search.search_steps=2", "search.save_every=2"]))
+    if "h" in phases:
+        runs.append(("h_train_fluentprompt",
+                     counted_app("h", train_autoprompt.run, train_autoprompt),
+                     search + [f"data.batch_size={s['fluent_batch']}", "search.mode=fluentprompt"]))
+    if "i" in phases:
+        runs.append(("i_train_coop_gumbel_v3a1", counted_app("i", train_coop.run, train_coop), [
+            *s["gumbel_clip"], f"store.root={s['gumbel_store']}", "dataset_name=synthetic",
+            "dataset=synthetic_train", "dataset.load_images=false", "val_dataset=null",
+            f"data.features_key=synthetic_train-{s['gumbel_tag']}", "data.batch_size=8",
+            "training.epochs_num=1", "prompt.length=8", "prompt_model=gumbel_v3a1",
+            "lm_loss=suffix", "loss.fluency=0.5", f"+gpt.checkpoint_dir={s['gpt_ckpt']}"]))
+    if "j" in phases:
+        runs.append(("j_train_prolip", counted_app("j", train_prolip.run, train_prolip), [
+            *s["prolip_clip"], "dataset=synthetic", "root_path=''", "shots=8",
+            "data.batch_size=32", "train.epochs=60", "train.lr=0.003"]))
+    if "k" in phases:
+        runs.append(("k_image_attention_dense", counted_app("k", image_attention.run), [
+            *s["search_sizes"], *s["text_clip"], f"store.root={s['text_store']}",
+            f"dataset_name={ds}", "dataset=synthetic_test", f"dataset.dataset={ds}",
+            "dataset.load_images=false", "dataset@cache.dataset=synthetic_train",
+            f"cache.dataset.dataset={ds}", "cache.dataset.load_images=false",
+            f"data.features_key={ds}_test-{tag}", f"cache.features_key={ds}_train-{tag}",
+            f"cache.outs_key={s['search_outs']}", "cache_value_strategy=hard_cache",
+            "cache_weights_strategy._target_=chip_smoke.tip_formula_weights",
+            "run_saves.save_logits=true", "run_saves.save_cache_inds=true",
+            "run_saves.save_preds=true"]))
+
+    # record every HotFlip loss and every FluentPrompt projection as they happen
+    trainer_cls = train_autoprompt.PromptTrainer
+    real_loss, real_project = trainer_cls.loss_value, fluentprompt.FluentPromptState.project
+
+    def loss_value(self, prompt_embs, prompt_ids, batch):
+        value = real_loss(self, prompt_embs, prompt_ids, batch)
+        out["losses"].append((np.array(prompt_embs, np.float32), list(prompt_ids), batch, value))
+        return value
+
+    def project(self):
+        ids = real_project(self)
+        embs = self.params["prompt_embs"].detach()
+        out["projections"].append(bool(torch.equal(embs, self.clip_embs[torch.as_tensor(
+            ids, device=embs.device)])))
+        return ids
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])   # the (k) strategy's _target_
+    trainer_cls.loss_value, fluentprompt.FluentPromptState.project = loss_value, project
+    try:
+        out["times_s"] = run_apps(runs, work)
+    finally:
+        trainer_cls.loss_value, fluentprompt.FluentPromptState.project = real_loss, real_project
+    return out
+
+
+def check_prompt_search(out: dict) -> None:
+    """The gates of the prompt_search path, after its counted run: exact
+    launch counts of each app, then (g) every HotFlip loss against the route
+    that launches no kernel and the heap written, (h) the prompt on vocabulary
+    rows after every step, (i) one batch's loss and proposer gradients
+    against the plain route and a route with an f32 text tower, (j) W against
+    the CPU's training and CE falling, (k) the dense route against its plain
+    f32 function and the kernel route's records."""
+    import numpy as np
+    import torch
+    import yaml
+
+    s, work, phases, launches = out["sizes"], out["work"], out["phases"], out["launches"]
+    log(f"prompt_search launches by app: {json.dumps(launches)}")
+    want = {}
+    if "g" in phases:   # a step: one gradient forward, search_steps x (1 + num_cands) losses
+        steps = (s["n_train"] // s["ap_batch"]) // 2
+        forwards = steps * (1 + 2 * (1 + 10)) + 1          # + the metric pass
+        want["g"] = {"K5 fused_ln_attn": s["text_layers"] * forwards,
+                     "K6 fused_ln_mlp": s["text_layers"] * forwards}
+    if "h" in phases:
+        forwards = s["n_train"] // s["fluent_batch"] + 1
+        want["h"] = {"K5 fused_ln_attn": s["text_layers"] * forwards,
+                     "K6 fused_ln_mlp": s["text_layers"] * forwards}
+    if "i" in phases:   # synthetic: 32 train rows in batches of 8, then the train accuracy pass
+        want["i"] = {"K4 short_attention_packed": s["gpt_layers"] * 4,
+                     "K5 fused_ln_attn": s["gumbel_layers"] * 5,
+                     "K6 fused_ln_mlp": s["gumbel_layers"] * 5}
+    if "j" in phases:   # two image batches (32 train, 16 test rows), one text batch (4 classes)
+        n = 2 * s["prolip_layers"][0] + s["prolip_layers"][1]
+        want["j"] = {"K5 fused_ln_attn": n, "K6 fused_ln_mlp": n}
+    if "k" in phases:   # the zero-shot classifier: 1000 (or 4) prompts in chunks of 256
+        n = s["text_layers"] * -(-(1000 if s["text_ds"] == "synthetic_1k" else 4) // 256)
+        want["k"] = {"K5 fused_ln_attn": n, "K6 fused_ln_mlp": n, "K3 onehot_grouped": 0,
+                     "K2 labels_dense": 0, "K1 cache_dense": 0}
+    for app, counts in want.items():
+        for k, n in counts.items():
+            if launches[app].get(k, 0) != n:
+                raise AssertionError(f"prompt_search ({app}): {k} launched "
+                                     f"{launches[app].get(k, 0)} times, expected {n}")
+
+    if "g" in phases:
+        t0 = time.perf_counter()
+        trainer = out["trainers"]["g"]
+        rel = [abs(v - p) / abs(p) for v, p in (
+            (value, plain_route(lambda: trainer.loss_value(embs, ids, batch)))
+            for embs, ids, batch, value in out["losses"])]
+        steps = (s["n_train"] // s["ap_batch"]) // 2
+        heap = yaml.safe_load(next((work / "g_train_autoprompt").rglob(
+            "epoch_1/step_final/prompts.yaml")).read_text())
+        log(f"prompt_search (g): {steps} HotFlip steps, {len(rel)} losses (each step's current "
+            f"prompt and its 10 candidates on 2 batches) vs the plain route: max relative "
+            f"difference {max(rel):.3e} (tol {TOL_SEARCH_LOSS_REL}), {time.perf_counter() - t0:.2f}"
+            f" s; final prompt {trainer.state.prompt_ids}, heap of {len(heap)}, best loss "
+            f"{heap[0]['loss']:.4f}")
+        if len(rel) != steps * 2 * 11 or max(rel) > TOL_SEARCH_LOSS_REL:
+            raise AssertionError("prompt_search (g): the HotFlip losses disagree with the plain "
+                                 "route (or were not all recorded)")
+        if not heap or not all(np.isfinite(r["loss"]) and len(r["prompt_ids"]) == 8 for r in heap):
+            raise AssertionError("prompt_search (g): the yaml heap is missing or malformed")
+    if "h" in phases:
+        trainer = out["trainers"]["h"]
+        epoch = _epoch_record(work / "h_train_fluentprompt", "loss/train")
+        steps = s["n_train"] // s["fluent_batch"]
+        log(f"prompt_search (h): {len(out['projections'])} SGLD steps, the prompt on vocabulary "
+            f"rows after each: {out['projections']}, loss/train {epoch['loss/train']:.4f}, final "
+            f"prompt {trainer.state.prompt_ids}")
+        if out["projections"] != [True] * steps or not np.isfinite(epoch["loss/train"]):
+            raise AssertionError("prompt_search (h): a step left the prompt off the vocabulary "
+                                 "rows, or the loss is not finite")
+    if "i" in phases:
+        check_gumbel_v3a1(out["trainers"]["i"], s)
+    if "j" in phases:
+        check_prolip(out["trainers"]["j"], work / "j_train_prolip")
+    if "k" in phases:
+        check_dense_route(work / "k_image_attention_dense", s)
+
+
+def check_gumbel_v3a1(trainer, s: dict) -> None:
+    """(i) One batch through the kernel route, the route that launches no
+    kernel, and that route with the text tower in f32, the loss's two terms
+    apart. The kernel route's forward launches K4 once a layer of the fluency
+    LM and K5 and K6 once a layer of the text tower, its ``backward`` none.
+    The fluency term's loss and proposer gradient (an f32 ClipGPT: K4 against
+    the plain attention) lie within ``TOL_FLUENCY_REL`` of the plain route's.
+    The CLIP term crosses the bf16 text tower: its text features F and its
+    proposer gradient lie no farther from the f32 route's than
+    ``TOL_F32_RATIO`` times the plain route's do, and its loss, an f32
+    function of F, differs from the plain route's by the first-order change
+    that F's difference makes, within ``TOL_LOSS_SECOND_ORDER``. Each route's
+    loss distance from the f32 route's is logged beside its first-order
+    prediction: a projection of F's error, it swings both ways while F's
+    distances hold. Every gradient is finite and non-zero. Also logged: the share of
+    F's elements on which the two bf16 routes agree bit for bit, and whether
+    the kernel route gives the same bits when run again."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    counters = launch_counters()
+    counts = lambda: {k: f.launches for k, f in counters.items()}   # noqa: E731
+    idx = torch.from_numpy(trainer.train_indices[:8]).to(trainer.device)
+    labels = torch.from_numpy(trainer.labels).to(trainer.device)[idx]
+    feats = trainer.image_features[idx]
+    lm_idx = trainer.labels[trainer.train_indices[:8]]
+    start = {k: v.detach().clone() for k, v in trainer.prompt_params.items()}
+
+    def step():
+        params = {k: v.clone().requires_grad_() for k, v in start.items()}
+        leaves = [params[k] for k in sorted(params)]
+        real, text = trainer.text_features_for, []
+        trainer.text_features_for = lambda embs: text.append(real(embs)) or text[-1]
+        before = counts()
+        try:
+            _, metrics = trainer.loss_fn(params, feats, labels, lm_idx, 1.0)
+        finally:
+            del trainer.text_features_for
+        mid = counts()
+        losses, grads = {}, {}
+        for term in ("loss/clip", "loss/fluency"):
+            g = torch.autograd.grad(metrics[term], leaves, retain_graph=term == "loss/clip")
+            losses[term] = float(metrics[term].detach())
+            grads[term] = torch.cat([t.flatten() for t in g]).float()
+        after = counts()
+        return (losses, grads, {k: mid[k] - before[k] for k in mid if mid[k] != before[k]},
+                {k: after[k] - mid[k] for k in after if after[k] != mid[k]},
+                text[0].detach().float())
+
+    def f32_tower():
+        model, embeds = trainer.session.model, trainer.class_embeds
+        trainer.session.model = copy.deepcopy(model).to(torch.float32)
+        trainer.class_embeds = embeds.float()
+        try:
+            return plain_route(step)
+        finally:
+            trainer.session.model, trainer.class_embeds = model, embeds
+
+    def rel(a, b):
+        return (float((a - b).norm() / b.norm()) if isinstance(a, torch.Tensor)
+                else abs(a - b) / abs(b))
+
+    def clip_loss(text):
+        logits = trainer.logit_scale * feats.float() @ F.normalize(text, dim=-1).t()
+        return F.cross_entropy(logits, labels)
+
+    kern, plain, f32 = step(), plain_route(step), f32_tower()
+    again = step()
+    # dL/dF on the plain route's features: the loss's first-order change is <dL/dF, dF>
+    text = plain[4].clone().requires_grad_()
+    g_text, = torch.autograd.grad(clip_loss(text), text)
+    d_kp = kern[4] - plain[4]
+    loss_kp = kern[0]["loss/clip"] - plain[0]["loss/clip"]
+    loss_first = float((g_text * d_kp).sum())
+    loss_bound = (TOL_LOSS_SECOND_ORDER * float(g_text.norm() * d_kp.norm())
+                  + 4 * F32_UNIT * abs(plain[0]["loss/clip"]))
+    rd = {}
+    for i, what in ((0, "loss"), (1, "grad")):
+        rd[f"fluency_{what}_rel"] = rel(kern[i]["loss/fluency"], plain[i]["loss/fluency"])
+        for name, route in (("kernels", kern), ("plain", plain)):
+            rd[f"clip_{what}_{name}_vs_f32"] = rel(route[i]["loss/clip"], f32[i]["loss/clip"])
+    for name, route in (("kernels", kern), ("plain", plain)):
+        rd[f"text_{name}_vs_f32"] = rel(route[4], f32[4])
+        # the first-order prediction of the loss's distance from the f32 route's
+        rd[f"clip_loss_{name}_vs_f32_first_order"] = abs(
+            float((g_text * (route[4] - f32[4])).sum())) / abs(f32[0]["loss/clip"])
+    rd["clip_grad_kernels_vs_plain"] = rel(kern[1]["loss/clip"], plain[1]["loss/clip"])
+    rd["text_kernels_vs_plain"] = rel(kern[4], plain[4])
+    same_bits = float((kern[4] == plain[4]).float().mean())
+    repeat = (again[0] == kern[0] and torch.equal(again[4], kern[4])
+              and all(torch.equal(again[1][t], kern[1][t]) for t in kern[1]))
+    want = {"K4 short_attention_packed": s["gpt_layers"], "K5 fused_ln_attn": s["gumbel_layers"],
+            "K6 fused_ln_mlp": s["gumbel_layers"]}
+    log(f"prompt_search (i): Gumbelv3a1 (adapter head on the fluency LM, 8 positions) one batch "
+        f"of 8: losses {plain[0]} (kernels {kern[0]}, f32 tower {f32[0]}), |g| clip "
+        f"{float(plain[1]['loss/clip'].norm()):.4e} fluency "
+        f"{float(plain[1]['loss/fluency'].norm()):.4e} over {plain[1]['loss/clip'].numel()} "
+        f"proposer parameters; " + ", ".join(f"{k} {v:.4e}" for k, v in rd.items())
+        + f"; clip loss kernels - plain {loss_kp:+.4e}, its first-order change "
+        f"<dL/dF, F_k - F_p> {loss_first:+.4e}, the rest {abs(loss_kp - loss_first):.4e} (limit "
+        f"{loss_bound:.4e}); text features equal bit for bit on {same_bits:.4f} "
+        f"of {kern[4].numel()} elements; kernel route run again gives the same bits: {repeat} "
+        f"(limits: fluency <= {TOL_FLUENCY_REL}; text and clip gradient kernels vs f32 <= "
+        f"{TOL_F32_RATIO} x plain vs f32); forward launches {kern[2]} (expected {want}), plain "
+        f"{plain[2]}, f32 {f32[2]}")
+    if kern[2] != want or kern[3] or plain[3] or plain[2] or f32[2] or f32[3]:
+        raise AssertionError(f"(i): forward launches {kern[2]} (expected {want}), backward "
+                             f"{kern[3]} / {plain[3]} / {f32[3]}, plain forwards {plain[2]} / "
+                             f"{f32[2]}")
+    for g in (*kern[1].values(), *plain[1].values()):
+        if not (torch.isfinite(g).all() and float(g.norm()) > 0):
+            raise AssertionError("(i): a proposer gradient is zero or not finite")
+    if (max(rd["fluency_loss_rel"], rd["fluency_grad_rel"]) > TOL_FLUENCY_REL
+            or rd["text_kernels_vs_f32"] > TOL_F32_RATIO * rd["text_plain_vs_f32"]
+            or rd["clip_grad_kernels_vs_f32"] > TOL_F32_RATIO * rd["clip_grad_plain_vs_f32"]
+            or abs(loss_kp - loss_first) > loss_bound):
+        raise AssertionError("(i): the kernel route's loss or gradient disagrees with plain")
+
+
+def check_prolip(trainer, run_root: Path) -> None:
+    """(j) W trained on the card against ``train_projection`` on the CPU from
+    the same pre-projection features; CE falls."""
+    import numpy as np
+
+    from summer_clip_torch.methods import prolip
+
+    t0 = time.perf_counter()
+    w_card = np.load(next(run_root.rglob("prolip_proj.npy")))
+    tcfg = trainer.cfg.train
+    w_cpu = prolip.train_projection(
+        trainer.train_pre, trainer.train_labels, trainer.classifier, trainer.W0,
+        epochs=int(tcfg.epochs), lr=float(tcfg.lr),
+        weight_decay_to_init=float(tcfg.weight_decay_to_init), scale=float(tcfg.scale),
+        device="cpu")
+    rel = float(np.linalg.norm(w_card - w_cpu) / np.linalg.norm(w_cpu - trainer.W0))
+    ce = [r["ce"] for r in records(run_root, "prolip_train")]
+    res, = records(run_root, "prolip_result")
+    log(f"prompt_search (j): ProLIP W on the card vs the CPU's training: |dW| / |W - W0| "
+        f"{rel:.3e} (tol {TOL_PROLIP_W_REL}), |W - W0| {np.linalg.norm(w_cpu - trainer.W0):.4e}; "
+        f"CE {ce[0]:.4f} -> {ce[-1]:.4f}; train acc1 {res['acc1_train_zero_shot']:.2f} -> "
+        f"{res['acc1_train']:.2f}, test acc1 {res['acc1_zero_shot']:.2f} -> {res['acc1']:.2f}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not rel <= TOL_PROLIP_W_REL or not ce[-1] < ce[0]:
+        raise AssertionError("(j): ProLIP's W disagrees with the CPU's, or CE did not fall")
+
+
+def check_dense_route(run_root: Path, s: dict) -> None:
+    """(k) The dense route (a weights strategy the kernels do not know): its
+    saved predictions against the plain f32 function rebuilt from the stored
+    arrays (``check_search_predictions``), and its records against the kernel
+    route's at the same selection, beta and alpha: the same combinations, the
+    accuracies within 100 (1 - ``TOL_PRED_AGREE``) points, and record by
+    record the share of test rows with the same prediction. The kernel route
+    rounds its affinities to bf16 and the dense route does not, which flips
+    near-tied rows; the witness is the plain function itself rebuilt in bf16
+    against the plain f32 rebuild on the same arrays and selection. The dense
+    route sits within 1 - ``TOL_PRED_AGREE`` of the f32 rebuild (gated here)
+    and the kernel route within as much of the bf16 rebuild (the clip_search
+    gate), so a record's rows must agree at least as often as the witness's
+    less twice that."""
+    import numpy as np
+
+    def by_combo(root):
+        rec_file, = root.rglob("records.jsonl")
+        out = {}
+        for r in map(json.loads, rec_file.read_text().splitlines()):
+            if r.get("type") == "searcher_result":
+                key = json.dumps([r["cache_strategy"], r["cache_value_strategy"],
+                                  r["cache_weights_strategy"]["beta"], r["alpha"]],
+                                 sort_keys=True)
+                out[key] = (r, rec_file.parent)
+        return out
+
+    t0 = time.perf_counter()
+    held = check_search_predictions(run_root, s["text_store"], s["text_ds"], s["text_tag"],
+                                    s["search_outs"], compute_dtype="float32",
+                                    witness_dtype="bfloat16")
+    dense, kern = by_combo(run_root), by_combo(s["search_dir"])
+    if not dense or dense.keys() != kern.keys() or held["records"] != len(dense):
+        raise AssertionError(f"(k): {len(dense)} dense records against {len(kern)} kernel-route "
+                             f"records, or other combinations")
+    margin = 2.0 * (1.0 - TOL_PRED_AGREE)
+    agree, dacc, slack, short = 1.0, 0.0, 1.0, []
+    for (key, (r, d)), witness in zip(dense.items(), held["witness"]):
+        k, kd = kern[key]
+        got, want = np.load(d / r["preds_path"]), np.load(kd / k["preds_path"])
+        rows = float((got == want).mean())
+        agree = min(agree, rows)
+        slack = min(slack, rows - (witness - margin))
+        if rows < witness - margin:
+            short.append((key, rows, witness))
+        dacc = max(dacc, abs(r["acc1"] - k["acc1"]), abs(r["acc5"] - k["acc5"]))
+    limit = 100.0 * (1.0 - TOL_PRED_AGREE)
+    log(f"prompt_search (k): {len(dense)} records of the dense route: saved predictions vs the "
+        f"plain f32 function on the stored arrays, least agreement {held['agree_min']:.4f} (tol >= "
+        f"{TOL_PRED_AGREE}); witness, the plain function in bf16 vs in f32 on the same arrays "
+        f"and selections: rows agreeing {min(held['witness']):.4f} to "
+        f"{max(held['witness']):.4f} a record; dense vs the kernel route's records: max |d acc| "
+        f"{dacc:.3f} points (tol {limit:.1f}), rows agreeing at least {agree:.4f}, each record "
+        f"at least its witness less {margin:.2f} (least slack {slack:.4f}); "
+        f"{time.perf_counter() - t0:.2f} s")
+    if held["agree_min"] < TOL_PRED_AGREE or dacc > limit or short:
+        raise AssertionError(f"(k): the dense route disagrees with its plain version or with the "
+                             f"kernel route's records ({len(short)} records short of the witness, "
+                             f"first {short[:1]})")
+
+
+def run_small_prompt_search(work: Path, phases: str = "ghijk") -> None:
+    """The prompt_search path's gates at test size on the card (the ``cuda``
+    tests): a ViT-B/16-width CLIP cut to 2 blocks a tower on ``synthetic``
+    (4 classes), a 256-wide 2-block ClipGPT; its own store, kernel-route
+    CLIP-search run and checkpoint first."""
+    import dataclasses
+
+    from summer_clip_torch.apps import gen_gpt, image_attention, save_features, save_image_outs
+    from summer_clip_torch.models.clip.configs import CLIP_CONFIGS
+    from summer_clip_torch.models.tokenizer import get_tokenizer
+
+    name = "cut-ViT-B/16"
+    CLIP_CONFIGS[name] = dataclasses.replace(CLIP_CONFIGS["ViT-B/16"], name=name,
+                                             vision_layers=2, text_layers=2)
+    tag, store = "cut-ViT-B16", work / "features"
+    clip = ["clip=vit_b16", f"clip.model_name={name}"]
+    common = [*clip, f"store.root={store}", "dataset_name=synthetic"]
+    sizes = [f"cache_strategies.{n}.topk=[2,16]" for n in SEARCH_STRATEGIES]
+    run_apps([
+        ("save_features", save_features.run, common + [
+            "dataset@train_dataset=synthetic_train", "dataset@test_dataset=synthetic_test",
+            "save_train_outs=false"]),
+        ("save_image_outs", save_image_outs.run, common + [
+            "dataset=synthetic_train", "dataset.load_images=false",
+            f"data.features_key=synthetic_train-{tag}",
+            f"data.output_key=synthetic_train_outs-{tag}"]),
+        ("search", image_attention.run, common + [
+            *sizes, "dataset=synthetic_test", "dataset.load_images=false",
+            "dataset@cache.dataset=synthetic_train", "cache.dataset.load_images=false",
+            f"data.features_key=synthetic_test-{tag}", f"cache.features_key=synthetic_train-{tag}",
+            f"cache.outs_key=synthetic_train_outs-{tag}", "cache_value_strategy=hard_cache",
+            "run_saves.save_preds=true"]),
+    ], work)
+    cfg = {"gpt_config": "test-gpt-mega", "clip_emb_dim": 512,
+           "adapters": {"emb_hid_dim": 256, "head_hid_dim": 256}}
+    model = gen_gpt.build_clip_gpt(cfg, get_tokenizer().vocab_size, 0)
+    ckpt = gen_gpt.save_clip_gpt_checkpoint(work / "gpt", model, cfg, 0, step=0)
+    s = dict(text_clip=clip, text_layers=2, text_store=store, text_ds="synthetic", text_tag=tag,
+             k_shots=-1, n_train=32, ap_batch=8, fluent_batch=8, gumbel_clip=clip, gumbel_layers=2,
+             gumbel_store=store, gumbel_tag=tag, gpt_ckpt=ckpt, gpt_layers=2,
+             prolip_clip=clip, prolip_layers=(2, 2), search_dir=work / "search",
+             search_outs=f"synthetic_train_outs-{tag}", search_sizes=sizes)
+    counters = launch_counters()
+    out = run_prompt_search(work / "prompt_search", s,
+                            lambda: {k: f.launches for k, f in counters.items()}, phases)
+    check_prompt_search(out)
 
 
 KERNELS = {
@@ -3659,6 +4192,16 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         check_training(train.pop("trainer"))
         log(f"phase check train_coop: {time.perf_counter() - t0:.2f} s")
 
+        search_sizes = prompt_search_sizes(search["store"], Path(tmp) / "search", pipe["store"],
+                                           Path(tmp) / "gen" / "ckpt" / "step_0")
+        prompts, prompts_launches = counted(
+            "prompt_search", PROMPT_SEARCH_PATH,
+            lambda: run_prompt_search(Path(tmp) / "prompt_search", search_sizes,
+                                      lambda: {k: f.launches for k, f in counters.items()}))
+        t0 = time.perf_counter()
+        check_prompt_search(prompts)
+        log(f"phase check prompt_search: {time.perf_counter() - t0:.2f} s")
+
         _, sweep_launches = counted("onehot_sweep", ONEHOT_SWEEP_PATH, run_onehot_sweep)
         # K1 warm-up + timed; 3 arms x 2 blockings of K13, warm-up + timed each
         if (sweep_launches["K13 onehot_variant"], sweep_launches["K1 cache_dense"]) != (12, 2):
@@ -3681,11 +4224,13 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         run_analysis(search["store"], Path(tmp) / "analysis")
         log(f"phase analysis: {time.perf_counter() - t0:.2f} s")
 
-    paths = (TIP_PATH, SEARCH_PATH, GEN_PATH, TRAIN_PATH, TIP_IMAGENET_PATH, ONEHOT_SWEEP_PATH)
+    paths = (TIP_PATH, SEARCH_PATH, GEN_PATH, TRAIN_PATH, TIP_IMAGENET_PATH, ONEHOT_SWEEP_PATH,
+             PROMPT_SEARCH_PATH)
     on_path = [n for n in KERNELS if any(n in path for path in paths)]
     by_path = {n: {"tip_adapter": tip_launches[n], "clip_search": search_launches[n],
                    "gen_gpt": gen_launches[n], "train_coop": train_launches[n],
-                   "tip_adapter_imagenet": tipi_launches[n], "onehot_sweep": sweep_launches[n]}
+                   "tip_adapter_imagenet": tipi_launches[n], "onehot_sweep": sweep_launches[n],
+                   "prompt_search": prompts_launches[n]}
                for n in KERNELS}
     kernels = [kernel_entry(n, results, by_path[n]) for n in on_path]
     off_path = [kernel_entry(n, results, by_path[n]) for n in KERNELS if n not in on_path]

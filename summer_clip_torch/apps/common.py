@@ -16,10 +16,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.data.loader import Batch
 from summer_clip_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from summer_clip_torch.data.prefetch import prefetch_to_device
-from summer_clip_torch.engine.trainer import resolve_device
 from summer_clip_torch.models.clip.modeling import CLIP, build_clip
 from summer_clip_torch.models.clip.convert import load_clip
 
@@ -56,6 +56,15 @@ class ClipSession:
         return self.model.encode_image(self._prep(images))
 
     @torch.inference_mode()
+    def encode_image_preproj(self, images) -> torch.Tensor:
+        """Image features before the final vision projection (ProLIP's input)."""
+        return self.model.encode_image_preproj(self._prep(images))
+
+    def vision_projection(self) -> np.ndarray:
+        """(width, embed_dim) final vision projection W0 in f32 (ViT towers)."""
+        return self.model.visual.proj.detach().float().cpu().numpy()
+
+    @torch.inference_mode()
     def encode_text(self, tokens) -> torch.Tensor:
         return self.model.encode_text(torch.as_tensor(tokens).to(self.device).long())
 
@@ -76,6 +85,10 @@ class ClipSession:
         return float(self.model.logit_scale.detach().float().exp())
 
     @property
+    def embed_dim(self) -> int:
+        return self.cfg.embed_dim
+
+    @property
     def input_size(self) -> int:
         return self.cfg.image_resolution
 
@@ -94,7 +107,7 @@ def create_clip_session(model_name: str, checkpoint_path: tp.Optional[str] = Non
     flows through the towers (config ``clip.remat``)."""
     if quant is not None:
         raise NotImplementedError(f"clip.quant={quant!r}: int8 towers are not ported yet")
-    device = torch.device(device) if device is not None else resolve_device()
+    device = resolve_device(device)
     tdtype = resolve_dtype(dtype, device)
     if checkpoint_path and Path(checkpoint_path).exists():
         model, cfg = load_clip(checkpoint_path, dtype=tdtype, device=device)
@@ -125,16 +138,19 @@ def resolve_prompting(cfg, view) -> tp.Tuple[tp.Sequence[str], tp.Sequence[str]]
     return classes, templates
 
 
-def extract_image_features(session: ClipSession, batcher: tp.Iterable[Batch]
+def extract_image_features(session: ClipSession, batcher: tp.Iterable[Batch],
+                           preproj: bool = False
                            ) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Stream batches through the image tower -> (features (N, D) f32, labels,
     indices), padded tail rows dropped by the batch mask, rows in a stable
     sort on dataset index. Features stay on the device until the end, so the
-    host never waits for the device inside the loop."""
+    host never waits for the device inside the loop. ``preproj=True``: the
+    features before the final projection (ProLIP's input)."""
+    encode = session.encode_image_preproj if preproj else session.encode_image
     feats_parts: tp.List[torch.Tensor] = []
     labels_parts, index_parts, masks = [], [], []
     for batch in prefetch_to_device(batcher, session.device, size=2):
-        feats_parts.append(session.encode_image(batch.images))
+        feats_parts.append(encode(batch.images))
         labels_parts.append(batch.labels)
         index_parts.append(batch.indices)
         masks.append(batch.mask)

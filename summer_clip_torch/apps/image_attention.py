@@ -21,13 +21,18 @@ Execution, as in the JAX package:
   time, so the affinity is computed once per chunk;
 - alpha blending + top-1/top-5 accuracy run on the device over the
   (beta-chunk x alpha) grid with ``label_rank``, sequentially over betas and
-  alphas, so one (Nt, C) blend is live at a time.
+  alphas, so one (Nt, C) blend is live at a time;
+- a weights strategy other than Tip-Adapter's takes the dense route: its own
+  ``transform`` builds the (Nt, Nc) weights on the host and one f32 product
+  with the values gives the cache logits (no cache kernel computes it).
 
 This port runs on one device. The JAX package's mesh path (``setup_mesh``,
 ``ShardedResidentCache``, ``sharded_cache_logits``) is not ported.
 
 Run: ``python -m summer_clip_torch.apps.image_attention dataset_name=<name>
-data.features_key=<key> cache.features_key=<key> cache.outs_key=<key>``.
+data.features_key=<key> cache.features_key=<key> cache.outs_key=<key>``
+(``img_attn_dataset@dataset_cfg=<dataset>`` composes a dataset's keys, as for
+the JAX app).
 """
 
 from __future__ import annotations
@@ -328,16 +333,24 @@ class ImageAttention(BaseTrainer):
                               weights_cfg, value_cfg, alphas, evaluate,
                               beta_chunk: int = 8):
         weights_list = list(C.instantiate_all(weights_cfg))
-        if not all(isinstance(w, cache_methods.TipAdapterWeightsStrategy)
-                   for w, _ in weights_list):
-            # the cache kernels compute exp(-beta (1 - affinity)) and nothing else
-            raise NotImplementedError(
-                "image_attention takes TipAdapterWeightsStrategy weights only")
-        betas = [w.beta for w, _ in weights_list]
+        all_tip = all(isinstance(w, cache_methods.TipAdapterWeightsStrategy)
+                      for w, _ in weights_list)
         for value_strategy, value_params in C.instantiate_all(value_cfg):
-            values = self._device_values(value_strategy)
+            values = self._device_values(value_strategy) if all_tip else None
             if values is None:
                 values = value_strategy.transform(cache_outs)
+            if not all_tip:
+                # another weights strategy: the kernels compute
+                # exp(-beta (1 - affinity)) and nothing else, so its weights
+                # are built by its own transform and multiplied by the values
+                # in the selection's own row order, as the JAX app does
+                for w_strategy, wp in weights_list:
+                    cache_logits = self._dense_cache_logits(
+                        w_strategy.transform(self.test_image_features, cache_features), values)
+                    self._log_results(strategy_params, wp, value_params, alphas,
+                                      evaluate(cache_logits)[0], cache_logits[0])
+                continue
+            betas = [w.beta for w, _ in weights_list]
             for s in range(0, len(betas), beta_chunk):
                 chunk = betas[s:s + beta_chunk]
                 cache_logits = self._fused_cache_logits(cache_features, values, chunk)
@@ -345,6 +358,14 @@ class ImageAttention(BaseTrainer):
                 for bi in range(len(chunk)):
                     self._log_results(strategy_params, weights_list[s + bi][1],
                                       value_params, alphas, accs[bi], cache_logits[bi])
+
+    def _dense_cache_logits(self, weights: np.ndarray, values: np.ndarray) -> torch.Tensor:
+        """(1, Nt, C) ``weights @ values`` in f32 on the device: the plain
+        route of a weights strategy the cache kernels do not compute (the JAX
+        app's dense fallback, which no Pallas kernel computes either)."""
+        w = torch.from_numpy(np.asarray(weights, np.float32)).to(self.device)
+        v = torch.from_numpy(np.asarray(values, np.float32)).to(self.device)
+        return (w @ v)[None]
 
     def _log_results(self, strategy_params, weights_params, value_params,
                      alphas, accs: np.ndarray, cache_logits_one: torch.Tensor) -> None:

@@ -18,7 +18,9 @@ cosine schedule, optional global-norm clipping and gradient accumulation
 
 Run: ``python -m summer_clip_torch.apps.train_coop data.features_key=<key>``
 (``meta.device=cpu`` forces the CPU; ``+gpt.checkpoint_dir=<dir>`` loads the
-fluency LM from a ClipGPT checkpoint of the port).
+fluency LM from a ClipGPT checkpoint of the port; ``prompt_model=gumbel_v3a1``
+with a ``gpt`` config trains an autoregressive proposer on that LM, an adapter
+head or LoRA factors, ``prompt_model.head.kind=lora``).
 """
 
 from __future__ import annotations
@@ -82,6 +84,18 @@ class CoOpTrainer(BaseTrainer):
             model.clip_emb.copy_(torch.from_numpy(self.clip_embs_table))
         return model.eval()
 
+    def _proposer(self, head_cfg: tp.Optional[dict]):
+        """Gumbelv3a1's proposer on the frozen fluency LM: ``head.kind``
+        ``adapter`` (``hidden_dim``) or ``lora`` (``rank``)."""
+        from summer_clip_torch.methods.gpt_heads import AdapterGPT, LoRAGPT
+
+        if self.gpt_model is None:
+            raise ValueError("prompt_model=gumbel_v3a1 needs a gpt config (+gpt.gpt_config=...)")
+        head_cfg = head_cfg or {"kind": "adapter", "hidden_dim": 256}
+        if str(head_cfg.get("kind", "adapter")) == "lora":
+            return LoRAGPT(self.gpt_model, rank=int(head_cfg.get("rank", 8)))
+        return AdapterGPT(self.gpt_model, hidden_dim=int(head_cfg.get("hidden_dim", 256)))
+
     def setup_model(self):
         cfg = self.cfg
         self.session = create_clip_session(cfg.clip.model_name, cfg.clip.get("checkpoint_path"),
@@ -119,10 +133,15 @@ class CoOpTrainer(BaseTrainer):
         self.class_embeds = self.embs_table[ids.to(self.device)].to(dtype)
         self.class_lens = lens.to(self.device)
 
+        # the fluency LM first: the Gumbelv3a1 proposer rides on it
         self.gpt_model = self._load_gpt()
+        pm_cfg = C.to_container(cfg.prompt_model, resolve=True)
+        if str(pm_cfg.get("_target_", "")).endswith("Gumbelv3a1"):
+            pm_cfg.update(proposer=self._proposer(pm_cfg.pop("head", None)),
+                          bos_token_id=self.tokenizer.sot_token)
         self.prompt_model = C.instantiate(
-            C.to_container(cfg.prompt_model, resolve=True), clip_embs=self.clip_embs_table,
-            prompt_len=prompt_len, allowed_tokens=allowed, device=self.device)
+            pm_cfg, clip_embs=self.clip_embs_table, prompt_len=prompt_len,
+            allowed_tokens=allowed, device=self.device)
         self.prompt_params = self.prompt_model.init(self.generator)
         if init_ids is not None and "prompt_embs" in self.prompt_params:
             self.prompt_params["prompt_embs"] = (

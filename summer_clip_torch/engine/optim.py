@@ -255,10 +255,13 @@ class Langevin(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                noise = torch.randn(p.shape, generator=self.generator,
-                                    device=self.generator.device, dtype=p.dtype)
-                p.add_(-lr * p.grad + scale * noise.to(p.device))
+                p.add_(-lr * p.grad + scale * self.noise(p))
         self.count += 1
+
+    def noise(self, p: torch.Tensor) -> torch.Tensor:
+        """N(0, 1) of ``p``'s shape from the generator, on ``p``'s device."""
+        return torch.randn(p.shape, generator=self.generator, device=self.generator.device,
+                           dtype=p.dtype).to(p.device)
 
 
 def langevin(params: Named, learning_rate: tp.Union[float, Schedule], beta_schedule: Schedule,

@@ -24,6 +24,7 @@ import torch
 
 from summer_clip_torch.core import log_utils
 from summer_clip_torch.core.config import ConfigNode, to_container, to_yaml
+from summer_clip_torch.core.device import resolve_device
 
 __all__ = ["BaseTrainer", "run_trainer", "make_logger", "set_random_state", "resolve_device",
            "timed"]
@@ -45,16 +46,6 @@ def set_random_state(seed: int) -> torch.Generator:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
-
-
-def resolve_device(name: tp.Optional[str] = None) -> torch.device:
-    """``None``/``"auto"``: the card. Without one this raises: a run takes the
-    CPU only when the caller names it (``meta.device=cpu``)."""
-    if name in (None, "auto"):
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device; pass meta.device=cpu to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(str(name))
 
 
 @contextlib.contextmanager

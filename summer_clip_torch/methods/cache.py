@@ -26,6 +26,7 @@ import numpy as np
 
 import torch
 
+from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.ops.cache_kernels import cache_attention_auto
 
 __all__ = [
@@ -276,9 +277,9 @@ class TipAdapterWeightsStrategy(CacheWeightsStrategy):
 def cache_logits_for_betas(test_features, cache_features, cache_values,
                            betas: tp.Sequence[float], *, normalize: bool = True,
                            cache_labels: tp.Optional[np.ndarray] = None,
-                           device: tp.Union[str, torch.device] = "cpu") -> torch.Tensor:
+                           device: tp.Union[None, str, torch.device] = None) -> torch.Tensor:
     """Fused (B, Nt, C) cache logits over a beta sweep (the hot path), f32 on
-    ``device``.
+    ``device`` (the card when None).
 
     Replaces the reference's per-beta weight recompute
     (``image_attention.py:106-110``). Pass ``cache_labels`` when
@@ -288,7 +289,7 @@ def cache_logits_for_betas(test_features, cache_features, cache_values,
     CUDA. Integer values (int8 one-hots) stay int8 on CUDA and become f32 on
     the CPU, floating values are f32 until the kernel rounds them.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def _norm(x) -> np.ndarray:
         x = np.asarray(x, np.float32)

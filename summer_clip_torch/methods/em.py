@@ -17,6 +17,8 @@ import typing as tp
 import numpy as np
 import torch
 
+from summer_clip_torch.core.device import resolve_device
+
 __all__ = ["FixedMeansGMM"]
 
 
@@ -51,11 +53,13 @@ class FixedMeansGMM:
     runs up to ``max_iter`` EM steps; ``predict_proba`` returns
     responsibilities, ``predict_log_proba`` the joint log-densities (used as
     logits, as the reference's ``predict_proba``), both as numpy arrays.
+    ``device``: the card when None.
     """
 
     def __init__(self, means_init, covariance_type: str = "full", reg_covar: float = 1e-6,
                  max_iter: int = 100, tol: float = 1e-3, n_components: tp.Optional[int] = None,
-                 device: tp.Union[str, torch.device] = "cpu"):
+                 device: tp.Union[None, str, torch.device] = None):
+        device = resolve_device(device)
         self.means = _f32(means_init, device)
         if n_components is not None:
             assert n_components == self.means.shape[0], "n_components must match means_init"

@@ -23,6 +23,8 @@ import typing as tp
 import numpy as np
 import torch
 
+from summer_clip_torch.core.device import resolve_device
+
 __all__ = ["maha_logits", "PCA"]
 
 
@@ -33,10 +35,12 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def maha_logits(test_features, text_features, cache_features, eps: float = 1e-4,
-                device: tp.Union[str, torch.device] = "cpu") -> torch.Tensor:
+                device: tp.Union[None, str, torch.device] = None) -> torch.Tensor:
     """Negative Mahalanobis distances as logits (Nt, C); higher = closer.
 
-    All features row-major (N, D), L2-normalized by the caller."""
+    All features row-major (N, D), L2-normalized by the caller; computed on
+    ``device`` (the card when None)."""
+    device = resolve_device(device)
     x = _f32(test_features, device)
     t = _f32(text_features, device)
     cache = _f32(cache_features, device)
@@ -56,11 +60,12 @@ def maha_logits(test_features, text_features, cache_features, eps: float = 1e-4,
 
 
 class PCA:
-    """Minimal SVD PCA with the sklearn fit/transform surface."""
+    """Minimal SVD PCA with the sklearn fit/transform surface, on ``device``
+    (the card when None)."""
 
-    def __init__(self, n_components: int, device: tp.Union[str, torch.device] = "cpu"):
+    def __init__(self, n_components: int, device: tp.Union[None, str, torch.device] = None):
         self.n_components = n_components
-        self.device = device
+        self.device = resolve_device(device)
         self.mean_: tp.Optional[torch.Tensor] = None
         self.components_: tp.Optional[torch.Tensor] = None
 

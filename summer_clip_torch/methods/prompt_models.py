@@ -13,8 +13,8 @@ to the optimizer:
 
 The straight-through estimator is ``(hard - soft).detach() + soft``; Gumbel
 models feed the soft mixture to CLIP and the hard straight-through embedding
-to the GPT fluency branch. ``Gumbelv3a1`` (an autoregressive proposer riding
-on ``methods/gpt_heads``) is not ported: a config naming it raises.
+to the GPT fluency branch; ``Gumbelv3a1`` rolls its distribution out of an
+autoregressive proposer (``methods/gpt_heads``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import typing as tp
 
 import numpy as np
 import torch
+
+from summer_clip_torch.core.device import resolve_device
 
 __all__ = [
     "find_nearest", "straight_through", "BasePromptModel", "CoOp",
@@ -61,7 +63,7 @@ class BasePromptModel:
                  device: tp.Union[None, str, torch.device] = None, **kwargs):
         del kwargs
         self.prompt_len = prompt_len
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.allowed_tokens = (np.asarray(allowed_tokens, np.int32)
                                if allowed_tokens is not None else None)
         table = np.asarray(clip_embs, np.float32)
@@ -195,12 +197,57 @@ class Gumbelv1a1(GumbelBase):
         return params["prompt_embs"] @ self.clip_embs.t()
 
 
-class Gumbelv3a1:
-    """The autoregressive proposer of the JAX package rides on
-    ``methods/gpt_heads`` (AdapterGPT / LoRAGPT), which the port does not
-    have yet."""
+class Gumbelv3a1(GumbelBase):
+    """Autoregressive proposal: a ClipGPT head rolls out the next-token
+    distribution position by position through a KV cache.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "prompt_model=gumbel_v3a1 needs methods/gpt_heads (AdapterGPT / LoRAGPT), "
-            "which summer_clip_torch does not port yet (ROADMAP Queue 1 item 7)")
+    ``proposer`` (:class:`~summer_clip_torch.methods.gpt_heads.AdapterGPT` or
+    ``LoRAGPT``) supplies ``init(generator) -> params``, ``init_cache(batch,
+    max_len)`` and ``__call__(params, clip_space_embeds, cache) -> (logits over
+    the GLOBAL CLIP vocabulary, new cache)``. The parameters are the
+    proposer's, flat under ``proposer.`` (``proposer.fc1.kernel``, ...), so
+    the trainer's optimizer takes them as it takes any prompt model's. The
+    chain stays in the graph: the gradient flows back through every step
+    (the proposer's cache is rebuilt out of place on this path).
+    """
+
+    def __init__(self, proposer: tp.Any, bos_token_id: int, clip_embs: np.ndarray, **kwargs):
+        super().__init__(clip_embs=clip_embs, **kwargs)
+        self.proposer = proposer
+        # the BOS embedding comes from the GLOBAL table, the feedback from the
+        # (possibly restricted) one
+        self.bos_emb = torch.from_numpy(
+            np.array(np.asarray(clip_embs, np.float32)[bos_token_id])).to(self.device)
+        self._allowed_t = (torch.from_numpy(self.allowed_tokens).long().to(self.device)
+                           if self.allowed_tokens is not None else None)
+
+    def init(self, generator: torch.Generator) -> dict:
+        return {f"proposer.{k}": v for k, v in self.proposer.init(generator).items()}
+
+    def proposer_params(self, params: dict) -> dict:
+        return {k[len("proposer."):]: v for k, v in params.items() if k.startswith("proposer.")}
+
+    def get_prompt_logits(self, params):
+        """(prompt_len, V) next-token probabilities of the rollout (already a
+        softmax: ``apply`` takes no second one)."""
+        pparams = self.proposer_params(params)
+        cache = self.proposer.init_cache(1, self.prompt_len + 1)
+        x = self.bos_emb[None, None, :]
+        probs_list = []
+        for _ in range(self.prompt_len):
+            logits, cache = self.proposer(pparams, x, cache)
+            logits = logits[:, -1, :]
+            if self._allowed_t is not None:
+                logits = logits[:, self._allowed_t]
+            probs = torch.softmax(logits, dim=-1)
+            x = (probs @ self.clip_embs)[:, None, :]
+            probs_list.append(probs[0])
+        return torch.stack(probs_list, dim=0)
+
+    def apply(self, params, temperature: float = 1.0, training: bool = True) -> dict:
+        y_soft = self.get_prompt_logits(params)
+        y_inds = y_soft.argmax(dim=-1)
+        prompts_soft = y_soft @ self.clip_embs
+        prompts_hard = straight_through(self.clip_embs[y_inds], prompts_soft)
+        return {"clip_embs": prompts_soft, "gpt_embs": prompts_hard, "ids": y_inds,
+                "temperature": temperature}

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.engine.optim import adamw, cosine_decay_schedule
 from summer_clip_torch.ops.cache_kernels import cache_attention_auto
 
@@ -41,8 +42,10 @@ def _t(x, device) -> torch.Tensor:
 
 
 def tip_logits(clip_logits, features, cache_keys, cache_values, beta: float, alpha: float,
-               cache_labels=None, device: tp.Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """Single-point Tip-Adapter logits (features/keys already normalized)."""
+               cache_labels=None, device: tp.Union[None, str, torch.device] = None) -> torch.Tensor:
+    """Single-point Tip-Adapter logits (features/keys already normalized), on
+    ``device`` (the card when None)."""
+    device = resolve_device(device)
     cache = cache_attention_auto(_t(features, device), _t(cache_keys, device),
                                  _t(cache_values, device), [beta],
                                  cache_labels=cache_labels)[0]
@@ -63,8 +66,10 @@ def search_hp(features, labels, clip_logits, cache_keys, cache_values,
               search_scale: tp.Sequence[float] = (7, 3),
               search_step: tp.Sequence[int] = (200, 20), beta_chunk: int = 16,
               log_fn: tp.Optional[tp.Callable[[dict], None]] = None, cache_labels=None,
-              device: tp.Union[str, torch.device] = "cpu") -> tp.Tuple[float, float, float]:
-    """Grid-search (beta, alpha); returns (best_beta, best_alpha, best_acc)."""
+              device: tp.Union[None, str, torch.device] = None) -> tp.Tuple[float, float, float]:
+    """Grid-search (beta, alpha) on ``device`` (the card when None); returns
+    (best_beta, best_alpha, best_acc)."""
+    device = resolve_device(device)
     betas, alphas = beta_alpha_grid(search_scale, search_step)
     f = _t(features, device)
     cl = _t(clip_logits, device)
@@ -94,7 +99,7 @@ def finetune_cache_keys(train_features, train_labels, clip_logits_train, cache_k
                         cache_values, beta: float, alpha: float, *, epochs: int = 20,
                         lr: float = 1e-3, batch_size: int = 256, weight_decay: float = 0.01,
                         seed: int = 0, log_fn: tp.Optional[tp.Callable[[dict], None]] = None,
-                        device: tp.Union[str, torch.device] = "cpu") -> np.ndarray:
+                        device: tp.Union[None, str, torch.device] = None) -> np.ndarray:
     """Tip-Adapter-F: fine-tune the cache keys as a bias-free linear layer.
 
     The keys (NK, D) start from the training-free cache and are trained in
@@ -103,7 +108,9 @@ def finetune_cache_keys(train_features, train_labels, clip_logits_train, cache_k
     (``eps=1e-4``) over optax's cosine decay, mini-batches in the order of
     ``np.random.RandomState(seed).permutation`` each epoch, as the JAX
     function draws them. f32 products with TF32 off. Logs a ``tipf_epoch``
-    record per epoch; returns the trained keys (NK, D)."""
+    record per epoch; returns the trained keys (NK, D). ``device``: the card
+    when None."""
+    device = resolve_device(device)
     f = _t(train_features, device)
     y = torch.as_tensor(np.asarray(train_labels), dtype=torch.long).to(device)
     cl = _t(clip_logits_train, device)

@@ -13,6 +13,7 @@ import typing as tp
 import numpy as np
 import torch
 
+from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.models import tokenizer as tokenizer_mod
 
 __all__ = ["zeroshot_classifier", "accuracy", "compute_accuracy", "clip_logits",
@@ -32,12 +33,14 @@ def zeroshot_classifier(encode_text: tp.Callable[[torch.Tensor], torch.Tensor],
                         classnames: tp.Sequence[str], templates: tp.Sequence[str],
                         tokenizer: tp.Optional[tp.Any] = None, chunk_size: int = 256,
                         context_length: int = 77,
-                        device: tp.Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """(C, D) L2-normalized prompt-ensemble classifier (f32, on ``device``).
+                        device: tp.Union[None, str, torch.device] = None) -> torch.Tensor:
+    """(C, D) L2-normalized prompt-ensemble classifier (f32, on ``device``,
+    the card when None).
 
     ``encode_text`` maps (B, 77) token ids on ``device`` to (B, D) features.
     Per class: encode every template, normalize, average, re-normalize.
     """
+    device = resolve_device(device)
     prompts = []
     for name in classnames:
         clean = str(name).replace("_", " ")

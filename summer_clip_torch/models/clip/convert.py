@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.models.clip.configs import CLIP_CONFIGS
 
 __all__ = ["from_flax_variables", "to_openai_state_dict", "detect_model_name",
@@ -159,10 +160,12 @@ def load_torch_state_dict(path: tp.Union[str, Path]) -> tp.Dict[str, torch.Tenso
 
 
 def load_clip(checkpoint_path: tp.Union[str, Path], dtype: torch.dtype = torch.float32,
-              device: tp.Union[str, torch.device] = "cpu"):
-    """Checkpoint -> (model, cfg) in the compute ``dtype`` on ``device``."""
+              device: tp.Union[None, str, torch.device] = None):
+    """Checkpoint -> (model, cfg) in the compute ``dtype`` on ``device`` (the
+    card when None)."""
     from summer_clip_torch.models.clip.modeling import CLIP
 
+    device = resolve_device(device)
     sd = load_torch_state_dict(checkpoint_path)
     cfg = CLIP_CONFIGS[detect_model_name(sd)]
     model = CLIP(cfg)

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.models.clip.configs import CLIP_CONFIGS, CLIPConfig
 from summer_clip_torch.ops import block_kernels as bk
 from summer_clip_torch.ops.attention import SHORT_MAX_T, mha_reference, multi_head_attention
@@ -444,9 +445,11 @@ class CLIP(TextTransformer):
 
 def build_clip(name: str, generator: tp.Optional[torch.Generator] = None,
                dtype: torch.dtype = torch.float32,
-               device: tp.Union[str, torch.device] = "cpu") -> tp.Tuple[CLIP, CLIPConfig]:
+               device: tp.Union[None, str, torch.device] = None) -> tp.Tuple[CLIP, CLIPConfig]:
     """Build the named model, frozen, with random weights from ``generator``
-    (seed 0 when None), cast to the compute ``dtype`` and moved to ``device``."""
+    (seed 0 when None), cast to the compute ``dtype`` and moved to ``device``
+    (the card when None)."""
+    device = resolve_device(device)
     cfg = CLIP_CONFIGS[name]
     if generator is None:
         generator = torch.Generator().manual_seed(0)

@@ -25,7 +25,10 @@ leaf is a :class:`~summer_clip_torch.ops.gemv.QLeaf` in the kernel's place.
 ``dynamic_update_slice``): a list of ``{"k", "v", "index"}`` per layer, where
 ``index`` is a Python int (every row appends at the same slot) or a (B,)
 tensor (per-row slots). The returned cache holds the same buffers with the
-index advanced. ``key_pad`` (B,) masks the first ``key_pad[b]`` slots of row b
+index advanced. On a gradient path (new keys or values that require grad, at a
+Python-int index) the buffers are rebuilt out of place instead, the
+counterpart of the JAX cache being functional: the returned cache then holds
+new buffers and the one passed in is left as it was. ``key_pad`` (B,) masks the first ``key_pad[b]`` slots of row b
 (left-padded batches). ``remat`` is training-only and not ported yet.
 """
 
@@ -287,12 +290,21 @@ class GPT2Attention(nn.Module):
             slots = start[:, None] + torch.arange(s_new, device=q.device)[None, :]
             cache["k"][rows, slots] = kc
             cache["v"][rows, slots] = vc
+        elif kc.requires_grad or vc.requires_grad:
+            # on a gradient path (a proposer rolled out through the cache) the
+            # buffers are rebuilt out of place: autograd keeps every step's,
+            # where an in-place write would overwrite what it saved
+            return self._attend(q, *(torch.cat([buf[:, :idx], new, buf[:, idx + s_new:]], dim=1)
+                                     for buf, new in ((cache["k"], kc), (cache["v"], vc))),
+                                mask, idx + s_new)
         else:
             cache["k"][:, idx:idx + s_new] = kc
             cache["v"][:, idx:idx + s_new] = vc
-        o = multi_head_attention(q, cache["k"], cache["v"], num_heads=self.num_heads,
-                                 mask=mask, use_flash=False)
-        return self.c_proj(o), {"k": cache["k"], "v": cache["v"], "index": idx + s_new}
+        return self._attend(q, cache["k"], cache["v"], mask, idx + s_new)
+
+    def _attend(self, q, k, v, mask, index) -> tp.Tuple[torch.Tensor, dict]:
+        o = multi_head_attention(q, k, v, num_heads=self.num_heads, mask=mask, use_flash=False)
+        return self.c_proj(o), {"k": k, "v": v, "index": index}
 
 
 class _QParams(nn.Module):

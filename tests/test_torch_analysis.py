@@ -55,7 +55,7 @@ def test_maha_logits_match_jax():
     rng = np.random.RandomState(0)
     x, t, cache = (rng.randn(n, 8).astype(np.float32) for n in (12, 5, 40))
     want = np.asarray(jl.maha_logits(x, t, cache, eps=1e-4))
-    got = linalg.maha_logits(x, t, cache, eps=1e-4).numpy()
+    got = linalg.maha_logits(x, t, cache, eps=1e-4, device="cpu").numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
 
 
@@ -64,7 +64,7 @@ def test_pca_matches_jax_up_to_sign():
 
     rng = np.random.RandomState(1)
     x = (rng.randn(30, 4) @ rng.randn(4, 12) + 0.01 * rng.randn(30, 12)).astype(np.float32)
-    jp, pp = jl.PCA(3), linalg.PCA(3)
+    jp, pp = jl.PCA(3), linalg.PCA(3, device="cpu")
     want, got = np.asarray(jp.fit_transform(x)), pp.fit_transform(x).numpy()
     sign = np.sign((np.asarray(jp.components_) * pp.components_.numpy()).sum(1))
     np.testing.assert_allclose(pp.components_.numpy() * sign[:, None], np.asarray(jp.components_),
@@ -80,7 +80,7 @@ def test_fixed_means_gmm_steps_match_jax(cov):
     x, means = _mixture()
     kw = dict(covariance_type=cov, max_iter=4, tol=1e-12)
     jg = jem.FixedMeansGMM(means_init=means, **kw).fit(x)
-    pg = em.FixedMeansGMM(means_init=means, **kw).fit(x)
+    pg = em.FixedMeansGMM(means_init=means, device="cpu", **kw).fit(x)
     np.testing.assert_array_equal(pg.means.numpy(), means)
     np.testing.assert_allclose(pg.weights_.numpy(), np.asarray(jg.weights_), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(pg.covariances_.numpy(), np.asarray(jg.covariances_),
@@ -91,7 +91,8 @@ def test_fixed_means_gmm_steps_match_jax(cov):
                                atol=1e-4 * np.abs(want).max())
     np.testing.assert_allclose(pg.predict_proba(x).sum(1), 1.0, atol=1e-5)
     # converged runs stop early, as the JAX loop does
-    short = em.FixedMeansGMM(means_init=means, covariance_type=cov, max_iter=100, tol=1e-1).fit(x)
+    short = em.FixedMeansGMM(means_init=means, covariance_type=cov, max_iter=100, tol=1e-1,
+                             device="cpu").fit(x)
     assert short.lower_bound_ == pytest.approx(
         jem.FixedMeansGMM(means_init=means, covariance_type=cov, max_iter=100,
                           tol=1e-1).fit(x).lower_bound_, rel=1e-5)
@@ -103,7 +104,7 @@ def store(tmp_path_factory):
     from summer_clip_torch.store import FeatureStore
 
     tmp = tmp_path_factory.mktemp("analysis")
-    model, _ = build_clip("test-vit", torch.Generator().manual_seed(5))
+    model, _ = build_clip("test-vit", torch.Generator().manual_seed(5), device="cpu")
     ckpt = tmp / "test_vit.pt"
     torch.save(to_openai_state_dict(model), ckpt)
     width = int(model.text_projection.shape[1])

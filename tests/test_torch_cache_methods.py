@@ -102,7 +102,7 @@ def test_weights_strategy_and_fused_logits_match():
     for values in (tc.HardCacheStrategy().transform(outs),
                    tc.SoftmaxCacheStrategy(100.0, 0.1).transform(outs)):
         want = np.asarray(jc.cache_logits_for_betas(test, feats, values, betas))
-        got = tc.cache_logits_for_betas(test, feats, values, betas)
+        got = tc.cache_logits_for_betas(test, feats, values, betas, device="cpu")
         assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
         dense = np.stack([tc.TipAdapterWeightsStrategy(b).transform(test, feats)
@@ -110,9 +110,9 @@ def test_weights_strategy_and_fused_logits_match():
         np.testing.assert_allclose(got.numpy(), dense, rtol=1e-5, atol=1e-5)
     hard = tc.HardCacheStrategy().transform(outs)
     by_labels = tc.cache_logits_for_betas(test, feats, hard, betas,
-                                          cache_labels=outs.argmax(1))
+                                          cache_labels=outs.argmax(1), device="cpu")
     np.testing.assert_allclose(by_labels.numpy(),
-                               tc.cache_logits_for_betas(test, feats, hard, betas).numpy(),
+                               tc.cache_logits_for_betas(test, feats, hard, betas, device="cpu").numpy(),
                                rtol=1e-5, atol=1e-5)
 
 

@@ -79,14 +79,17 @@ def test_openai_state_dict_round_trips_through_jax_converter(towers):
 
 
 def test_build_clip_is_seeded_and_keeps_layernorm_f32():
-    a, _ = build_clip("test-vit", torch.Generator().manual_seed(1), dtype=torch.bfloat16)
-    b, _ = build_clip("test-vit", torch.Generator().manual_seed(1), dtype=torch.bfloat16)
+    a, _ = build_clip("test-vit", torch.Generator().manual_seed(1), dtype=torch.bfloat16,
+                      device="cpu")
+    b, _ = build_clip("test-vit", torch.Generator().manual_seed(1), dtype=torch.bfloat16,
+                      device="cpu")
     for (n, p), q in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(p, q), n
         want = torch.float32 if ("ln_" in n or n == "logit_scale") else torch.bfloat16
         assert p.dtype == want, n
     assert float(a.transformer.resblocks[0].attn.out_proj.bias.abs().max()) == 0.0
-    rn, _ = build_clip("test-rn", torch.Generator().manual_seed(1), dtype=torch.bfloat16)
+    rn, _ = build_clip("test-rn", torch.Generator().manual_seed(1), dtype=torch.bfloat16,
+                      device="cpu")
     for n, p in rn.visual.named_parameters():
         is_norm = ".bn" in f".{n}" or "downsample.1" in n
         assert p.dtype == (torch.float32 if is_norm else torch.bfloat16), n
@@ -132,10 +135,12 @@ def test_search_hp_and_tip_logits_match_jax():
     kw = dict(search_scale=(7, 3), search_step=(20, 5))
     want = jtip.search_hp(feats, labels, cl, keys, values, **kw)
     for lab in (None, cache_labels):
-        got = ttip.search_hp(feats, labels, cl, keys, values, cache_labels=lab, **kw)
+        got = ttip.search_hp(feats, labels, cl, keys, values, cache_labels=lab, device="cpu",
+                             **kw)
         assert got == pytest.approx(want, abs=1e-6)
     np.testing.assert_allclose(
-        ttip.tip_logits(cl, feats, keys, values, 2.0, 1.5, cache_labels=cache_labels).numpy(),
+        ttip.tip_logits(cl, feats, keys, values, 2.0, 1.5, cache_labels=cache_labels,
+                        device="cpu").numpy(),
         np.asarray(jtip.tip_logits(cl, feats, keys, values, 2.0, 1.5)), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(ttip.beta_alpha_grid((7, 3), (200, 20))[0],
                                   jtip.beta_alpha_grid((7, 3), (200, 20))[0])
@@ -154,6 +159,7 @@ def test_zeroshot_classifier_matches_jax(towers):
         return model_j.apply(variables, jnp.asarray(tok)[:, :16], method=model_j.encode_text)
 
     with torch.inference_mode():
-        got = tzs(lambda tok: model.encode_text(tok[:, :16]), classes, templates, chunk_size=4)
+        got = tzs(lambda tok: model.encode_text(tok[:, :16]), classes, templates, chunk_size=4,
+                  device="cpu")
     want = np.asarray(jzs(enc_j, classes, templates, chunk_size=4))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)

@@ -40,7 +40,7 @@ def _records(run_root: Path, kind: str):
 def ckpt(tmp_path_factory):
     from summer_clip_torch.models.clip import build_clip, to_openai_state_dict
 
-    model, _ = build_clip("test-vit", torch.Generator().manual_seed(5))
+    model, _ = build_clip("test-vit", torch.Generator().manual_seed(5), device="cpu")
     path = tmp_path_factory.mktemp("ckpt") / "test_vit.pt"
     torch.save(to_openai_state_dict(model), path)
     return str(path)
@@ -187,17 +187,39 @@ def test_class_distribution_and_labels_apps(tmp_path, monkeypatch, ckpt):
     assert onehot.ndim == 2 and (onehot.sum(1) == 1).all()
 
 
-def test_other_weights_strategy_raises():
+def test_other_weights_strategy_takes_the_dense_route():
     """The cache kernels compute Tip-Adapter weights and nothing else: another
-    weights strategy raises on any device, it gets no route of its own."""
+    weights strategy gets the JAX app's dense fallback, its own ``transform``
+    times the values in the selection's own row order, one (1, Nt, C) block a
+    strategy, as the JAX app computes it."""
+    from summer_clip_tpu.methods.cache import HardCacheStrategy as JHard
+
     from summer_clip_torch.apps.image_attention import ImageAttention
     from summer_clip_torch.methods.cache import CacheWeightsStrategy, HardCacheStrategy
 
     class FlatWeights(CacheWeightsStrategy):
-        def transform(self, test_image_features, cache_image_features):
-            return np.ones((len(test_image_features), len(cache_image_features)), np.float32)
+        def __init__(self, scale):
+            self.scale = scale
 
+        def transform(self, test_image_features, cache_image_features):
+            return self.scale * np.add.outer(np.arange(len(test_image_features)),
+                                             np.arange(len(cache_image_features))).astype(np.float32)
+
+    rng = np.random.default_rng(0)
     app = object.__new__(ImageAttention)
-    with pytest.raises(NotImplementedError, match="TipAdapterWeightsStrategy"):
-        app._sweep_weights_values(None, None, {}, {"_target_": FlatWeights},
-                                  {"_target_": HardCacheStrategy}, [0.0], None)
+    app.device = torch.device("cpu")
+    app.test_image_features = rng.standard_normal((5, 8)).astype(np.float32)
+    cache_features = rng.standard_normal((7, 8)).astype(np.float32)
+    cache_outs = rng.standard_normal((7, 3)).astype(np.float32)
+    logged = []
+    app._log_results = lambda sp, wp, vp, alphas, accs, logits: logged.append((wp, accs, logits))
+    app._sweep_weights_values(cache_features, cache_outs, {},
+                              {"_target_": FlatWeights, "scale": [1.0, 2.0]},
+                              {"_target_": HardCacheStrategy}, [0.0],
+                              lambda c: np.zeros((len(c), 1, 2)))
+    assert [wp["scale"] for wp, _, _ in logged] == [1.0, 2.0]
+    values = JHard().transform(cache_outs)
+    for wp, accs, logits in logged:
+        weights = FlatWeights(wp["scale"]).transform(app.test_image_features, cache_features)
+        np.testing.assert_allclose(logits.numpy(), weights @ values, rtol=1e-6)
+        assert accs.shape == (1, 2)

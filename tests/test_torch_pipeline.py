@@ -31,7 +31,7 @@ def _records(run_root: Path, kind: str):
 def ckpt(tmp_path_factory):
     from summer_clip_torch.models.clip import build_clip, to_openai_state_dict
 
-    model, _ = build_clip("test-vit", torch.Generator().manual_seed(3))
+    model, _ = build_clip("test-vit", torch.Generator().manual_seed(3), device="cpu")
     path = tmp_path_factory.mktemp("ckpt") / "test_vit.pt"
     torch.save(to_openai_state_dict(model), path)
     return str(path)

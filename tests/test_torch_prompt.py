@@ -97,7 +97,7 @@ def test_prompt_model_outputs_equal_the_jax_packages(name, allowed):
     table = rng.standard_normal((200, 8)).astype(np.float32)
     allowed_tokens = None if allowed is None else sorted(rng.choice(200, 50, replace=False))
     kw = dict(clip_embs=table, prompt_len=3, allowed_tokens=allowed_tokens)
-    jm, pm = getattr(JPM, name)(**kw), getattr(PM, name)(**kw)
+    jm, pm = getattr(JPM, name)(**kw), getattr(PM, name)(device="cpu", **kw)
     jparams = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0)))
     jparams = {k: v + 0.3 * rng.standard_normal(v.shape).astype(np.float32)
                for k, v in jparams.items()}
@@ -115,9 +115,38 @@ def test_prompt_model_outputs_equal_the_jax_packages(name, allowed):
         {k: jnp.asarray(v) for k, v in jparams.items()}))
 
 
-def test_gumbel_v3a1_names_what_it_waits_for():
-    with pytest.raises(NotImplementedError, match="gpt_heads"):
-        PM.Gumbelv3a1(clip_embs=np.zeros((4, 2), np.float32), prompt_len=2)
+@pytest.mark.parametrize("kind", ["adapter", "lora"])
+def test_gumbel_v3a1_parameters_are_the_jax_trees(kind):
+    """Gumbelv3a1's parameters are its proposer's, named by their paths in the
+    JAX package's tree under ``proposer`` (what the converters carry across),
+    with the JAX shapes; the rollout's ids are prompt_len vocabulary ids."""
+    import jax
+    import jax.numpy as jnp
+
+    from summer_clip_tpu.methods import gpt_heads as JGH
+    from summer_clip_tpu.methods import prompt_models as JPM
+    from summer_clip_tpu.models import gpt2 as JG
+
+    from summer_clip_torch.methods import gpt_heads as GH
+    from summer_clip_torch.models import gpt2 as TG
+
+    kw = dict(clip_vocab_size=50, clip_emb_dim=8, emb_hid_dim=8, head_hid_dim=8)
+    jgpt = JG.ClipGPT(JG.GPT2_CONFIGS["test-gpt"], **kw)
+    jvars = jgpt.init(jax.random.PRNGKey(0), jnp.zeros((1, 2), jnp.int32))
+    gpt = TG.ClipGPT(TG.GPT2_CONFIGS["test-gpt"], **kw).load_tree(TG.from_flax_variables(
+        jax.tree_util.tree_map(np.asarray, jvars)))
+    heads = {"adapter": (JGH.AdapterGPT(jgpt, jvars, 4), GH.AdapterGPT(gpt, 4)),
+             "lora": (JGH.LoRAGPT(jgpt, jvars, rank=2), GH.LoRAGPT(gpt, rank=2))}[kind]
+    table = np.random.default_rng(3).standard_normal((50, 8)).astype(np.float32)
+    mk = dict(bos_token_id=1, clip_embs=table, prompt_len=3)
+    jparams = JPM.Gumbelv3a1(proposer=heads[0], **mk).init(jax.random.PRNGKey(1))
+    model = PM.Gumbelv3a1(proposer=heads[1], device="cpu", **mk)
+    params = model.init(torch.Generator().manual_seed(1))
+    want = {k: np.shape(v) for k, v in GH.flatten(jparams).items()}
+    assert {k: tuple(v.shape) for k, v in params.items()} == want
+    assert all(v.requires_grad for v in params.values())
+    ids = model.decode_ids(params)
+    assert ids.shape == (3,) and ((0 <= ids) & (ids < 50)).all()
 
 
 # --------------------------------------------------------------------------- #

@@ -91,7 +91,7 @@ def test_resnet_state_dict_round_trip_through_both_converters(tmp_path):
     from summer_clip_tpu.models.clip import convert as jconvert
     from summer_clip_tpu.models.clip.configs import build_clip as jax_build_clip
 
-    model, cfg = build_clip("test-rn", torch.Generator().manual_seed(2))
+    model, cfg = build_clip("test-rn", torch.Generator().manual_seed(2), device="cpu")
     with torch.no_grad():                      # non-trivial running statistics
         for m in model.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
@@ -102,7 +102,7 @@ def test_resnet_state_dict_round_trip_through_both_converters(tmp_path):
     assert sd["visual.layer1.0.downsample.0.weight"].dim() == 4
     path = tmp_path / "test_rn.pt"
     torch.save(sd, path)
-    loaded, cfg2 = load_clip(path)
+    loaded, cfg2 = load_clip(path, device="cpu")
     assert cfg2.name == "test-rn"
     images, _ = _inputs(cfg, seed=1)
     with torch.inference_mode():
@@ -117,8 +117,9 @@ def test_resnet_state_dict_round_trip_through_both_converters(tmp_path):
 
 
 def test_resnet_runs_in_bf16_with_f32_norms():
-    model, cfg = build_clip("test-rn", torch.Generator().manual_seed(3), dtype=torch.bfloat16)
-    ref, _ = build_clip("test-rn", torch.Generator().manual_seed(3))
+    model, cfg = build_clip("test-rn", torch.Generator().manual_seed(3), dtype=torch.bfloat16,
+                          device="cpu")
+    ref, _ = build_clip("test-rn", torch.Generator().manual_seed(3), device="cpu")
     images, _ = _inputs(cfg, seed=2)
     with torch.inference_mode():
         got = model.encode_image(torch.from_numpy(images))

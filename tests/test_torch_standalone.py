@@ -19,7 +19,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "summer_clip_torch"
 APPS = ["save_features", "eval_clip", "tip_adapter", "tip_adapter_imagenet", "image_attention",
         "save_image_outs", "save_image_labels", "gen_gpt", "train_coop", "eval_prompt",
-        "train_adapter", "eval_adapter", "class_projector", "maha_distance", "train_em"]
+        "train_adapter", "eval_adapter", "class_projector", "maha_distance", "train_em",
+        "train_autoprompt", "train_prolip"]
 # the port's tools (those that import it) never import the JAX package
 TOOLS = sorted(p for p in (REPO / "tools").glob("torch_*.py")
                if "summer_clip_torch" in p.read_text())

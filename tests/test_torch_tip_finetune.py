@@ -64,7 +64,7 @@ def test_finetune_cache_keys_matches_jax():
     want = jtip.finetune_cache_keys(feats, labels, clip_logits, keys, values, 3.0, 1.5,
                                     log_fn=jrecs.append, **kw)
     got = tip.finetune_cache_keys(feats, labels, clip_logits, keys, values, 3.0, 1.5,
-                                  log_fn=precs.append, **kw)
+                                  log_fn=precs.append, device="cpu", **kw)
     assert got.shape == (nk, d) and np.abs(got - keys).max() > 1e-3   # the keys moved
     np.testing.assert_allclose(got, want, atol=1e-5)
     assert [r["epoch"] for r in precs] == [0, 1, 2]
@@ -77,7 +77,7 @@ def test_finetune_cache_keys_matches_jax():
 def ckpt(tmp_path_factory):
     from summer_clip_torch.models.clip import build_clip, to_openai_state_dict
 
-    model, _ = build_clip("test-vit", torch.Generator().manual_seed(3))
+    model, _ = build_clip("test-vit", torch.Generator().manual_seed(3), device="cpu")
     path = tmp_path_factory.mktemp("ckpt") / "test_vit.pt"
     torch.save(to_openai_state_dict(model), path)
     return str(path)

@@ -91,15 +91,25 @@ def test_train_coop_gumbel_with_fluency(store, rundir):
     assert np.isfinite(epoch["loss/fluency"]) and np.isfinite(epoch["loss/entropy"])
 
 
-def test_gumbel_v3a1_config_raises(store, rundir):
+@pytest.mark.parametrize("head", [["prompt_model.head.hidden_dim=16"],
+                                  ["prompt_model.head.kind=lora", "prompt_model.head.rank=4"]],
+                         ids=["adapter", "lora"])
+def test_train_coop_gumbel_v3a1_writes_prompts(store, rundir, head):
+    """The JAX e2e test of the autoregressive proposer
+    (``tests/test_apps_e2e.py::TestGumbelV3``) on the port, both heads: the
+    prompt record and the proposer's checkpoint."""
     from summer_clip_torch.apps import train_coop
 
-    with pytest.raises(NotImplementedError, match="gpt_heads"):
-        train_coop.run(argv=COMMON + [
-            "dataset=synthetic_train", "dataset.load_images=false", "val_dataset=null",
-            f"store.root={store}", "data.features_key=synthetic_train-test-vit",
-            "+prompt_model._target_=summer_clip_torch.methods.prompt_models.Gumbelv3a1",
-            "clip_seq_len=16", "prompt.length=3"])
+    train_coop.run(argv=COMMON + [
+        "dataset=synthetic_train", "dataset.load_images=false", "val_dataset=null",
+        f"store.root={store}", "data.features_key=synthetic_train-test-vit", "data.batch_size=8",
+        "training.epochs_num=1", "prompt.length=2", "prompt_model=gumbel_v3a1", *head,
+        "+gpt.gpt_config=test-gpt", "+gpt.emb_hid_dim=16", "+gpt.head_hid_dim=16",
+        "clip_seq_len=16", "dataset_info.k_shots=-1"])
+    recs = _records(rundir, "prompt")
+    assert recs and len(recs[-1]["prompt_ids"]) == 2
+    ckpt_dir, = rundir.rglob("checkpoints/epoch_1")
+    assert (ckpt_dir / "model.ckpt").exists()
 
 
 def test_eval_prompt_writes_an_accuracy_record(store, rundir):
