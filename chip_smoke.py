@@ -43,7 +43,9 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
      ulp of the sigmoid and the product's rounding);
    - K4 short_attention_packed at the ViT-L/14 image tower (B=32, T=257,
      D=1024, 16 heads), at ViT-L/14@336 (T=577) and at its limit T=640 (B=32,
-     16 heads), at text shapes (B=256, T=77, D=512, 8 heads, causal) and, for
+     16 heads), at text shapes (B=256, T=77, D=512, 8 heads, causal), at
+     train_gpt's (B=32, T=80, D=1280, 20 heads, causal), at the int8 ViT-B/16
+     image tower's (B=32, T=197, D=768, 12 heads) and, for
      its f32 variant, at gen_gpt's perplexity shape for T = 512 (B=8, D=1280,
      20 heads, causal), K12 short_attention at (512, 257, 64); for both also
      ``F.scaled_dot_product_attention`` on the same q/k/v, timed as the
@@ -206,6 +208,33 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
      falls, K3's launch count, and the same store through the plain route
      (the same searched (beta, alpha) and accuracies); prints each stage's
      time and the peak memory.
+   - ClipGPT training (``train_gpt``): tokenize_dataset writes a synthetic
+     corpus (244 chunks of 80 tokens) and a validation corpus (55), then
+     train_gpt at gpt2-large, full width and depth (36 x 1280, 20 heads,
+     CLIP vocabulary 49408, clip_emb 512, adapters 1024), bf16, remat, batch
+     32: 5 micro-steps (a subpart of 161 chunks) with ``grad_accum_steps`` cut
+     from 16 to 2 (2 updates and a pending gradient), one eval and a step
+     checkpoint with its optimizer. Checks K4's count exactly (36 x (2 x 5 +
+     1): remat runs each block's forward again in the backward); that the
+     checkpoint reloads through ``gen_gpt.load_pretrained_clip_gpt`` leaf for
+     leaf (the frozen leaves redrawn from the seed: bit-identical to the ones
+     trained around); that a resume with ``pretrained.optimizer=true``
+     restores the calls, the updates, the accumulator and Adam's moments bit
+     for bit; then, from the initial weights again, the first micro-step's
+     loss and every leaf's gradient norm on the kernel route against the route
+     that launches no kernel and an f32 route, and the adapters after the same
+     two updates on the plain route; prints a micro-step's forward and
+     backward ms, tokens/s, the optimizer's accumulate and update ms and the
+     peak memory with remat off, on, ``remat_policy=dots`` and on the plain
+     route, beside the micro-step's bound.
+   - The int8 towers (``int8_towers``): save_features with ``clip.quant=int8``
+     at ViT-B/16 (K4 12 launches an image batch) and RN50 on ``synthetic``
+     (images only). Checks K4's count and the stored features; then one
+     layer's int8 products on the card against the CPU's on the same input
+     bit for bit (ViT-B/16 block 0's q/k/v int32 sums from the same q; RN50's
+     stem convolution, K = 27 padded to 32), the int8 features against the
+     bf16 tower's at B = 32 (min cosine ``TOL_INT8_COS``) with a planted
+     fault's reading each, and prints img/s int8 against bf16 per tower.
    - The analysis apps over the CLIP-search path's ViT-L/14 store:
      ``maha_distance``, ``train_em`` (diagonal covariances) and
      ``class_projector``; records in range, every logits matrix finite.
@@ -1073,6 +1102,10 @@ def check_attention_kernels(results: dict) -> None:
             "vit_l14_336_image": (32, 577, 1024, 16, False, torch.bfloat16),
             "t640": (32, 640, 1024, 16, False, torch.bfloat16),
             "text_causal": (256, 77, 512, 8, True, torch.bfloat16),
+            # train_gpt's causal self-attention at gpt2-large, T = 80
+            "gpt2_large_train": (32, 80, 1280, 20, True, torch.bfloat16),
+            # the int8 ViT-B/16 image tower (the bf16 one runs K5)
+            "vit_b16_image": (32, 197, 768, 12, False, torch.bfloat16),
             # gen_gpt's perplexity pass over an f32 gpt2-large at T = 512: the f32 variant
             "gpt2_large_t512_f32": (8, 512, 1280, 20, True, torch.float32)}.items():
         # q, k, v as the tower has them: views of one fused projection
@@ -4014,6 +4047,388 @@ def run_small_prompt_search(work: Path, phases: str = "ghijk") -> None:
     check_prompt_search(out)
 
 
+# --------------------------------------------------------------------------- #
+# train_gpt: ClipGPT training at gpt2-large; int8_towers: clip.quant=int8
+# --------------------------------------------------------------------------- #
+TRAIN_GPT_PATH = ("K4 short_attention_packed",)
+INT8_PATH = ("K4 short_attention_packed",)
+TRAIN_GPT_BATCH, TRAIN_GPT_T = 32, 80        # conf/train_gpt.yaml's batch, tokenize_dataset's length
+TRAIN_GPT_ACCUM = 2        # conf/train_gpt.yaml's 16, cut so that 5 micro-steps make 2 updates
+TRAIN_GPT_MICRO = 5        # an odd count: the step checkpoint's accumulator holds a gradient
+TRAIN_GPT_DOCS, TRAIN_GPT_SUBPART = 64, 0.66  # 244 chunks of 80 tokens, 161 of them: 5 batches
+TRAIN_GPT_VAL_DOCS = 12
+# the first micro-step's loss and every leaf's gradient norm, kernel route (K4
+# forward, bf16) against the route that launches no kernel on the same
+# weights and batch; each route's distance to an f32 route of the same weights
+# may reach TOL_LM_F32_RATIO times the plain route's (or the limit itself)
+TOL_LM_LOSS_REL = 1e-3
+TOL_LM_NORM_REL = 2e-2
+TOL_LM_F32_RATIO = 1.5
+# the adapters' change over the run's two updates, kernel route against plain
+TOL_ADAPTER_COS = 0.99
+# int8 towers: min cosine of the int8 features to the bf16 tower's at B = 32,
+# and the planted fault each tower's reading must fall below: ViT-B/16 reads
+# 0.99952, 0.99843 with its fault; RN50 0.99978, 0.99423 with its fault
+TOL_INT8_COS = 0.999
+INT8_FAULTS = {"ViT-B/16": ("block 5 c_fc hidden 0..63 zeroed",
+                            lambda m: m.visual.transformer.resblocks[5].mlp.c_fc.weight[:64]),
+               "RN50": ("layer3.0 conv2 output channels 0..31 zeroed",
+                        lambda m: m.visual.layer3[0].conv2.weight[:32])}
+
+
+def train_gpt_k4_launches(micro_steps: int, eval_batches: int, n_layer: int = 36,
+                          remat: bool = True) -> int:
+    """K4's launches in a train_gpt run: one a block and forward, a second one
+    a block when remat recomputes the forward in the backward (eval runs
+    without grad, so once)."""
+    return n_layer * ((2 if remat else 1) * micro_steps + eval_batches)
+
+
+def train_gpt_argv(work: Path, corpus: Path, val: Path) -> list:
+    return ["clip_gpt.gpt_config=gpt2-large", "clip_gpt.clip_emb_dim=512",
+            "clip_gpt.adapters.emb_hid_dim=1024", "clip_gpt.adapters.head_hid_dim=1024",
+            f"dataset.train.tokens_path={corpus}", f"dataset.train.subpart={TRAIN_GPT_SUBPART}",
+            f"dataset.val.tokens_path={val}",
+            f"data_loader.train.batch_size={TRAIN_GPT_BATCH}",
+            f"data_loader.val.batch_size={TRAIN_GPT_BATCH}", "training.epochs_num=1",
+            f"training.grad_accum_steps={TRAIN_GPT_ACCUM}", "training.evals_per_epoch=1",
+            "training.info_steps=1", "training.bf16=true", "training.remat=true",
+            f"training.checkpoints_dir={work / 'ckpt'}"]
+
+
+def run_train_gpt(work: Path) -> dict:
+    """The seventh main path, ``train_gpt`` (module docstring, step 4):
+    tokenize_dataset twice (train and val corpora), then train_gpt at
+    gpt2-large full width. Returns the times and the trainer."""
+    from summer_clip_torch.apps import tokenize_dataset, train_gpt
+
+    corpus, val = work / "corpus.npy", work / "val.npy"
+    argv = train_gpt_argv(work, corpus, val)
+    captured = {}
+    real_run_trainer = train_gpt.run_trainer
+
+    def capture(cls, cfg):
+        captured.setdefault("trainer", real_run_trainer(cls, cfg))
+        return captured["trainer"]
+
+    train_gpt.run_trainer = capture
+    try:
+        times = run_apps([
+            ("tokenize_train", tokenize_dataset.run,
+             [f"max_length={TRAIN_GPT_T}", f"source.n_docs={TRAIN_GPT_DOCS}",
+              f"output_path={corpus}"]),
+            ("tokenize_val", tokenize_dataset.run,
+             [f"max_length={TRAIN_GPT_T}", f"source.n_docs={TRAIN_GPT_VAL_DOCS}",
+              f"output_path={val}"]),
+            ("train_gpt", train_gpt.run, argv)], work)
+    finally:
+        train_gpt.run_trainer = real_run_trainer
+    return {"times_s": times, "trainer": captured["trainer"], "argv": argv, "work": work}
+
+
+def _lm_step(trainer, ids, model=None) -> tuple:
+    """Loss and the global norm of every leaf's gradient of one micro-step
+    (the optimizer untouched); the gradients are cleared after."""
+    import torch
+
+    from summer_clip_torch.apps.train_gpt import lm_loss_fn
+
+    model = model or trainer.model
+    loss = lm_loss_fn(model(ids)["logits"], ids)
+    loss.backward()
+    params = list(model.parameters())
+    norm = float(torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params)))
+    for p in params:
+        p.grad = None
+    return float(loss.detach()), norm
+
+
+def _adapters(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith("adapter_")}
+
+
+def check_train_gpt(out: dict, launches: dict) -> None:
+    """The gates of the train_gpt path (module docstring, step 4), then a
+    micro-step's time, token rate, update time and peak memory with remat off,
+    on, ``dots`` and on the plain route."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.apps import train_gpt
+    from summer_clip_torch.apps.gen_gpt import load_pretrained_clip_gpt
+    from summer_clip_torch.core import config as C
+    from summer_clip_torch.models import gpt2 as G
+
+    trainer, work = out["trainer"], out["work"]
+    n_layer = trainer.model.config.n_layer
+    evals = len(train_gpt.eval_starts(len(trainer.val_tokens), TRAIN_GPT_BATCH))
+    micro = len(trainer.train_tokens) // TRAIN_GPT_BATCH
+    want = train_gpt_k4_launches(micro, evals, n_layer)
+    log(f"train_gpt gpt2-large: {micro} micro-steps of {TRAIN_GPT_BATCH} x {TRAIN_GPT_T}, "
+        f"{trainer.tx.count} updates, {evals} eval batches: K4 "
+        f"{launches['K4 short_attention_packed']} launches (expected {want})")
+    if (micro, trainer.tx.count, trainer.tx.calls) != (TRAIN_GPT_MICRO, 2, TRAIN_GPT_MICRO):
+        raise AssertionError(f"train_gpt: {micro} micro-steps, {trainer.tx.count} updates")
+    if launches["K4 short_attention_packed"] != want:
+        raise AssertionError(f"train_gpt: K4 launched {launches['K4 short_attention_packed']} "
+                             f"times, expected {want}")
+
+    # the step checkpoint: it rebuilds the trained tree (frozen leaves from the seed)
+    t0 = time.perf_counter()
+    step_dir = work / "ckpt" / "epoch_1" / f"step_{micro}"
+    if not (step_dir / "optimizer.ckpt").exists():
+        raise AssertionError(f"train_gpt: {step_dir} has no optimizer.ckpt")
+    reloaded = dict(load_pretrained_clip_gpt(step_dir, trainer.tokenizer,
+                                             device=trainer.device).named_parameters())
+    for name, p in trainer.model.named_parameters():
+        if not torch.equal(reloaded[name], p.detach()):
+            raise AssertionError(f"train_gpt: {name} reloads through gen_gpt other than trained")
+    del reloaded
+    # a resume with pretrained.optimizer=true: counts, accumulator and Adam state
+    cfg = C.compose(Path(train_gpt.__file__).resolve().parent.parent / "conf", "train_gpt",
+                    out["argv"] + [f"pretrained.model={step_dir}", "pretrained.optimizer=true"])
+    cfg.pop("hydra")
+    resume_dir = work / "resume"
+    resume_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(resume_dir)
+    try:
+        resumed = train_gpt.ClipGPTTrainer(cfg)
+        resumed.setup()
+    finally:
+        os.chdir(cwd)
+    same = (resumed.tx.calls, resumed.tx.count) == (trainer.tx.calls, trainer.tx.count)
+    same = same and all(torch.equal(a, b) for a, b in zip(resumed.tx._acc, trainer.tx._acc))
+    for a, b in zip(resumed.tx.inner.params, trainer.tx.inner.params):
+        sa, sb = resumed.tx.inner.optimizer.state[a], trainer.tx.inner.optimizer.state[b]
+        same = same and torch.equal(a, b) and all(torch.equal(sa[k].cpu(), sb[k].cpu())
+                                                  for k in sb)
+    if not same:
+        raise AssertionError("train_gpt: the resumed optimizer differs from the saved one")
+    del resumed
+    torch.cuda.empty_cache()
+    log(f"train_gpt checkpoint: reloads through gen_gpt leaf for leaf (frozen leaves = the "
+        f"seed's), resume restores {trainer.tx.calls} calls, {trainer.tx.count} updates, the "
+        f"accumulator and Adam's moments bit for bit; {time.perf_counter() - t0:.2f} s")
+
+    # the gates on the initial weights and the first micro-batch
+    t0 = time.perf_counter()
+    trained = _adapters(trainer.model)
+    with torch.no_grad():
+        trainer.model.init_weights(torch.Generator().manual_seed(trainer._init_seed))
+    init = _adapters(trainer.model)
+    order = np.random.default_rng((int(trainer.cfg.meta.random_state), 1)).permutation(
+        len(trainer.train_tokens))
+    batches = [torch.from_numpy(trainer.train_tokens[order[i * TRAIN_GPT_BATCH:
+                                                          (i + 1) * TRAIN_GPT_BATCH]]
+                                ).to(trainer.device)
+               for i in range(micro)]
+    counters = launch_counters()
+    k4 = counters["K4 short_attention_packed"]
+    before = k4.launches
+    kern = _lm_step(trainer, batches[0])
+    if k4.launches - before != 2 * n_layer:
+        raise AssertionError(f"train_gpt gate: the kernel route launched K4 "
+                             f"{k4.launches - before} times, expected {2 * n_layer}")
+    before = k4.launches
+    plain = plain_route(lambda: _lm_step(trainer, batches[0]))
+    m32 = G.ClipGPT(trainer.model.config, clip_vocab_size=trainer.tokenizer.vocab_size,
+                    clip_emb_dim=512, emb_hid_dim=1024, head_hid_dim=1024, dtype=torch.float32,
+                    device="meta", remat=True)
+    m32.load_tree(trainer.model.tree())       # the same tensors, an f32 compute dtype
+    m32.requires_grad_(True)
+    f32 = plain_route(lambda: _lm_step(trainer, batches[0], m32))
+    del m32
+    if k4.launches != before:
+        raise AssertionError("train_gpt gate: the plain routes launched K4")
+    loss_rel = abs(kern[0] - plain[0]) / abs(plain[0])
+    norm_rel = abs(kern[1] - plain[1]) / plain[1]
+    log(f"train_gpt gate, first micro-step (B={TRAIN_GPT_BATCH}, T={TRAIN_GPT_T}): loss kernel "
+        f"{kern[0]:.7f} plain {plain[0]:.7f} f32 {f32[0]:.7f}; every leaf's gradient norm "
+        f"kernel {kern[1]:.6e} plain {plain[1]:.6e} f32 {f32[1]:.6e}; kernel vs plain: loss "
+        f"{loss_rel:.3e} (tol {TOL_LM_LOSS_REL}), norm {norm_rel:.3e} (tol {TOL_LM_NORM_REL}); "
+        f"to f32: loss kernel {abs(kern[0] - f32[0]):.3e} plain {abs(plain[0] - f32[0]):.3e}, "
+        f"norm kernel {abs(kern[1] - f32[1]):.3e} plain {abs(plain[1] - f32[1]):.3e}")
+    if loss_rel > TOL_LM_LOSS_REL or norm_rel > TOL_LM_NORM_REL or not np.isfinite(kern).all():
+        raise AssertionError("train_gpt gate: the kernel route's loss or norm disagrees with plain")
+    for i, tol in ((0, TOL_LM_LOSS_REL), (1, TOL_LM_NORM_REL)):
+        if abs(kern[i] - f32[i]) > max(TOL_LM_F32_RATIO * abs(plain[i] - f32[i]), tol * f32[i]):
+            raise AssertionError("train_gpt gate: the kernel route is farther from f32 than plain")
+
+    # the same five micro-steps (two updates) on the plain route from the same start
+    trainer.setup_optimizer()
+    plain_route(lambda: [trainer.train_step(ids) for ids in batches])
+    moved = _adapters(trainer.model)
+    dk = torch.cat([(trained[n] - init[n]).flatten() for n in init])
+    dp = torch.cat([(moved[n] - init[n]).flatten() for n in init])
+    cos = float(torch.nn.functional.cosine_similarity(dk, dp, dim=0))
+    rel = float((dk - dp).norm() / dp.norm())
+    log(f"train_gpt adapters after {trainer.tx.count} updates, kernel vs plain route: change "
+        f"|d| {float(dk.norm()):.4e} vs {float(dp.norm()):.4e}, cosine {cos:.6f} (tol >= "
+        f"{TOL_ADAPTER_COS}), relative difference {rel:.3e}; {time.perf_counter() - t0:.2f} s")
+    if not cos >= TOL_ADAPTER_COS:
+        raise AssertionError("train_gpt: the kernel route's adapters disagree with plain")
+    time_train_gpt(trainer, batches[0])
+
+
+def train_gpt_bound(cfg, vocab: int, clip_dim: int = 512, hid: int = 1024,
+                    b: int = TRAIN_GPT_BATCH, t: int = TRAIN_GPT_T, remat: bool = True) -> dict:
+    """A micro-step's least time: the block and adapter products in bf16 (a
+    forward, twice that for the gradients of every leaf, and the forward again
+    under remat), the head's three products in f32; bytes: the f32 leaves read
+    and their gradients written once."""
+    d, n = cfg.n_embd, cfg.n_layer
+    tokens = b * t
+    blocks = tokens * n * (24 * d * d + 2 * t * d)         # causal: half of 4 t d
+    adapters = 2 * vocab * (clip_dim * hid + hid * d) + 2 * tokens * (clip_dim * hid + hid * d)
+    head = 2 * tokens * d * vocab
+    bf16 = 3 * (blocks + adapters) + (blocks if remat else 0)
+    params = 12 * d * d * n + vocab * clip_dim + 2 * (clip_dim * hid + hid * d)
+    return bound(8 * params, bf16, 3 * head)
+
+
+def time_train_gpt(trainer, ids) -> None:
+    """A micro-step's forward and backward (CUDA events), the optimizer's
+    accumulate and update calls, tokens/s and peak memory above what is
+    resident, with remat off, on, ``dots`` and on the plain route."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.apps.train_gpt import lm_loss_fn
+
+    model, tx = trainer.model, trainer.tx
+    bound_ms = train_gpt_bound(model.config, trainer.tokenizer.vocab_size)["bound_ms"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def micro():
+        updating = (tx.calls + 1) % tx.every == 0
+        ev[0].record()
+        loss = lm_loss_fn(model(ids)["logits"], ids)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        tx.step()
+        ev[3].record()
+        tx.zero_grad()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)] + [updating]
+
+    for name, remat, policy, route in (("remat off", False, None, "kernels"),
+                                       ("remat on", True, None, "kernels"),
+                                       ("remat dots", True, "dots", "kernels"),
+                                       ("remat on", True, None, "plain")):
+        model.core.remat, model.core.remat_policy = remat, policy
+        run = micro if route == "kernels" else (lambda: plain_route(micro))
+        run()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = [run() for _ in range(4)]           # two accumulate calls, two updates
+        peak = torch.cuda.max_memory_allocated() - base
+        fwd, bwd = (float(np.median([t[i] for t in times])) for i in (0, 1))
+        acc = float(np.median([t[2] for t in times if not t[3]]))
+        upd = float(np.median([t[2] for t in times if t[3]]))
+        step = fwd + bwd
+        log(f"train_gpt micro-step gpt2-large B={TRAIN_GPT_BATCH} T={TRAIN_GPT_T} bf16, {name}, "
+            f"{route} route: forward {fwd:.2f} ms, backward {bwd:.2f} ms, micro-step {step:.2f} "
+            f"ms ({TRAIN_GPT_BATCH * TRAIN_GPT_T / step * 1e3:.0f} tokens/s; bound "
+            f"{bound_ms:.2f} ms), accumulate {acc:.2f} ms, update {upd:.2f} ms, peak "
+            f"{peak / 2 ** 30:.3f} GiB above the resident {base / 2 ** 30:.3f} GiB")
+    model.core.remat, model.core.remat_policy = True, None
+
+
+def run_int8_towers(work: Path) -> dict:
+    """The eighth main path, ``int8_towers``: save_features with
+    ``clip.quant=int8`` at ViT-B/16 and RN50 on ``synthetic`` (images only)."""
+    store = work / "features"
+    from summer_clip_torch.apps import save_features
+
+    common = ["clip.quant=int8", "dataset_name=synthetic", "dataset@train_dataset=synthetic_train",
+              "dataset@test_dataset=synthetic_test", "data.batch_size=32",
+              f"store.root={store}", "save_train_outs=false"]
+    times = run_apps([(f"save_features_int8_{clip}", save_features.run, [f"clip={clip}", *common])
+                      for clip in ("vit_b16", "rn50")], work)
+    return {"times_s": times, "store": store}
+
+
+def check_int8_towers(out: dict, launches: dict) -> None:
+    """K4's count (12 a ViT-B/16 image batch, none on RN50), the stored
+    features, one layer's int32 sums against the CPU's on the same q, the int8
+    towers against the bf16 towers (and a planted fault's reading), img/s."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.models.clip import build_clip
+    from summer_clip_torch.ops import int8
+    from summer_clip_torch.store import FeatureStore
+
+    batches = -(-32 // 32) + -(-16 // 32)          # synthetic: 32 train and 16 test images
+    if launches["K4 short_attention_packed"] != 12 * batches:
+        raise AssertionError(f"int8_towers: K4 launched {launches['K4 short_attention_packed']} "
+                             f"times, expected 12 x {batches}")
+    fs = FeatureStore(out["store"])
+    for tag, dim in (("ViT-B16", 512), ("RN50", 1024)):
+        for split, n in (("train", 32), ("test", 16)):
+            feats = fs.load(f"synthetic_{split}-{tag}", "features")
+            if feats.shape != (n, dim) or not np.isfinite(feats).all():
+                raise AssertionError(f"int8_towers: stored {tag} {split} features {feats.shape}")
+    gen = torch.Generator().manual_seed(3)
+    for name in ("ViT-B/16", "RN50"):
+        q, cfg = build_clip(name, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                            quant="int8")
+        ref, _ = build_clip(name, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+        r = cfg.image_resolution
+        images = _randn((32, r, r, 3), gen, dtype=torch.float32)
+        with torch.no_grad():
+            # one layer's int32 sums on the card against the CPU's from the same q
+            if name == "ViT-B/16":
+                blk = q.visual.transformer.resblocks[0]
+                seen = []
+                hook = blk.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+                q.encode_image(images)
+                hook.remove()
+                u = blk.ln_1(seen[0]).reshape(-1, cfg.vision_width)
+                x8, xs = int8.quantize_rows(u)
+                w8, ws = int8.quantize_cols(blk.attn.in_proj_weight.t())
+                sums = int8.int8_sums(x8, w8)
+                x8c, xsc = int8.quantize_rows(u.cpu())
+                same = (torch.equal(x8c, x8.cpu()) and torch.equal(xsc, xs.cpu())
+                        and torch.equal(int8.int8_sums(x8c, w8.cpu()), sums.cpu()))
+                what = f"block 0 q/k/v sums ({u.shape[0]} x {u.shape[1]} @ {tuple(w8.shape)})"
+            else:
+                x = images.to(torch.bfloat16).permute(0, 3, 1, 2)
+                w = q.visual.conv1.weight
+                got = int8.int8_conv2d(x, w, 2, 1)
+                same = torch.equal(got.cpu(), int8.int8_conv2d(x.cpu(), w.cpu(), 2, 1))
+                what = f"stem conv (K = 27 padded to 32, {tuple(got.shape)})"
+            if not same:
+                raise AssertionError(f"int8_towers {name}: {what} differ from the CPU's")
+            got, want = q.encode_image(images).float(), ref.encode_image(images).float()
+            cos = float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min())
+            fault_what, fault_view = INT8_FAULTS[name]
+            weight = fault_view(q)
+            saved = weight.clone()
+            weight.zero_()
+            fault = q.encode_image(images).float()
+            weight.copy_(saved)
+            fault_cos = float(torch.nn.functional.cosine_similarity(fault, want, dim=-1).min())
+            ms_q = cuda_time_ms(lambda: q.encode_image(images), 10, 2)
+            ms_b = cuda_time_ms(lambda: ref.encode_image(images), 10, 2)
+        tol = TOL_INT8_COS
+        log(f"int8_towers {name} B=32: {what} equal to the CPU's bit for bit; int8 vs bf16 "
+            f"features min cosine {cos:.6f} (tol >= {tol}), planted fault ({fault_what}) "
+            f"{fault_cos:.6f}; int8 {ms_q:.3f} ms ({32 / ms_q * 1e3:.1f} img/s), bf16 "
+            f"{ms_b:.3f} ms ({32 / ms_b * 1e3:.1f} img/s)")
+        if not (torch.isfinite(got).all() and cos >= tol):
+            raise AssertionError(f"int8_towers {name}: int8 features disagree with bf16")
+        if fault_cos >= tol:
+            raise AssertionError(f"int8_towers {name}: the limit does not catch the planted fault")
+        del q, ref
+        torch.cuda.empty_cache()
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces, shape whose times stand in the kernels line)
     "K1 cache_dense": ("summer_clip_torch/csrc/cache_kernels.cu",
@@ -4053,6 +4468,12 @@ TIP_IMAGENET_PATH = ("K3 onehot_grouped", "K5 fused_ln_attn", "K6 fused_ln_mlp")
 ONEHOT_SWEEP_PATH = ("K1 cache_dense", "K13 onehot_variant")
 
 
+MAIN_PATHS = {"tip_adapter": TIP_PATH, "clip_search": SEARCH_PATH, "gen_gpt": GEN_PATH,
+              "train_coop": TRAIN_PATH, "tip_adapter_imagenet": TIP_IMAGENET_PATH,
+              "onehot_sweep": ONEHOT_SWEEP_PATH, "prompt_search": PROMPT_SEARCH_PATH,
+              "train_gpt": TRAIN_GPT_PATH, "int8_towers": INT8_PATH}
+
+
 def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
     """``launches`` is the count over the main paths;
     ``launches_by_path`` gives each path's own."""
@@ -4063,6 +4484,16 @@ def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"],
             **{k: at_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
+def kernels_lines(results: dict, launches: dict) -> tp.Tuple[list, list]:
+    """The kernels of the main paths and those off them, each with its
+    launches by path; ``launches`` maps every name of ``MAIN_PATHS`` to that
+    path's counts."""
+    on_path = [n for n in KERNELS if any(n in path for path in MAIN_PATHS.values())]
+    by_path = {n: {p: launches[p][n] for p in MAIN_PATHS} for n in KERNELS}
+    return ([kernel_entry(n, results, by_path[n]) for n in on_path],
+            [kernel_entry(n, results, by_path[n]) for n in KERNELS if n not in on_path])
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
@@ -4202,6 +4633,19 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         check_prompt_search(prompts)
         log(f"phase check prompt_search: {time.perf_counter() - t0:.2f} s")
 
+        lm, lm_launches = counted("train_gpt gpt2-large", TRAIN_GPT_PATH,
+                                  lambda: run_train_gpt(Path(tmp) / "train_gpt"))
+        t0 = time.perf_counter()
+        check_train_gpt(lm, lm_launches)
+        del lm
+        log(f"phase check train_gpt: {time.perf_counter() - t0:.2f} s")
+
+        towers, int8_launches = counted("int8_towers ViT-B/16 RN50", INT8_PATH,
+                                        lambda: run_int8_towers(Path(tmp) / "int8"))
+        t0 = time.perf_counter()
+        check_int8_towers(towers, int8_launches)
+        log(f"phase check int8_towers: {time.perf_counter() - t0:.2f} s")
+
         _, sweep_launches = counted("onehot_sweep", ONEHOT_SWEEP_PATH, run_onehot_sweep)
         # K1 warm-up + timed; 3 arms x 2 blockings of K13, warm-up + timed each
         if (sweep_launches["K13 onehot_variant"], sweep_launches["K1 cache_dense"]) != (12, 2):
@@ -4224,16 +4668,11 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         run_analysis(search["store"], Path(tmp) / "analysis")
         log(f"phase analysis: {time.perf_counter() - t0:.2f} s")
 
-    paths = (TIP_PATH, SEARCH_PATH, GEN_PATH, TRAIN_PATH, TIP_IMAGENET_PATH, ONEHOT_SWEEP_PATH,
-             PROMPT_SEARCH_PATH)
-    on_path = [n for n in KERNELS if any(n in path for path in paths)]
-    by_path = {n: {"tip_adapter": tip_launches[n], "clip_search": search_launches[n],
-                   "gen_gpt": gen_launches[n], "train_coop": train_launches[n],
-                   "tip_adapter_imagenet": tipi_launches[n], "onehot_sweep": sweep_launches[n],
-                   "prompt_search": prompts_launches[n]}
-               for n in KERNELS}
-    kernels = [kernel_entry(n, results, by_path[n]) for n in on_path]
-    off_path = [kernel_entry(n, results, by_path[n]) for n in KERNELS if n not in on_path]
+    kernels, off_path = kernels_lines(results, {
+        "tip_adapter": tip_launches, "clip_search": search_launches, "gen_gpt": gen_launches,
+        "train_coop": train_launches, "tip_adapter_imagenet": tipi_launches,
+        "onehot_sweep": sweep_launches, "prompt_search": prompts_launches,
+        "train_gpt": lm_launches, "int8_towers": int8_launches})
     log(f"card: {card}")
     # ported kernels that no main path runs: checked and timed above, listed apart
     print(json.dumps({"kernels_off_the_main_paths": off_path}))

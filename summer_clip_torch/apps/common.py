@@ -104,20 +104,19 @@ def create_clip_session(model_name: str, checkpoint_path: tp.Optional[str] = Non
     otherwise random towers drawn from ``torch.Generator().manual_seed(seed)``.
     ``proj_path``: optional ``.npy`` (width, embed_dim) vision projection.
     ``remat``: checkpoint every residual block's activations when a gradient
-    flows through the towers (config ``clip.remat``)."""
-    if quant is not None:
-        raise NotImplementedError(f"clip.quant={quant!r}: int8 towers are not ported yet")
+    flows through the towers (config ``clip.remat``). ``quant="int8"``: the
+    int8 towers (config ``clip.quant``, ``models.clip.modeling``)."""
     device = resolve_device(device)
     tdtype = resolve_dtype(dtype, device)
     if checkpoint_path and Path(checkpoint_path).exists():
-        model, cfg = load_clip(checkpoint_path, dtype=tdtype, device=device)
+        model, cfg = load_clip(checkpoint_path, dtype=tdtype, device=device, quant=quant)
         if logger:
             logger.log_info(f"Loaded CLIP weights from {checkpoint_path} ({cfg.name})")
     else:
         if checkpoint_path and logger:
             logger.log_info(f"WARNING: checkpoint {checkpoint_path} not found - random init")
         model, cfg = build_clip(model_name, torch.Generator().manual_seed(seed),
-                                dtype=tdtype, device=device)
+                                dtype=tdtype, device=device, quant=quant)
     if proj_path:
         w = torch.from_numpy(np.load(proj_path))
         old = model.visual.proj

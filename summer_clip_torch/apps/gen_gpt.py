@@ -172,8 +172,8 @@ def _head(model, quant_int8: bool) -> tp.Callable[[torch.Tensor], torch.Tensor]:
         table = quant_head_table(model)
         return lambda h: qdot(h, table, torch.float32)
     if isinstance(model, gpt2_mod.ClipGPT):
-        table_t = model.lm_head_table().t()
-        return lambda h: torch.matmul(h, table_t.to(h.dtype)).to(torch.float32)
+        table = model.lm_head_table()
+        return lambda h: gpt2_mod.logits_f32(h, table)
     return model.head_logits
 
 

@@ -6,7 +6,9 @@ keeps, so frozen weights never reach the disk), ``optimizer.ckpt`` and a
 ``meta.yaml`` with what rebuilds the model (``model_cfg``, and the seed that
 initialised it, where the JAX package records its ``init_key``).
 
-Trees are nested dicts of tensors with the JAX package's paths. The tensors
+Trees are nested dicts of tensors with the JAX package's paths; an optimizer's
+state is its ``state_dict()`` (``engine/optim``), restored into the optimizer
+built for the run by ``load_checkpoint(..., opt_target=...)``. The tensors
 are written with ``torch.save``; the JAX package writes msgpack through
 ``flax.serialization``, which this package cannot import, so a checkpoint
 written there is not readable here yet.
@@ -26,11 +28,18 @@ __all__ = ["save_pytree", "load_pytree", "filter_tree", "merge_tree",
            "save_checkpoint", "load_checkpoint"]
 
 
+def _to_cpu(x: tp.Any) -> tp.Any:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
 def save_pytree(path: tp.Union[str, Path], tree: tp.Any) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(map_tree(lambda _, x: x.detach().cpu() if isinstance(x, torch.Tensor) else x, tree),
-               path)
+    torch.save(map_tree(lambda _, x: _to_cpu(x), tree), path)
 
 
 def load_pytree(path: tp.Union[str, Path]) -> tp.Any:
@@ -83,9 +92,12 @@ def save_checkpoint(ckpt_dir: tp.Union[str, Path], *, params: tp.Any = None,
     return ckpt_dir
 
 
-def load_checkpoint(ckpt_dir: tp.Union[str, Path], *, params_target: tp.Any = None) -> dict:
+def load_checkpoint(ckpt_dir: tp.Union[str, Path], *, params_target: tp.Any = None,
+                    opt_target: tp.Any = None) -> dict:
     """Load whatever a checkpoint directory holds; a trainable-only
-    ``model.ckpt`` is merged into ``params_target`` when one is given."""
+    ``model.ckpt`` is merged into ``params_target`` when one is given, and
+    ``optimizer.ckpt`` is restored into ``opt_target`` (an optimizer of
+    ``engine/optim``, through its ``load_state_dict``) when one is given."""
     ckpt_dir = Path(ckpt_dir)
     out: dict = {}
     model_path = ckpt_dir / "model.ckpt"
@@ -95,6 +107,8 @@ def load_checkpoint(ckpt_dir: tp.Union[str, Path], *, params_target: tp.Any = No
     opt_path = ckpt_dir / "optimizer.ckpt"
     if opt_path.exists():
         out["opt_state"] = load_pytree(opt_path)
+        if opt_target is not None:
+            opt_target.load_state_dict(out["opt_state"])
     meta_path = ckpt_dir / "meta.yaml"
     if meta_path.exists():
         out["meta"] = yaml.safe_load(meta_path.read_text())

@@ -19,6 +19,13 @@ adds around it, with optax's semantics:
 - :func:`trainable_only`: the named subset a predicate keeps; the rest is
   frozen (``requires_grad_(False)``), optax's ``multi_transform`` with
   ``set_to_zero``;
+- ``frozen=`` (:func:`adamw`, :class:`Optimizer`): leaves that are
+  differentiated, accumulated and clipped with the rest but never updated,
+  optax's ``chain(clip_by_global_norm, multi_transform({..., "freeze":
+  set_to_zero()}))`` over gradients of every leaf (``train_gpt``);
+- ``state_dict`` / ``load_state_dict`` on :class:`Optimizer` and
+  :class:`GradAccum`: the update count, the ``torch.optim`` state and
+  ``MultiSteps``' call count and running mean, so a run resumes exactly;
 - :func:`langevin`: SGLD, an SGD step plus ``sqrt(2 lr beta_t)`` Gaussian
   noise drawn from an explicit ``torch.Generator``.
 """
@@ -58,19 +65,29 @@ def clip_by_global_norm(tensors: tp.Sequence[torch.Tensor], max_norm: float) -> 
 class Optimizer:
     """A ``torch.optim`` optimizer with a learning-rate schedule read at the
     update count and optional global-norm clipping; ``step()`` consumes the
-    ``.grad`` of its parameters."""
+    ``.grad`` of its parameters. ``frozen`` leaves count in the clipping norm
+    (and in :class:`GradAccum`'s mean) but are never updated."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  learning_rate: tp.Union[float, Schedule],
-                 grad_clip_norm: tp.Optional[float] = None):
+                 grad_clip_norm: tp.Optional[float] = None,
+                 frozen: tp.Sequence[torch.Tensor] = ()):
         self.optimizer = optimizer
         self.learning_rate = learning_rate
         self.grad_clip_norm = grad_clip_norm
+        self.frozen = list(frozen)
         self.count = 0
+        self.last_grad_norm: tp.Optional[float] = None   # the norm the last clipping read
 
     @property
     def params(self) -> tp.List[torch.Tensor]:
+        """The leaves the optimizer updates."""
         return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    @property
+    def grad_params(self) -> tp.List[torch.Tensor]:
+        """Every differentiated leaf: the updated ones, then the frozen ones."""
+        return self.params + self.frozen
 
     def current_lr(self) -> float:
         lr = self.learning_rate
@@ -78,7 +95,7 @@ class Optimizer:
 
     def step(self) -> None:
         if self.grad_clip_norm is not None:
-            clip_by_global_norm(self.params, self.grad_clip_norm)
+            self.last_grad_norm = clip_by_global_norm(self.grad_params, self.grad_clip_norm)
         lr = self.current_lr()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -87,9 +104,15 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
+        for p in self.frozen:
+            p.grad = None
 
     def state_dict(self) -> dict:
         return {"count": self.count, "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: tp.Mapping[str, tp.Any]) -> None:
+        self.count = int(state["count"])
+        self.optimizer.load_state_dict(state["optimizer"])
 
 
 class GradAccum:
@@ -115,7 +138,7 @@ class GradAccum:
         return self.inner.current_lr()
 
     def step(self) -> None:
-        params = self.params
+        params = self.inner.grad_params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         k = self.calls % self.every
         if self._acc is None:
@@ -133,7 +156,15 @@ class GradAccum:
         self.inner.zero_grad()
 
     def state_dict(self) -> dict:
-        return {"calls": self.calls, "inner": self.inner.state_dict()}
+        return {"calls": self.calls, "acc": self._acc, "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state: tp.Mapping[str, tp.Any]) -> None:
+        self.calls = int(state["calls"])
+        acc = state.get("acc")
+        self._acc = None if acc is None else [
+            a.to(device=p.device, dtype=p.dtype).clone()
+            for a, p in zip(acc, self.inner.grad_params)]
+        self.inner.load_state_dict(state["inner"])
 
 
 def decay_mask(params: Named, no_decay_keywords: tp.Sequence[str] = ("bias", "scale")
@@ -147,8 +178,10 @@ def decay_mask(params: Named, no_decay_keywords: tp.Sequence[str] = ("bias", "sc
 def adamw(params: Named, learning_rate: tp.Union[float, Schedule], *, b1: float = 0.9,
           b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
           mask: tp.Optional[tp.Mapping[str, bool]] = None,
-          grad_clip_norm: tp.Optional[float] = None) -> Optimizer:
-    """optax ``adamw`` (with ``mask``: decay only where it is True)."""
+          grad_clip_norm: tp.Optional[float] = None,
+          frozen: tp.Sequence[torch.Tensor] = ()) -> Optimizer:
+    """optax ``adamw`` (with ``mask``: decay only where it is True; ``frozen``:
+    see :class:`Optimizer`)."""
     named = _named(params)
     if mask is None:
         groups = [{"params": list(named.values()), "weight_decay": weight_decay}]
@@ -158,7 +191,7 @@ def adamw(params: Named, learning_rate: tp.Union[float, Schedule], *, b1: float 
                   {"params": [p for n, p in named.items() if not mask[n]], "weight_decay": 0.0}]
         groups = [g for g in groups if g["params"]]
     opt = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
-    return Optimizer(opt, learning_rate, grad_clip_norm)
+    return Optimizer(opt, learning_rate, grad_clip_norm, frozen)
 
 
 def adamw_grouped(params: Named, learning_rate: tp.Union[float, Schedule],

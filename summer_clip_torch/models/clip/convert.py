@@ -160,9 +160,9 @@ def load_torch_state_dict(path: tp.Union[str, Path]) -> tp.Dict[str, torch.Tenso
 
 
 def load_clip(checkpoint_path: tp.Union[str, Path], dtype: torch.dtype = torch.float32,
-              device: tp.Union[None, str, torch.device] = None):
+              device: tp.Union[None, str, torch.device] = None, quant: tp.Optional[str] = None):
     """Checkpoint -> (model, cfg) in the compute ``dtype`` on ``device`` (the
-    card when None)."""
+    card when None), its int8 layers set by ``quant``."""
     from summer_clip_torch.models.clip.modeling import CLIP
 
     device = resolve_device(device)
@@ -174,4 +174,4 @@ def load_clip(checkpoint_path: tp.Union[str, Path], dtype: torch.dtype = torch.f
     if missing or unexpected:
         raise RuntimeError(f"checkpoint does not match {cfg.name}: missing {missing}, "
                            f"unexpected {list(unexpected)}")
-    return model.requires_grad_(False).to_compute(dtype).to(device).eval(), cfg
+    return model.requires_grad_(False).set_quant(quant).to_compute(dtype).to(device).eval(), cfg

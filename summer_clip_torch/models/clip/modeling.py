@@ -36,6 +36,19 @@ that refuses its input raises; no route is chosen by catching that.
 JAX package's ``nn.remat``. The ModifiedResNet tower uses stock
 ``torch.nn.Conv2d`` and runs none of the hand-written kernels, as it runs no
 Pallas kernel in the JAX package.
+
+``quant="int8"`` (:meth:`CLIP.set_quant`, ``build_clip(..., quant=)``, config
+``clip.quant``) is the JAX package's opt-in int8 inference
+(:mod:`summer_clip_torch.ops.int8`): every residual block's q/k/v, out_proj,
+c_fc and c_proj products, the ResNet convolutions and the attention pool's
+projections run int8 x int8 -> int32 with scales taken from f32 weights (those
+layers keep f32 parameters in every compute dtype). A quantized block always
+takes the module route, never K5, K6 or K9: its attention core is
+:func:`multi_head_attention`, so K4 on the card. The patch embedding and the
+final projections stay in the compute dtype, as in the JAX package. The port
+keeps q, k and v stacked in ``in_proj_weight``; quantizing the stack column by
+column with the rows' shared activation scale is the JAX package's three
+separate ``QuantDense``s.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from torch import nn
 from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.models.clip.configs import CLIP_CONFIGS, CLIPConfig
 from summer_clip_torch.ops import block_kernels as bk
+from summer_clip_torch.ops import int8
 from summer_clip_torch.ops.attention import SHORT_MAX_T, mha_reference, multi_head_attention
 
 __all__ = ["LayerNormF32", "Attention", "MLP", "ResidualAttentionBlock", "Transformer",
@@ -142,8 +156,29 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_1 = LayerNormF32(d)
         self.mlp = MLP(d)
         self.ln_2 = LayerNormF32(d)
+        self.quant: tp.Optional[str] = None
+
+    def quant_params(self) -> tp.List[nn.Parameter]:
+        """The parameters the int8 products read (kept f32 under ``quant``)."""
+        a, m = self.attn, self.mlp
+        return [a.in_proj_weight, a.in_proj_bias, *a.out_proj.parameters(),
+                *m.c_fc.parameters(), *m.c_proj.parameters()]
+
+    def _forward_int8(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
+        """The JAX package's quantized module path: int8 q/k/v (one product
+        of the stacked weight), :func:`multi_head_attention`, int8 out_proj,
+        then int8 c_fc -> QuickGELU -> int8 c_proj; results in x's dtype."""
+        a, m = self.attn, self.mlp
+        d = x.shape[-1]
+        q, k, v = int8.int8_linear(self.ln_1(x), a.in_proj_weight, a.in_proj_bias).split(d, dim=-1)
+        o = multi_head_attention(q, k, v, num_heads=a.num_heads, causal=causal)
+        x = x + int8.int8_linear(o, a.out_proj.weight, a.out_proj.bias)
+        h = bk.quick_gelu(int8.int8_linear(self.ln_2(x), m.c_fc.weight, m.c_fc.bias))
+        return x + int8.int8_linear(h, m.c_proj.weight, m.c_proj.bias)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        if self.quant == "int8":
+            return self._forward_int8(x, causal)
         a, m = self.attn, self.mlp
         t, d = x.shape[-2], x.shape[-1]
         if attn_route(d, t, a.num_heads) == "k5":
@@ -223,6 +258,13 @@ class VisionTransformer(nn.Module):
         return x @ self.proj.to(dtype)
 
 
+def _conv_of(quant: tp.Optional[str]) -> tp.Callable[[nn.Conv2d, torch.Tensor], torch.Tensor]:
+    """``conv(module, x)``: the module itself, or its int8 counterpart."""
+    if quant == "int8":
+        return lambda c, x: int8.int8_conv2d(x, c.weight, c.stride[0], c.padding[0])
+    return lambda c, x: c(x)
+
+
 class Bottleneck(nn.Module):
     """ResNet bottleneck with CLIP's anti-aliased downsampling: every stride-2
     convolution is a stride-1 convolution followed by a 2x2 average pool.
@@ -248,22 +290,36 @@ class Bottleneck(nn.Module):
             self.downsample.add_module("0", nn.Conv2d(inplanes, out_ch, 1, bias=False))
             self.downsample.add_module("1", nn.BatchNorm2d(out_ch))
 
+        self.quant: tp.Optional[str] = None
+
+    def quant_params(self) -> tp.List[nn.Parameter]:
+        convs = [self.conv1, self.conv2, self.conv3]
+        if self.downsample is not None:
+            convs.append(self.downsample[1])   # (pool, conv, bn)
+        return [c.weight for c in convs]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(self.avgpool(y)))
-        identity = x if self.downsample is None else self.downsample(x)
+        conv = _conv_of(self.quant)
+        y = F.relu(self.bn1(conv(self.conv1, x)))
+        y = F.relu(self.bn2(conv(self.conv2, y)))
+        y = self.bn3(conv(self.conv3, self.avgpool(y)))
+        identity = x
+        if self.downsample is not None:
+            pool, down, bn = self.downsample
+            identity = bn(conv(down, pool(x)))
         return F.relu(y + identity)
 
 
 class AttentionPool2d(nn.Module):
     """Attention pooling head: the mean token queries the feature map. One
     query against H*W + 1 keys, so it runs the plain attention (as it runs
-    XLA's in the JAX package), not the short-attention kernel."""
+    XLA's in the JAX package), not the short-attention kernel. Under
+    ``quant="int8"`` the four projections are int8 products."""
 
     def __init__(self, tokens: int, embed_dim: int, num_heads: int, output_dim: int):
         super().__init__()
         self.num_heads = num_heads
+        self.quant: tp.Optional[str] = None
         self.positional_embedding = nn.Parameter(torch.empty(tokens + 1, embed_dim))
         self.q_proj = nn.Linear(embed_dim, embed_dim)
         self.k_proj = nn.Linear(embed_dim, embed_dim)
@@ -279,9 +335,19 @@ class AttentionPool2d(nn.Module):
         def split(z):
             return z.reshape(b, z.shape[1], self.num_heads, c // self.num_heads).transpose(1, 2)
 
-        o = mha_reference(split(self.q_proj(x[:, :1])), split(self.k_proj(x)),
-                          split(self.v_proj(x)))
-        return self.c_proj(o.transpose(1, 2).reshape(b, 1, c))[:, 0]
+        if self.quant == "int8":
+            def proj(lin, z):
+                return int8.int8_linear(z, lin.weight, lin.bias)
+        else:
+            def proj(lin, z):
+                return lin(z)
+        o = mha_reference(split(proj(self.q_proj, x[:, :1])), split(proj(self.k_proj, x)),
+                          split(proj(self.v_proj, x)))
+        return proj(self.c_proj, o.transpose(1, 2).reshape(b, 1, c))[:, 0]
+
+    def quant_params(self) -> tp.List[nn.Parameter]:
+        return [p for lin in (self.q_proj, self.k_proj, self.v_proj, self.c_proj)
+                for p in lin.parameters()]
 
 
 class ModifiedResNet(nn.Module):
@@ -308,12 +374,18 @@ class ModifiedResNet(nn.Module):
             setattr(self, f"layer{stage}", nn.Sequential(*stack))
         self.attnpool = AttentionPool2d((image_resolution // 32) ** 2, width * 32, num_heads,
                                         output_dim)
+        self.quant: tp.Optional[str] = None
+
+    def quant_params(self) -> tp.List[nn.Parameter]:
+        return [self.conv1.weight, self.conv2.weight, self.conv3.weight]
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = images.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        x = F.relu(self.bn3(self.conv3(x)))
+        # the compute dtype: the pool's embedding is cast to it whatever quant says
+        x = images.to(self.attnpool.positional_embedding.dtype).permute(0, 3, 1, 2)
+        conv = _conv_of(self.quant)
+        x = F.relu(self.bn1(conv(self.conv1, x)))
+        x = F.relu(self.bn2(conv(self.conv2, x)))
+        x = F.relu(self.bn3(conv(self.conv3, x)))
         x = self.avgpool(x)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         return self.attnpool(x)
@@ -403,12 +475,23 @@ class CLIP(TextTransformer):
                 normal_(p, width ** -0.5)
         return self
 
+    def set_quant(self, quant: tp.Optional[str]) -> "CLIP":
+        """``None`` or ``"int8"`` for every quantizable layer of both towers
+        (the module docstring); call before :meth:`to_compute`."""
+        quant = int8.check_quant(quant)
+        for m in self.modules():
+            if hasattr(m, "quant_params"):
+                m.quant = quant
+        return self
+
     def to_compute(self, dtype: torch.dtype) -> "CLIP":
         """Cast every parameter to ``dtype`` except the LayerNorm and
-        BatchNorm parameters and ``logit_scale``, which stay f32 (the JAX
-        package's policy)."""
+        BatchNorm parameters, ``logit_scale`` and the weights of int8 layers,
+        which stay f32 (the JAX package's policy)."""
         keep = _norm_param_ids(self)
         keep.add(id(self.logit_scale))
+        keep.update(id(p) for m in self.modules() if getattr(m, "quant", None)
+                    for p in m.quant_params())
         with torch.no_grad():
             for p in self.parameters():
                 if id(p) not in keep:
@@ -445,13 +528,15 @@ class CLIP(TextTransformer):
 
 def build_clip(name: str, generator: tp.Optional[torch.Generator] = None,
                dtype: torch.dtype = torch.float32,
-               device: tp.Union[None, str, torch.device] = None) -> tp.Tuple[CLIP, CLIPConfig]:
+               device: tp.Union[None, str, torch.device] = None,
+               quant: tp.Optional[str] = None) -> tp.Tuple[CLIP, CLIPConfig]:
     """Build the named model, frozen, with random weights from ``generator``
-    (seed 0 when None), cast to the compute ``dtype`` and moved to ``device``
-    (the card when None)."""
+    (seed 0 when None), its int8 layers set by ``quant`` (the same weights
+    either way), cast to the compute ``dtype`` and moved to ``device`` (the
+    card when None)."""
     device = resolve_device(device)
     cfg = CLIP_CONFIGS[name]
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = CLIP(cfg).init_weights(generator).requires_grad_(False)
+    model = CLIP(cfg).init_weights(generator).requires_grad_(False).set_quant(quant)
     return model.to_compute(dtype).to(device).eval(), cfg

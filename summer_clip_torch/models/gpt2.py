@@ -29,19 +29,33 @@ index advanced. On a gradient path (new keys or values that require grad, at a
 Python-int index) the buffers are rebuilt out of place instead, the
 counterpart of the JAX cache being functional: the returned cache then holds
 new buffers and the one passed in is left as it was. ``key_pad`` (B,) masks the first ``key_pad[b]`` slots of row b
-(left-padded batches). ``remat`` is training-only and not ported yet.
+(left-padded batches).
+
+**The heads** return f32 logits: the product of the compute-dtype operands
+accumulated and returned in f32 (:func:`logits_f32`, the JAX package's
+``preferred_element_type=jnp.float32``), never rounded to bf16 first.
+
+**Remat.** ``remat=True`` runs each block of the training path (no cache,
+grad enabled) under ``torch.utils.checkpoint`` (non-reentrant), the JAX
+package's ``nn.remat(GPT2Block)``: its activations are recomputed in the
+backward, so a kernel of the block launches once more there.
+``remat_policy="dots"`` keeps the dense products (``aten.mm`` / ``aten.addmm``
+outputs) and recomputes the rest, the batched attention products included:
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import os
 import typing as tp
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from summer_clip_torch.ops.attention import multi_head_attention
@@ -52,11 +66,13 @@ __all__ = [
     "GPT2Config", "GPT2", "GPT2_CONFIGS", "build_gpt2", "convert_hf_gpt2", "from_flax_variables",
     "ClipGPT", "clip_gpt_trainable_mask", "clip_gpt_full_trainable_mask",
     "Adapter", "QDense", "LayerNormF32", "GPT2Attention", "GPT2Block", "GPT2Core", "decode_inputs",
+    "logits_f32", "REMAT_POLICIES",
 ]
 
 Tree = tp.Dict[str, tp.Any]
 Cache = tp.List[tp.Dict[str, tp.Any]]
 MASKED = -1e30   # additive mask value, f32: masks add, and a bf16 mask would overflow to -inf
+REMAT_POLICIES = (None, "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,6 +277,40 @@ def cache_mask(index: tp.Union[int, torch.Tensor], s_new: int, t: int,
     return mask
 
 
+def logits_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``h @ table.T`` of the compute-dtype operands (``table`` is cast to
+    ``h``'s dtype), accumulated and returned in f32: the JAX package's
+    ``jnp.dot(..., preferred_element_type=jnp.float32)``. The product of two
+    bf16 values is exact in f32, so this is the f32 product of the widened
+    operands, on the CPU and on the card alike (``torch.mm`` with
+    ``out_dtype=torch.float32`` computes the same forward, but the card's torch
+    has no backward for it)."""
+    table = table.to(h.dtype)
+    if h.dtype == torch.float32:
+        return torch.matmul(h, table.t())
+    return torch.matmul(h.float(), table.float().t())
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the dense products, recompute everything else (the batched
+    attention products, and any buffer a kernel writes into)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(policy: tp.Optional[str]) -> dict:
+    if policy == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                _dots_policy)}
+    return {}
+
+
 class GPT2Attention(nn.Module):
     def __init__(self, d: int, num_heads: int, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
@@ -343,12 +393,18 @@ class GPT2Block(nn.Module):
 
 
 class GPT2Core(nn.Module):
-    """Positional embedding + blocks + final LN (no token embedding)."""
+    """Positional embedding + blocks + final LN (no token embedding).
+    ``remat`` / ``remat_policy``: see the module docstring."""
 
-    def __init__(self, config: GPT2Config, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, config: GPT2Config, dtype: torch.dtype = torch.float32, device=None,
+                 remat: bool = False, remat_policy: tp.Optional[str] = None):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy takes one of {REMAT_POLICIES}, got {remat_policy!r}")
         self.config = config
         self.dtype = dtype
+        self.remat = bool(remat)
+        self.remat_policy = remat_policy
         self.wpe = nn.Parameter(torch.empty(config.n_positions, config.n_embd, device=device),
                                 requires_grad=False)
         for i in range(config.n_layer):
@@ -373,8 +429,14 @@ class GPT2Core(nn.Module):
             # every layer's cache has the same index: one mask for all
             mask = cache_mask(cache[0]["index"], t, cache[0]["k"].shape[1], key_pad, x.device)
         new_caches: tp.Optional[Cache] = [] if cache is not None else None
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(cfg.n_layer):
-            x, nc = getattr(self, f"h_{i}")(x, cache[i] if cache is not None else None, mask)
+            block = getattr(self, f"h_{i}")
+            if remat:
+                x, nc = torch.utils.checkpoint.checkpoint(block, x, None, mask, use_reentrant=False,
+                                                          **_remat_kwargs(self.remat_policy))
+            else:
+                x, nc = block(x, cache[i] if cache is not None else None, mask)
             if new_caches is not None:
                 new_caches.append(nc)
         return self.ln_f(x), new_caches
@@ -395,13 +457,14 @@ def _init_cache(config: GPT2Config, dtype, device, batch: int, max_len: int) -> 
 class GPT2(_TreeModule):
     """GPT-2 LM with tied input/output embeddings."""
 
-    def __init__(self, config: GPT2Config, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, config: GPT2Config, dtype: torch.dtype = torch.float32, device=None,
+                 remat: bool = False, remat_policy: tp.Optional[str] = None):
         super().__init__()
-        self._ctor = dict(config=config, dtype=dtype)
+        self._ctor = dict(config=config, dtype=dtype, remat=remat, remat_policy=remat_policy)
         self.config = config
         self.dtype = dtype
         self.wte = _Embed(config.vocab_size, config.n_embd, device)
-        self.core = GPT2Core(config, dtype, device)
+        self.core = GPT2Core(config, dtype, device, remat, remat_policy)
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
         return _init_cache(self.config, self.dtype, self.core.ln_f.scale.device, batch, max_len)
@@ -410,7 +473,7 @@ class GPT2(_TreeModule):
         table = self.wte.embedding
         if is_qleaf(table):   # tied head off a quantised wte: scale per vocab row
             return qdot(h, QLeaf(table.q.t(), table.scale.t()), torch.float32)
-        return torch.matmul(h, table.t().to(h.dtype)).to(torch.float32)
+        return logits_f32(h, table)
 
     def forward(self, input_ids: tp.Optional[torch.Tensor] = None,
                 inputs_embeds: tp.Optional[torch.Tensor] = None,
@@ -459,10 +522,12 @@ class ClipGPT(_TreeModule):
 
     def __init__(self, config: GPT2Config, clip_vocab_size: int = 49408, clip_emb_dim: int = 512,
                  emb_hid_dim: int = 1024, head_hid_dim: tp.Optional[int] = 1024,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, remat: bool = False,
+                 remat_policy: tp.Optional[str] = None):
         super().__init__()
         self._ctor = dict(config=config, clip_vocab_size=clip_vocab_size, clip_emb_dim=clip_emb_dim,
-                          emb_hid_dim=emb_hid_dim, head_hid_dim=head_hid_dim, dtype=dtype)
+                          emb_hid_dim=emb_hid_dim, head_hid_dim=head_hid_dim, dtype=dtype,
+                          remat=remat, remat_policy=remat_policy)
         self.config = config
         self.dtype = dtype
         self.clip_emb = nn.Parameter(torch.empty(clip_vocab_size, clip_emb_dim, device=device),
@@ -470,7 +535,7 @@ class ClipGPT(_TreeModule):
         self.adapter_emb = Adapter(clip_emb_dim, emb_hid_dim, config.n_embd, dtype, device)
         if head_hid_dim is not None:
             self.adapter_head = Adapter(clip_emb_dim, head_hid_dim, config.n_embd, dtype, device)
-        self.core = GPT2Core(config, dtype, device)
+        self.core = GPT2Core(config, dtype, device, remat, remat_policy)
 
     def _head_adapter(self) -> Adapter:
         return getattr(self, "adapter_head", self.adapter_emb)
@@ -504,7 +569,7 @@ class ClipGPT(_TreeModule):
         h, new_cache = self.core(x, position_offset, cache, key_pad)
         logits = None
         if compute_logits:
-            logits = torch.matmul(h, self.lm_head_table().t().to(h.dtype)).to(torch.float32)
+            logits = logits_f32(h, self.lm_head_table())
         return {"logits": logits, "hidden": h, "cache": new_cache}
 
     def init_cache(self, batch: int, max_len: int) -> Cache:

@@ -130,3 +130,77 @@ def test_block_shapes_are_the_towers_the_paths_run(tower):
     assert tuple(shape) == want
     if tower == "coop_l14_text":
         assert b == len(SyntheticImageNetScale().classnames)
+
+
+def test_train_gpt_and_int8_paths_run_k4():
+    """The two paths of the ClipGPT trainer and the int8 towers: K4 alone (the
+    int8 blocks take the module route, never K5, K6 or K9)."""
+    assert chip_smoke.TRAIN_GPT_PATH == chip_smoke.INT8_PATH == ("K4 short_attention_packed",)
+    assert chip_smoke.MAIN_PATHS["train_gpt"] is chip_smoke.TRAIN_GPT_PATH
+    assert chip_smoke.MAIN_PATHS["int8_towers"] is chip_smoke.INT8_PATH
+
+
+def test_train_gpt_launch_arithmetic():
+    """36 blocks: each micro-step's forward launches K4 once a block and remat's
+    recompute once more; each eval batch (no grad) once. The phase's corpora
+    give 5 micro-steps and 1 eval batch of 32 under the app's window rule."""
+    from summer_clip_torch.apps.train_gpt import eval_starts
+
+    assert chip_smoke.train_gpt_k4_launches(5, 1) == 36 * 11
+    assert chip_smoke.train_gpt_k4_launches(5, 1, remat=False) == 36 * 6
+    assert int(chip_smoke.TRAIN_GPT_SUBPART * 244) // chip_smoke.TRAIN_GPT_BATCH == \
+        chip_smoke.TRAIN_GPT_MICRO
+    assert chip_smoke.TRAIN_GPT_MICRO % 2 == 1 and chip_smoke.TRAIN_GPT_MICRO // \
+        chip_smoke.TRAIN_GPT_ACCUM == 2
+    assert list(eval_starts(55, 32)) == [0]
+    assert list(eval_starts(32, 32)) == [0] and list(eval_starts(100, 32)) == [0, 32, 64]
+    assert list(eval_starts(30, 32)) == []
+
+
+def test_train_gpt_corpora_have_the_phase_sizes(tmp_path):
+    """tokenize_dataset at max_length 80: 244 training chunks from 64 synthetic
+    documents, 55 validation chunks from 12."""
+    from summer_clip_torch.apps.tokenize_dataset import iter_corpus_texts, tokenize_texts
+    from summer_clip_torch.core.config import ConfigNode
+    from summer_clip_torch.models.tokenizer import get_tokenizer
+
+    tok = get_tokenizer()
+    for docs, rows in ((chip_smoke.TRAIN_GPT_DOCS, 244), (chip_smoke.TRAIN_GPT_VAL_DOCS, 55)):
+        got = tokenize_texts(iter_corpus_texts(ConfigNode({"kind": "synthetic", "n_docs": docs})),
+                             tok, chip_smoke.TRAIN_GPT_T)
+        assert got.shape == (rows, 80)
+
+
+def test_kernels_line_lists_every_path():
+    """Every kernel entry carries launches for all nine paths, train_gpt and
+    int8_towers among them, and ``launches`` is their sum."""
+    paths = list(chip_smoke.MAIN_PATHS)
+    assert paths[-2:] == ["train_gpt", "int8_towers"]
+    launches = {p: {n: 0 for n in chip_smoke.KERNELS} for p in paths}
+    launches["train_gpt"]["K4 short_attention_packed"] = 396
+    launches["int8_towers"]["K4 short_attention_packed"] = 24
+    launches["clip_search"]["K4 short_attention_packed"] = 2280
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    results = {n: {"max_abs_err": 0.0, **{k: 1.0 for k in keys},
+                   "shapes": {s: {k: 1.0 for k in keys} for s in (shape,)} if shape else {}}
+               for n, (_, _, shape) in chip_smoke.KERNELS.items()}
+    on, off = chip_smoke.kernels_lines(results, launches)
+    assert [e["name"] for e in off] == ["K12 short_attention"]
+    k4 = next(e for e in on if e["name"] == "K4 short_attention_packed")
+    assert set(k4["launches_by_path"]) == set(paths)
+    assert k4["launches_by_path"]["train_gpt"] == 396
+    assert k4["launches_by_path"]["int8_towers"] == 24
+    assert k4["launches"] == 396 + 24 + 2280
+    assert all({"name", "route", "source", "replaces", "launches", "max_abs_err", *keys}
+               <= set(e) for e in on + off)
+
+
+def test_train_gpt_bound_counts_a_micro_step():
+    """About 15 TFLOP of bf16 products a micro-step at gpt2-large (forward,
+    every leaf's gradients, remat's forward again) and the head's three f32
+    products, so the bound is set by operations."""
+    from summer_clip_torch.models.gpt2 import GPT2_CONFIGS
+
+    b = chip_smoke.train_gpt_bound(GPT2_CONFIGS["gpt2-large"], 49408)
+    assert b["bound_by"] == "operations"
+    assert 20 < b["bound_ms"] < 40
