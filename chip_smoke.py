@@ -23,6 +23,9 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
 ``gemv_kernels.cu`` with the two-launch K10 on its own K10 entry
 (``TWO_LAUNCH_K10_SIGNATURES``).
 
+0. Run without ``PYTHONHASHSEED`` in its environment, it runs itself again
+   with ``PYTHONHASHSEED=0``: the synthetic datasets draw each image from
+   ``hash(path)``, so every call draws the same images.
 1. Refuses to run without CUDA. Prints the card (``nvidia-smi`` name and power
    limit) and the torch, CUDA, nvcc and Triton versions.
 2. Builds every kernel from ``summer_clip_torch/csrc`` with nvcc, one process
@@ -238,6 +241,26 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
    - The analysis apps over the CLIP-search path's ViT-L/14 store:
      ``maha_distance``, ``train_em`` (diagonal covariances) and
      ``class_projector``; records in range, every logits matrix finite.
+   - The sandbox (``sandbox``) at gpt2-large, full width and depth, on
+     random weights (seed 0): (l) the tree written as the JAX package's
+     ``save_pytree`` writes it (flax msgpack, ``engine.checkpoint.save_pytree
+     (format="msgpack")``) and read back through ``load_pytree`` bit for bit,
+     with its size and read rate, then one 1.1 GiB leaf that the writer cuts
+     into flax's chunks of 2^30 bytes, read back bit for bit; on that file
+     (m) the generate CLI (``sandbox.anomalous_tokens.main``, 20 greedy
+     tokens), (n) ``backwards_main`` (batch 8, input_len 10, k-means init over
+     the 50257-row table, 4 epochs) and (o) ``create_trigger.main`` (a
+     ``[T] [T] [T] {sentence} [P]`` template, 2 labels, 64 train and 32 dev
+     rows written from a seed, 2 iterations, ``--filter``). Checks K4's
+     count exactly (36 a wide forward, none in a backward); then, outside
+     the counted run: the generate CLI's text against ``generate_device`` on
+     the same tree, one ``optimise_input`` step's input-embedding gradient on
+     the kernel route against the route that launches no kernel (the f32
+     route: the CLI's GPT-2 is f32) within the CoOp gate's limits, a planted
+     fault's readings (K4 with the last two keys dropped), and the trigger
+     search on the plain route: the same slots and acceptances, each
+     iteration's metric within one dev row, the same best trigger or dev
+     accuracies within one row.
 5. Prints a JSON line of the kernels of the main paths (K12 runs on none,
    so it has a line of its own), then as its last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -248,6 +271,7 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -4429,6 +4453,285 @@ def check_int8_towers(out: dict, launches: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# sandbox: the JAX package's checkpoints read at scale, then the sandbox CLIs
+# --------------------------------------------------------------------------- #
+SANDBOX_PATH = ("K4 short_attention_packed",)
+SANDBOX_MODEL = "gpt2-large"
+SANDBOX_PROMPT = "the anomalous token"
+SANDBOX_NEW_TOKENS = 20
+SANDBOX_EPOCHS, SANDBOX_CHECK = 4, 2          # backwards_main's --epochs and --w_freq
+SANDBOX_BATCH, SANDBOX_INPUT_LEN = 8, 10      # its --batch_size and --input_len
+SANDBOX_TARGET = 262                          # --target: one token, so out_len = 1
+CHUNKED_LEAF_BYTES = int(1.1 * 2 ** 30)       # above flax's MAX_CHUNK_SIZE of 2^30 bytes
+TRIGGER_TEMPLATE = "[T] [T] [T] {sentence} [P]"
+TRIGGER_LABELS = {"0": "bad", "1": "good"}
+TRIGGER_ROWS = {"train": 64, "dev": 32}
+TRIGGER_ITERS = 2
+TRIGGER_WORDS = ("the", "a", "movie", "film", "was", "is", "very", "not", "quite", "plot",
+                 "acting", "story", "great", "awful", "dull", "fun", "long", "short", "and")
+
+
+def sandbox_k4_launches(forwards: int, n_layer: int = 36) -> int:
+    """K4's launches in ``forwards`` wide GPT-2 forwards: one a block. A
+    gradient's backward launches none (the ``_ad`` wrapper recomputes the
+    plain version)."""
+    return n_layer * forwards
+
+
+def backwards_forwards(epochs: int, checks: int, out_len: int = 1) -> int:
+    """GPT-2 forwards of ``optimise_input``: each epoch's rollout (``out_len``
+    steps without gradient, then the differentiable forward) and each
+    check's greedy decode of the nearest tokens (the same rollout)."""
+    return (epochs + checks) * (out_len + 1)
+
+
+def trigger_forwards(history: tp.Sequence[dict], accumulation_steps: int = 4) -> int:
+    """GPT-2 forwards of ``TriggerSearch.search``: the first dev evaluation
+    (one batch of 32), then per iteration ``accumulation_steps`` gradient
+    batches, as many batches scoring every candidate in one forward, and a
+    dev evaluation when a candidate was accepted."""
+    return 1 + sum(2 * accumulation_steps + int(h["accepted"]) for h in history[1:])
+
+
+def _tree_items(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_items(v, prefix + (k,))
+        else:
+            yield ".".join(prefix + (k,)), v
+
+
+def write_trigger_data(work: Path) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    paths = {}
+    for split, n in TRIGGER_ROWS.items():
+        rows = ["sentence\tlabel"]
+        for _ in range(n):
+            words = rng.choice(TRIGGER_WORDS, size=int(rng.integers(4, 9)))
+            rows.append(f"{' '.join(words)}\t{int(rng.integers(0, 2))}")
+        paths[split] = work / f"{split}.tsv"
+        paths[split].write_text("\n".join(rows) + "\n")
+    return paths
+
+
+def trigger_argv(work: Path, tree: Path, data: dict, name: str) -> list:
+    return ["--train", str(data["train"]), "--dev", str(data["dev"]),
+            "--template", TRIGGER_TEMPLATE, "--label-map", json.dumps(TRIGGER_LABELS),
+            "--model", SANDBOX_MODEL, "--checkpoint", str(tree),
+            "--iters", str(TRIGGER_ITERS), "--filter", "--out", str(work / f"{name}.json")]
+
+
+def run_sandbox(work: Path, launches_of) -> dict:
+    """The tenth main path, ``sandbox`` (module docstring, step 4): (l) a
+    random gpt2-large tree written as the JAX package writes it and read back,
+    one leaf above flax's chunk size too; then the sandbox's CLIs on that
+    file: (m) the generate CLI, (n) ``backwards_main``, (o) ``create_trigger``."""
+    import torch
+
+    from summer_clip_torch.engine import checkpoint as ckpt
+    from summer_clip_torch.models import gpt2 as G
+    from summer_clip_torch.sandbox import anomalous_tokens, create_trigger
+
+    work.mkdir(parents=True, exist_ok=True)
+    times, launches = {}, {}
+
+    def phase(name, fn):
+        before = launches_of()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        launches[name] = {k: v - before[k] for k, v in launches_of().items() if v != before[k]}
+        return result
+
+    # (l) the reader at scale
+    t0 = time.perf_counter()
+    tree = G.GPT2(G.GPT2_CONFIGS[SANDBOX_MODEL]).init_weights(
+        torch.Generator().manual_seed(0)).tree()
+    times["draw"] = time.perf_counter() - t0
+    path = work / f"{SANDBOX_MODEL}.msgpack"
+    t0 = time.perf_counter()
+    ckpt.save_pytree(path, tree, format="msgpack")
+    times["write"] = time.perf_counter() - t0
+    back = phase("read", lambda: ckpt.load_pytree(path))
+    want, got = dict(_tree_items(tree)), dict(_tree_items(back))
+    if set(got) != set(want) or not all(torch.equal(got[k], v) for k, v in want.items()):
+        raise AssertionError("sandbox (l): the msgpack tree does not read back bit for bit")
+    size = path.stat().st_size
+    log(f"sandbox (l): {SANDBOX_MODEL} tree, {len(want)} leaves, {size / 1e9:.3f} GB msgpack: "
+        f"written {times['write']:.2f} s, read {times['read']:.2f} s "
+        f"({size / times['read'] / 1e9:.2f} GB/s, warm page cache), bit for bit; card "
+        f"{card_line()}")
+    del tree, back, want, got
+    big_path = work / "chunked.msgpack"
+    big = torch.rand(CHUNKED_LEAF_BYTES // 4, generator=torch.Generator().manual_seed(1))
+    ckpt.save_pytree(big_path, {"big": big}, format="msgpack")
+    with open(big_path, "rb") as f:
+        chunked = b"__msgpack_chunked_array__" in f.read(64)
+    read = phase("read_chunked", lambda: ckpt.load_pytree(big_path)["big"])
+    if not (chunked and torch.equal(read, big)):
+        raise AssertionError(f"sandbox (l): the chunked leaf (chunked: {chunked}) does not read "
+                             f"back bit for bit")
+    log(f"sandbox (l): one f32 leaf of {big.numel() * 4 / 2 ** 30:.3f} GiB in flax's chunks of "
+        f"2^30 bytes, read {times['read_chunked']:.2f} s, bit for bit")
+    del big, read
+    big_path.unlink()
+
+    # (m) the generate CLI, (n) backwards_main, (o) create_trigger
+    text = phase("generate", lambda: anomalous_tokens.main([
+        "-m", SANDBOX_MODEL, "-i", SANDBOX_PROMPT, "-o", str(SANDBOX_NEW_TOKENS),
+        "--checkpoint", str(path)]))
+    backwards = phase("backwards", lambda: anomalous_tokens.backwards_main([
+        "--model_name", SANDBOX_MODEL, "--checkpoint", str(path),
+        "--epochs", str(SANDBOX_EPOCHS), "--w_freq", str(SANDBOX_CHECK),
+        "--batch_size", str(SANDBOX_BATCH), "--input_len", str(SANDBOX_INPUT_LEN),
+        "--target", str(SANDBOX_TARGET), "--log", str(work / "backwards.jsonl")]))
+    data = write_trigger_data(work)
+    trigger = phase("trigger", lambda: create_trigger.main(
+        trigger_argv(work, path, data, "trigger_kernel")))
+    log(f"sandbox launches by phase: {json.dumps(launches)}; s by phase: "
+        + json.dumps({k: round(v, 3) for k, v in times.items()}))
+    return {"times_s": times, "launches": launches, "tree": path, "text": text,
+            "backwards": backwards, "trigger": trigger, "data": data, "work": work}
+
+
+def check_sandbox(out: dict) -> None:
+    """The sandbox path's checks outside the counted run: the launches of
+    each phase; the generate CLI's text against ``generate_device`` on the
+    same tree; one ``optimise_input`` step's input-embedding gradient, kernel
+    route against the route that launches no kernel (the f32 route: the CLI's
+    GPT-2 is f32, as the JAX one), with a planted fault's readings against the
+    same limits; the trigger search on the route that launches no kernel."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.apps.gen_gpt import generate_device
+    from summer_clip_torch.core.device import resolve_device
+    from summer_clip_torch.models.tokenizer import get_tokenizer
+    from summer_clip_torch.ops import attention as at
+    from summer_clip_torch.sandbox import anomalous_tokens as AT
+    from summer_clip_torch.sandbox import create_trigger as CT
+
+    launches, k4 = out["launches"], "K4 short_attention_packed"
+    device = resolve_device(None)
+    model, cfg = CT.load_gpt2(SANDBOX_MODEL, str(out["tree"]), 0, device)
+    n_layer = cfg.n_layer
+    if launches["generate"]:
+        log(f"sandbox (m): the generate CLI launched {launches['generate']}")
+    # (m) the CLI's greedy ids are generate_device's on the same weights
+    tok = get_tokenizer()
+    ix = [i % cfg.vocab_size for i in tok.encode(SANDBOX_PROMPT)]
+    ids = generate_device(model, ix, max_new_tokens=SANDBOX_NEW_TOKENS, top_k=1)
+    if tok.decode(ids) != out["text"] or len(ids) != len(ix) + SANDBOX_NEW_TOKENS:
+        raise AssertionError("sandbox (m): the generate CLI's tokens differ from generate_device")
+    log(f"sandbox (m): {len(ix)} prompt tokens + {SANDBOX_NEW_TOKENS} greedy tokens equal "
+        f"generate_device's; launches {launches['generate'] or 'none'} (the f32 tree's products "
+        f"are plain matmuls and the cached attention takes the plain route)")
+
+    # (n) K4's count, then the gradient gate on one step
+    want = sandbox_k4_launches(backwards_forwards(SANDBOX_EPOCHS,
+                                                  SANDBOX_EPOCHS // SANDBOX_CHECK), n_layer)
+    run, = out["backwards"]["runs"]
+    log(f"sandbox (n): backwards_main {SANDBOX_EPOCHS} epochs, {run['num_found']} found, K4 "
+        f"{launches['backwards'].get(k4, 0)} launches (expected {want})")
+    if launches["backwards"].get(k4, 0) != want or run["epochs_run"] != SANDBOX_EPOCHS:
+        raise AssertionError(f"sandbox (n): K4 launched {launches['backwards']}, expected {want}")
+    emb = AT._l2n(model.wte.embedding.float())
+    _, cents = AT.kmeans(emb, SANDBOX_BATCH * SANDBOX_INPUT_LEN, seed=0)
+    x0 = cents.reshape(SANDBOX_BATCH, SANDBOX_INPUT_LEN, -1)
+    target = torch.tensor([SANDBOX_TARGET], device=device)
+    counter = launch_counters()[k4]
+    gpt_apply = AT._gpt_apply(model)
+
+    def step():
+        x = x0.clone().requires_grad_(True)
+        before = counter.launches
+        total, *_ = AT.input_loss(gpt_apply, x, emb, target, out_len=1)
+        fwd = counter.launches - before
+        total.backward()
+        return float(total.detach()), x.grad.flatten(), fwd, counter.launches - before - fwd
+
+    def readings(a, b):
+        return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]),
+                "grad_rel": float((a[1] - b[1]).norm() / b[1].norm()),
+                "grad_cos": float(torch.nn.functional.cosine_similarity(a[1], b[1], dim=0))}
+
+    kern, plain = step(), plain_route(step)
+    if (kern[2], kern[3], plain[2] + plain[3]) != (sandbox_k4_launches(2, n_layer), 0, 0):
+        raise AssertionError(f"sandbox (n) gate: K4 launched {kern[2]} + {kern[3]} (forward + "
+                             f"backward) on the kernel route, {plain[2] + plain[3]} on the plain")
+    gate = readings(kern, plain)
+    real = at.short_attention_packed
+
+    def keys_dropped(q, k, v, *, num_heads, causal=False):
+        """K4 with the last two keys of the sequence dropped."""
+        b, t, d = q.shape
+        keep = t - 2
+
+        def heads(x, n):
+            return x[:, :n].reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
+
+        o = at.mha_reference(heads(q, t), heads(k, keep), heads(v, keep),
+                             mask=at._causal_bias(t, keep, 0, device=q.device))
+        return o.transpose(1, 2).reshape(b, t, d)
+
+    at.short_attention_packed = keys_dropped
+    try:
+        fault = readings(step(), plain)
+    finally:
+        at.short_attention_packed = real
+    fmt = lambda r: ", ".join(f"{k} {v:.4e}" for k, v in r.items())   # noqa: E731
+    log(f"sandbox (n) gate: one optimise_input step ({SANDBOX_BATCH} x {SANDBOX_INPUT_LEN} "
+        f"inputs, out_len 1, f32), K4 {kern[2]} launches forward (2 forwards x {n_layer}), "
+        f"{kern[3]} backward; loss kernel {kern[0]:.7f} plain (f32) {plain[0]:.7f}; kernel vs "
+        f"plain: {fmt(gate)}; limits loss_rel <= {TOL_GATE_LOSS}, grad_rel <= "
+        f"{TOL_GATE_GRAD_REL}, grad_cos >= {TOL_GATE_GRAD_COS}; planted fault (K4 with the "
+        f"last two keys dropped): {fmt(fault)}")
+    if not (np.isfinite(kern[0]) and float(kern[1].norm()) > 0):
+        raise AssertionError("sandbox (n) gate: the kernel route's gradient is zero or not finite")
+    if (gate["loss_rel"] > TOL_GATE_LOSS or gate["grad_rel"] > TOL_GATE_GRAD_REL
+            or gate["grad_cos"] < TOL_GATE_GRAD_COS):
+        raise AssertionError("sandbox (n) gate: the kernel route disagrees with the plain route")
+    if not (fault["loss_rel"] > TOL_GATE_LOSS or fault["grad_rel"] > TOL_GATE_GRAD_REL
+            or fault["grad_cos"] < TOL_GATE_GRAD_COS):
+        raise AssertionError("sandbox (n) gate: the limits do not catch the planted fault")
+    del model
+    torch.cuda.empty_cache()
+
+    # (o) K4's count, then the same search on the route that launches no kernel
+    kern_res = out["trigger"]
+    want = sandbox_k4_launches(trigger_forwards(kern_res["history"]), n_layer)
+    if launches["trigger"].get(k4, 0) != want:
+        raise AssertionError(f"sandbox (o): K4 launched {launches['trigger']}, expected {want}")
+    t0 = time.perf_counter()
+    plain_res = plain_route(lambda: CT.main(trigger_argv(out["work"], out["tree"], out["data"],
+                                                         "trigger_plain")))
+    k_best, p_best = kern_res["best"], plain_res["best"]
+    dev_tol = 1.0 / TRIGGER_ROWS["dev"]
+    slots = [h["slot"] for h in kern_res["history"][1:]]
+    log(f"sandbox (o): create_trigger {TRIGGER_ITERS} iterations, slots {slots}, K4 "
+        f"{launches['trigger'].get(k4, 0)} launches (expected {want}); best trigger kernel "
+        f"{k_best['trigger_ids']} dev {k_best['dev_metric']:.4f}, plain {p_best['trigger_ids']} "
+        f"dev {p_best['dev_metric']:.4f} (the same trigger, or dev accuracies within "
+        f"{dev_tol:.4f}: one of {TRIGGER_ROWS['dev']} rows); plain rerun "
+        f"{time.perf_counter() - t0:.2f} s")
+    steps = [(h["slot"], h["accepted"]) for h in kern_res["history"][1:]]
+    metric = lambda h: h["train_metric"] if "train_metric" in h else h["dev_metric"]  # noqa: E731
+    metrics = [(metric(a), metric(b)) for a, b in zip(kern_res["history"], plain_res["history"])]
+    log("sandbox (o): metric by iteration, kernel / plain route: "
+        + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in metrics))
+    if steps != [(h["slot"], h["accepted"]) for h in plain_res["history"][1:]]:
+        raise AssertionError("sandbox (o): the two routes drew other slots or accepted others")
+    if any(abs(a - b) > dev_tol for a, b in metrics):
+        raise AssertionError("sandbox (o): the routes' metrics part by more than one row")
+    if (k_best["trigger_ids"] != p_best["trigger_ids"]
+            and abs(k_best["dev_metric"] - p_best["dev_metric"]) > dev_tol):
+        raise AssertionError("sandbox (o): the kernel route's search disagrees with plain")
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces, shape whose times stand in the kernels line)
     "K1 cache_dense": ("summer_clip_torch/csrc/cache_kernels.cu",
@@ -4471,7 +4774,7 @@ ONEHOT_SWEEP_PATH = ("K1 cache_dense", "K13 onehot_variant")
 MAIN_PATHS = {"tip_adapter": TIP_PATH, "clip_search": SEARCH_PATH, "gen_gpt": GEN_PATH,
               "train_coop": TRAIN_PATH, "tip_adapter_imagenet": TIP_IMAGENET_PATH,
               "onehot_sweep": ONEHOT_SWEEP_PATH, "prompt_search": PROMPT_SEARCH_PATH,
-              "train_gpt": TRAIN_GPT_PATH, "int8_towers": INT8_PATH}
+              "train_gpt": TRAIN_GPT_PATH, "int8_towers": INT8_PATH, "sandbox": SANDBOX_PATH}
 
 
 def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
@@ -4668,11 +4971,19 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         run_analysis(search["store"], Path(tmp) / "analysis")
         log(f"phase analysis: {time.perf_counter() - t0:.2f} s")
 
+        sandbox, sandbox_launches = counted(
+            "sandbox gpt2-large", SANDBOX_PATH,
+            lambda: run_sandbox(Path(tmp) / "sandbox",
+                                lambda: {k: f.launches for k, f in counters.items()}))
+        t0 = time.perf_counter()
+        check_sandbox(sandbox)
+        log(f"phase check sandbox: {time.perf_counter() - t0:.2f} s")
+
     kernels, off_path = kernels_lines(results, {
         "tip_adapter": tip_launches, "clip_search": search_launches, "gen_gpt": gen_launches,
         "train_coop": train_launches, "tip_adapter_imagenet": tipi_launches,
         "onehot_sweep": sweep_launches, "prompt_search": prompts_launches,
-        "train_gpt": lm_launches, "int8_towers": int8_launches})
+        "train_gpt": lm_launches, "int8_towers": int8_launches, "sandbox": sandbox_launches})
     log(f"card: {card}")
     # ported kernels that no main path runs: checked and timed above, listed apart
     print(json.dumps({"kernels_off_the_main_paths": off_path}))
@@ -4684,4 +4995,9 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
 
 
 if __name__ == "__main__":
+    if "PYTHONHASHSEED" not in os.environ:
+        # the synthetic datasets draw each image from hash(path): one hash seed
+        # for every call, so that every call draws the same images
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     sys.exit(main())

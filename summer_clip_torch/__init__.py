@@ -2,7 +2,7 @@
 
 The JAX package ``summer_clip_tpu`` is the reference; this package mirrors its
 layout (``models/clip``, ``ops``, ``methods``, ``apps``, ``engine``, ``data``,
-``core``, ``store``, ``conf``) and keeps its own copy of every
+``core``, ``store``, ``sandbox``, ``utils``, ``conf``) and keeps its own copy of every
 framework-neutral module it uses (config composition, logging, the feature
 store, datasets, tokenizer, the yaml configs), under the same relative name.
 It imports ``torch``, never ``jax``, and nothing of ``summer_clip_tpu``.

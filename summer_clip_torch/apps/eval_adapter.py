@@ -2,10 +2,10 @@
 
 Counterpart of ``summer_clip_tpu/apps/eval_adapter.py``: the training
 configuration comes from the checkpoint's ``meta.yaml`` (written by the port's
-``train_adapter``), the adapter fabric is rebuilt and its parameters loaded,
-and acc@1/5 of adapter-encoded features against the prompt-ensemble
-classifier go into an ``eval_adapter`` record. A checkpoint the JAX package
-wrote (msgpack) is not readable here.
+``train_adapter``, or the JAX package's, whose msgpack parameter tree
+``methods.adapters.state_dict_from_tree`` carries across), the adapter fabric
+is rebuilt and its parameters loaded, and acc@1/5 of adapter-encoded features
+against the prompt-ensemble classifier go into an ``eval_adapter`` record.
 
 Run: ``python -m summer_clip_torch.apps.eval_adapter eval.checkpoint_dir=<dir>
 eval.features_key=<key>``.
@@ -24,6 +24,7 @@ from summer_clip_torch.apps.features_io import resolve_features
 from summer_clip_torch.core import config as C
 from summer_clip_torch.engine import checkpoint as ckpt
 from summer_clip_torch.engine.trainer import make_logger, resolve_device, set_random_state
+from summer_clip_torch.methods.adapters import state_dict_from_tree
 from summer_clip_torch.methods.zeroshot import compute_accuracy, zeroshot_classifier
 from summer_clip_torch.store import FeatureStore
 
@@ -50,7 +51,7 @@ def eval_adapter(cfg, logger) -> dict:
 
     fabric = C.instantiate(adapter_cfg)
     adapter = fabric.create_adapter(int(meta.get("emb_dim", features.shape[1])))
-    adapter.load_state_dict(loaded["params"])
+    adapter.load_state_dict(state_dict_from_tree(loaded["params"]))
     adapter.to(device).eval()
     with torch.no_grad():
         feats = F.normalize(adapter.encode(features), dim=-1)

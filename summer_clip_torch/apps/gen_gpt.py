@@ -36,11 +36,13 @@ continuous-batching engine (``engine/serving``), ``generation.speculative=true``
 through draft-model speculation (``engine/speculative``; both trees stay in
 full precision and ``quant_int8`` is ignored there, as in the JAX app).
 ``generation.tp > 1`` raises
-``NotImplementedError`` (ROADMAP Queue 1 item 11). ``approx_top_k`` is accepted
+``NotImplementedError`` (ROADMAP Queue 1 item 8). ``approx_top_k`` is accepted
 and runs the exact top-k.
 
 Run: ``python -m summer_clip_torch.apps.gen_gpt model.checkpoint_dir=<dir>
-generation.quant_int8=true`` (``meta.device=cpu`` for the CPU).
+generation.quant_int8=true`` (``meta.device=cpu`` for the CPU; a JAX step
+checkpoint also needs ``+model.base=<the whole tree>``, see
+:func:`load_pretrained_clip_gpt`).
 """
 
 from __future__ import annotations
@@ -98,24 +100,28 @@ def save_clip_gpt_checkpoint(ckpt_dir: tp.Union[str, Path], model: gpt2_mod.Clip
 
 
 def load_pretrained_clip_gpt(checkpoint_dir: tp.Union[str, Path], tokenizer, seed: int = 0,
-                             device: tp.Union[None, str, torch.device] = None
-                             ) -> gpt2_mod.ClipGPT:
+                             device: tp.Union[None, str, torch.device] = None,
+                             base: tp.Optional[tp.Union[str, Path]] = None) -> gpt2_mod.ClipGPT:
     """Rebuild a ClipGPT from a step checkpoint's ``model_cfg`` and parameters,
     on ``device`` (the card when there is one, unless the caller names
     another).
 
-    Checkpoints hold only the trainable subset; the frozen leaves (the
-    embedding table, and the whole core for adapters-only runs) are
-    initialised again from the seed that the checkpoint's meta records, so
-    they come out as they were, whatever this run's seed or device. ``seed``
-    serves only a checkpoint without that record."""
+    Checkpoints hold only the trainable subset. The port's record the seed
+    that drew the frozen leaves (the embedding table, and the whole core for
+    adapters-only runs), which draws them again as they were, whatever this
+    run's seed or device; ``seed`` serves only a checkpoint without that
+    record. A JAX checkpoint records a JAX PRNG key instead, which this package
+    cannot draw: its frozen leaves come from ``base``, a file of the whole
+    ClipGPT tree (msgpack or torch, such as the JAX package's ``save_pytree``
+    writes), and without one it raises (``engine.checkpoint.trainable_over_base``).
+    With ``base`` every leaf comes from it or from the checkpoint."""
     device = resolve_device(device)
     loaded = ckpt.load_checkpoint(checkpoint_dir)
     meta = loaded.get("meta") or {}
     model = build_clip_gpt(meta.get("model_cfg") or {}, tokenizer.vocab_size,
                            meta.get("init_seed", seed), device)
-    if "params" in loaded:
-        model.load_tree(loaded["params"], device=device)
+    names = [n for n, _ in model.named_parameters()]
+    model.load_tree(ckpt.trainable_over_base(loaded, base, names, checkpoint_dir), device=device)
     return model.eval()
 
 
@@ -390,7 +396,8 @@ class GptGenerator(BaseTrainer):
     def setup_model(self):
         seed = int(self.cfg.get("meta", {}).get("random_state", 42))
         self.model = load_pretrained_clip_gpt(self.cfg.model.checkpoint_dir, self.tokenizer,
-                                              seed=seed, device=self.device)
+                                              seed=seed, device=self.device,
+                                              base=self.cfg.model.get("base"))
 
     @torch.inference_mode()
     def perplexity(self) -> tp.Optional[float]:
@@ -413,7 +420,7 @@ class GptGenerator(BaseTrainer):
         if int(gcfg.get("tp", 1)) > 1:
             raise NotImplementedError("generation.tp > 1 needs the tensor-parallel decode "
                                       "(parallel/tp), which is not ported yet: ROADMAP Queue 1 "
-                                      "item 11")
+                                      "item 8")
 
     def _megakernel(self, gcfg, quant: bool, fits: bool) -> bool:
         """``generation.megakernel``: true, false, or ``auto``, which rides the

@@ -18,7 +18,8 @@ cosine schedule, optional global-norm clipping and gradient accumulation
 
 Run: ``python -m summer_clip_torch.apps.train_coop data.features_key=<key>``
 (``meta.device=cpu`` forces the CPU; ``+gpt.checkpoint_dir=<dir>`` loads the
-fluency LM from a ClipGPT checkpoint of the port; ``prompt_model=gumbel_v3a1``
+fluency LM from a ClipGPT checkpoint, of the port or, with
+``+gpt.base=<the whole tree>``, of the JAX package; ``prompt_model=gumbel_v3a1``
 with a ``gpt`` config trains an autoregressive proposer on that LM, an adapter
 head or LoRA factors, ``prompt_model.head.kind=lora``).
 """
@@ -71,7 +72,8 @@ class CoOpTrainer(BaseTrainer):
             return None
         ckpt_dir = gcfg.get("checkpoint_dir")
         if ckpt_dir and Path(ckpt_dir).exists():
-            model = load_pretrained_clip_gpt(ckpt_dir, self.tokenizer, device=self.device)
+            model = load_pretrained_clip_gpt(ckpt_dir, self.tokenizer, device=self.device,
+                                             base=gcfg.get("base"))
             self.logger.log_info(f"Loaded ClipGPT from {ckpt_dir}")
         else:
             model = build_clip_gpt(

@@ -147,18 +147,22 @@ class ClipGPTTrainer(BaseTrainer):
 
     def setup_pretrained(self):
         """``pretrained.model``: a step checkpoint's leaves copied into the
-        model in place (the optimizer keeps its parameters);
-        ``pretrained.optimizer``: its optimizer state restored too."""
+        model in place (the optimizer keeps its parameters), over those of
+        ``pretrained.base`` (the whole tree, which a JAX step checkpoint
+        needs: ``engine.checkpoint.trainable_over_base``);
+        ``pretrained.optimizer``: its optimizer state restored too, a JAX
+        run's optax state converted (``engine.checkpoint.optax_state_dict``)."""
         pcfg = self.cfg.get("pretrained") or {}
         model_path = pcfg.get("model") if hasattr(pcfg, "get") else None
         if not (model_path and Path(model_path).exists()):
             return
-        loaded = ckpt.load_checkpoint(
-            Path(model_path), opt_target=self.tx if bool(pcfg.get("optimizer")) else None)
         named = dict(self.model.named_parameters())
+        loaded = ckpt.load_checkpoint(
+            Path(model_path), opt_target=self.tx if bool(pcfg.get("optimizer")) else None,
+            named_params=named)
+        tree = ckpt.trainable_over_base(loaded, pcfg.get("base"), list(named), model_path)
         with torch.no_grad():
-            map_tree(lambda path, value: named[".".join(path)].copy_(value),
-                     loaded.get("params") or {})
+            map_tree(lambda path, value: named[".".join(path)].copy_(value), tree)
         self.logger.log_info(f"Resumed from {model_path}")
 
     def loss(self, ids: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,7 @@ depend on what shares the batch or how prefill is chunked, and equals
 ``gen_gpt.generate_device`` on the same model wherever a row's arithmetic does
 not depend on its companions (the kernels' rows do not; see PERF.md for the
 wide prefill on the card). The tensor-parallel arms are not ported: ``mesh``
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+raises ``NotImplementedError`` (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -195,7 +195,7 @@ class ContinuousBatcher:
                  megakernel: bool = False, mesh=None):
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving (mesh) is not ported yet: "
-                                      "ROADMAP Queue 1 item 11")
+                                      "ROADMAP Queue 1 item 8")
         self._head_table = None
         if quant_int8:
             model = model.with_tree(quantize_tree(model.tree())).eval()

@@ -12,7 +12,8 @@ Counterpart of ``summer_clip_tpu/methods/adapters.py``:
   ``OriginalImageClipAdapterFabric``).
 
 Training never touches the CLIP towers. Linear weights are ``nn.Linear``'s
-(out, in); the JAX package's Dense kernels are (in, out). Initial weights are
+(out, in); the JAX package's Dense kernels are (in, out)
+(:func:`state_dict_from_tree` reads its parameter trees). Initial weights are
 Flax's ``lecun_normal`` (a normal truncated at two standard deviations of
 ``fan_in ** -0.5 / 0.8796``), zero biases, drawn from an explicit generator.
 """
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["LinearAdapter", "ResidualAdapter", "IdentityAdapter", "CachedClipAdapter",
-           "LinearClipAdapterFabric", "OriginalImageClipAdapterFabric"]
+           "LinearClipAdapterFabric", "OriginalImageClipAdapterFabric", "state_dict_from_tree"]
 
 
 class IdentityAdapter(nn.Module):
@@ -118,3 +119,25 @@ class OriginalImageClipAdapterFabric:
     def create_adapter(self, emb_dim: int) -> CachedClipAdapter:
         return CachedClipAdapter(image_adapter=ResidualAdapter(emb_dim, self.reduction, self.ratio),
                                  text_adapter=IdentityAdapter())
+
+
+def state_dict_from_tree(tree: tp.Mapping[str, tp.Any]) -> tp.Dict[str, torch.Tensor]:
+    """The JAX package's adapter parameters (a nested tree, Dense kernels
+    (in, out)) as a :class:`CachedClipAdapter` state dict: the same module
+    names, ``kernel`` as ``weight`` (out, in). A state dict (flat names)
+    passes unchanged."""
+    if not any(isinstance(v, tp.Mapping) for v in tree.values()):
+        return dict(tree)
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, tp.Mapping):
+                walk(v, f"{prefix}{k}.")
+            elif k == "kernel":
+                out[prefix + "weight"] = torch.as_tensor(v).t().contiguous()
+            else:
+                out[prefix + k] = torch.as_tensor(v)
+
+    walk(tree, "")
+    return out

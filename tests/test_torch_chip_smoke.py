@@ -1,7 +1,8 @@
 """``chip_smoke.py``'s options on a machine without a card: ``--only`` picks
 one kernel family's checks, ``--baseline`` earlier copies of its sources to
 time in turns, and the script refuses to run (exit 2, no result) without
-CUDA. The checks themselves run only on the card."""
+CUDA. The checks themselves run only on the card, except the sandbox
+path's, rehearsed here at test-gpt with K4's route forced."""
 
 import pytest
 import torch
@@ -172,14 +173,15 @@ def test_train_gpt_corpora_have_the_phase_sizes(tmp_path):
 
 
 def test_kernels_line_lists_every_path():
-    """Every kernel entry carries launches for all nine paths, train_gpt and
-    int8_towers among them, and ``launches`` is their sum."""
+    """Every kernel entry carries launches for all ten paths, train_gpt,
+    int8_towers and sandbox among them, and ``launches`` is their sum."""
     paths = list(chip_smoke.MAIN_PATHS)
-    assert paths[-2:] == ["train_gpt", "int8_towers"]
+    assert paths[-3:] == ["train_gpt", "int8_towers", "sandbox"]
     launches = {p: {n: 0 for n in chip_smoke.KERNELS} for p in paths}
     launches["train_gpt"]["K4 short_attention_packed"] = 396
     launches["int8_towers"]["K4 short_attention_packed"] = 24
     launches["clip_search"]["K4 short_attention_packed"] = 2280
+    launches["sandbox"]["K4 short_attention_packed"] = 1044
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     results = {n: {"max_abs_err": 0.0, **{k: 1.0 for k in keys},
                    "shapes": {s: {k: 1.0 for k in keys} for s in (shape,)} if shape else {}}
@@ -190,7 +192,8 @@ def test_kernels_line_lists_every_path():
     assert set(k4["launches_by_path"]) == set(paths)
     assert k4["launches_by_path"]["train_gpt"] == 396
     assert k4["launches_by_path"]["int8_towers"] == 24
-    assert k4["launches"] == 396 + 24 + 2280
+    assert k4["launches_by_path"]["sandbox"] == 1044
+    assert k4["launches"] == 396 + 24 + 2280 + 1044
     assert all({"name", "route", "source", "replaces", "launches", "max_abs_err", *keys}
                <= set(e) for e in on + off)
 
@@ -204,3 +207,56 @@ def test_train_gpt_bound_counts_a_micro_step():
     b = chip_smoke.train_gpt_bound(GPT2_CONFIGS["gpt2-large"], 49408)
     assert b["bound_by"] == "operations"
     assert 20 < b["bound_ms"] < 40
+
+
+def test_sandbox_launch_arithmetic(tmp_path):
+    """The sandbox path's K4 counts: 36 a wide gpt2-large forward, none in a
+    backward; optimise_input's forwards; the trigger search's forwards; the
+    generated trigger data's sizes."""
+    assert chip_smoke.MAIN_PATHS["sandbox"] is chip_smoke.SANDBOX_PATH
+    assert chip_smoke.sandbox_k4_launches(2) == 72
+    assert chip_smoke.backwards_forwards(4, 2) == 12
+    assert chip_smoke.backwards_forwards(4, 2, out_len=3) == 24
+    history = [{"iter": -1}, {"accepted": False}, {"accepted": True}]
+    assert chip_smoke.trigger_forwards(history) == 1 + 8 + 9
+    data = chip_smoke.write_trigger_data(tmp_path)
+    for split, n in chip_smoke.TRIGGER_ROWS.items():
+        lines = data[split].read_text().splitlines()
+        assert lines[0] == "sentence\tlabel" and len(lines) == n + 1
+        assert {line.split("\t")[1] for line in lines[1:]} <= set(chip_smoke.TRIGGER_LABELS)
+
+
+def test_sandbox_path_rehearsed_on_the_cpu(tmp_path, monkeypatch):
+    """``run_sandbox`` and ``check_sandbox`` at test-gpt on the CPU: the
+    attention route forced to K4's (whose wrapper runs its plain version on
+    CPU tensors), each K4 call counted where the card would launch it, a
+    chunk size small enough for the chunked leaf; the path's launch
+    arithmetic, its gates and its planted fault hold as on the card."""
+    import torch
+
+    from summer_clip_torch.core import device as dev
+    from summer_clip_torch.engine import checkpoint as C
+    from summer_clip_torch.ops import attention as at
+
+    route, real = at.attention_route, at.short_attention_packed
+
+    def k4(*args, **kwargs):
+        k4.launches += 1
+        return real(*args, **kwargs)
+
+    k4.launches = 0
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(dev, "resolve_device", lambda name=None: torch.device("cpu"))
+    monkeypatch.setattr(at, "attention_route", lambda **kw: route(**{**kw, "on_card": True}))
+    monkeypatch.setattr(at, "short_attention_packed", k4)
+    monkeypatch.setattr(chip_smoke, "launch_counters",
+                        lambda: {"K4 short_attention_packed": at.short_attention_packed})
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "no card")
+    monkeypatch.setattr(chip_smoke, "SANDBOX_MODEL", "test-gpt")
+    monkeypatch.setattr(chip_smoke, "CHUNKED_LEAF_BYTES", 4096)
+    monkeypatch.setattr(C, "MAX_CHUNK_SIZE", 1024)
+    out = chip_smoke.run_sandbox(tmp_path, lambda: {"K4 short_attention_packed": k4.launches})
+    assert out["launches"]["backwards"] == {"K4 short_attention_packed": 2 * 2 * (4 + 2)}
+    assert out["launches"]["generate"] == {}
+    chip_smoke.check_sandbox(out)
+    assert at.short_attention_packed is k4

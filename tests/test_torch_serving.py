@@ -222,7 +222,7 @@ def test_engine_refuses_what_it_cannot_serve(f32, mega):
         ContinuousBatcher(mega.tm, quant_int8=True, megakernel=True, batch_slots=9)
     with pytest.raises(ValueError, match="geometry"):
         ContinuousBatcher(f32.tm, quant_int8=True, megakernel=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         ContinuousBatcher(f32.tm, mesh=object())
     eng = ContinuousBatcher(f32.tm, batch_slots=1, max_len=16)
     with pytest.raises(ValueError, match="exceeds"):

@@ -152,7 +152,7 @@ def test_app_speculative_ignores_quant_int8_as_the_jax_app(tmp_path, monkeypatch
     monkeypatch.setattr(jgen, "load_pretrained_clip_gpt",
                         lambda path, tok, rng=None: pairs[str(path)][:2])
     monkeypatch.setattr(tgen, "load_pretrained_clip_gpt",
-                        lambda path, tok, seed=0, device=None: pairs[str(path)][2])
+                        lambda path, tok, seed=0, device=None, base=None: pairs[str(path)][2])
     prompts = ["a photo of", "a", "this is"]
     argv = ["model.checkpoint_dir=target", "generation.draft_checkpoint_dir=draft",
             "generation.speculative=true", "generation.quant_int8=true",
