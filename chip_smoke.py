@@ -261,6 +261,35 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
      search on the plain route: the same slots and acceptances, each
      iteration's metric within one dev row, the same best trigger or dev
      accuracies within one row.
+   - The serving side of the multi-device layer (``multi_device``, phase (p)),
+     at full width, with real collectives. World 2 on the one card (two
+     processes, gloo over CUDA tensors: NCCL refuses two ranks on one device):
+     ``save_features`` with ``meta.world_size=2`` (ViT-B/16, batch 32: each
+     rank encodes 16 rows of a batch, rank 0 writes the store) against the
+     tip_adapter path's one-device store row for row; ``gen_gpt`` with
+     ``generation.tp=2`` (the int8 device loop over the gen_gpt path's
+     checkpoint, each rank's block stack on its Megatron slices); then one
+     group of two ranks for image_attention over the CLIP-search path's
+     ViT-L/14 store with the cache's rows split over the ranks (Hard values
+     over the one-class outs: K3 a rank; over the prototype labels: K2 a
+     rank; their Softmax values: K1 a rank; one all-reduce of the partial
+     logits), the engine at tp = 2 (12 requests through 8 slots, the K7
+     route) and the batched sampler at tp = 2. World 1 through NCCL: the two
+     searches over the prototype labels and the device loop through the
+     decoder of one rank.
+     Checks every rank's launches exactly (K5 and K6 12 a batch; K7 147 a
+     decoded token a rank at tp = 2 as at one device: ``tp_k7_per_token``;
+     K2 + K3 one a selection, K1 one a (selection, value setting)); that the
+     ranks pick the same ids; the store (max |d| 1e-4, a planted fault: each
+     batch's halves gathered in the wrong order); each search's saved
+     predictions against the clip_search path's one-device run record by
+     record (agreement ``TOL_MD_PRED_AGREE``; a planted fault: rank 1's partial
+     dropped); the TP runs' picks teacher forced through the plain route
+     (``TOL_GREEDY_TIE``) and the device loop's logits step by step through the
+     decoder (``TOL_GREEDY_LOGITS``; a planted fault: rank 1's slice of one
+     block's c_proj dropped); at world 1 the decoder's ids and logits equal to
+     the one-device model's bit for bit. With more than one card also every
+     card through NCCL (image_attention, gen_gpt where the heads divide).
 5. Prints a JSON line of the kernels of the main paths (K12 runs on none,
    so it has a line of its own), then as its last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -2135,23 +2164,10 @@ def check_resnet_tower(results: dict) -> None:
 # phase 4: the main paths through the port's entry points
 # --------------------------------------------------------------------------- #
 def launch_counters():
-    from summer_clip_torch.ops import attention as at
-    from summer_clip_torch.ops import block_kernels as bk
-    from summer_clip_torch.ops import cache_kernels as ck
-    from summer_clip_torch.ops import decode_block as DB
-    from summer_clip_torch.ops import gemv
+    """Every kernel wrapper of the port by name (each counts its own launches)."""
+    from summer_clip_torch.parallel.mesh import kernel_counters
 
-    return {"K7 streamed_qmatmul": gemv.streamed_qmatmul, "K10 fused_qmlp": gemv.fused_qmlp,
-            "K8 decode_block": DB.decode_block,
-            "K11 flash_attention": at.flash_attention,
-            "K1 cache_dense": ck.cache_attention,
-            "K2 labels_dense": ck.cache_attention_labels,
-            "K3 onehot_grouped": ck.cache_attention_onehot,
-            "K4 short_attention_packed": at.short_attention_packed,
-            "K5 fused_ln_attn": bk.fused_ln_attn, "K6 fused_ln_mlp": bk.fused_ln_mlp,
-            "K9 fused_ln_mlp_chunked": bk.fused_ln_mlp_chunked,
-            "K12 short_attention": at.short_attention,
-            "K13 onehot_variant": ck.onehot_variant}
+    return kernel_counters()
 
 
 def counted(path_name: str, needed, drive):
@@ -2376,6 +2392,24 @@ SEARCH_STRATEGIES = ("topk", "topk_prob", "topk_per_gold", "topk_prob_per_gold",
                      "per_pred_class_random", "per_gold_class_random", "global_random")
 
 
+SEARCH_TAG = "ViT-L14"
+SEARCH_SAVES = ("run_saves.save_logits=true", "run_saves.save_cache_inds=true",
+                "run_saves.save_preds=true")
+
+
+def search_argv(ds: str, outs_key: str, value: str, extra=()) -> list:
+    """image_attention's arguments over the CLIP-search store (without
+    ``clip`` and ``store.root``). Depth cut: 3 of the 6 cache sizes of each
+    selection strategy (the widths, the strategies, the value settings and the
+    (beta, alpha) grid are whole)."""
+    sizes = [f"cache_strategies.{name}.topk=[1,4,32]" for name in SEARCH_STRATEGIES]
+    return [*sizes, f"dataset_name={ds}", "dataset=synthetic_test", f"dataset.dataset={ds}",
+            "dataset.load_images=false", "dataset@cache.dataset=synthetic_train",
+            f"cache.dataset.dataset={ds}", "cache.dataset.load_images=false",
+            f"data.features_key={ds}_test-{SEARCH_TAG}", f"cache.features_key={ds}_train-{SEARCH_TAG}",
+            f"cache.outs_key={outs_key}", f"cache_value_strategy={value}", *extra]
+
+
 def run_clip_search(work: Path) -> dict:
     """CLIP-search at ViT-L/14 on ``synthetic_1k``: save_features ->
     save_image_outs -> image_attention with Hard, then Softmax values; then
@@ -2386,25 +2420,16 @@ def run_clip_search(work: Path) -> dict:
     from summer_clip_torch.apps import image_attention, save_features, save_image_outs
 
     store = work / "features"
-    tag = "ViT-L14"
+    tag = SEARCH_TAG
     common = ["clip=vit_l14", f"store.root={store}"]
-    saves = ["run_saves.save_logits=true", "run_saves.save_cache_inds=true",
-             "run_saves.save_preds=true"]
+    saves = SEARCH_SAVES
     scattered = {}
-
-    # depth cut: 3 of the 6 cache sizes of each selection strategy (the widths,
-    # the strategies, the value settings and the (beta, alpha) grid are whole)
-    sizes = [f"cache_strategies.{name}.topk=[1,4,32]" for name in SEARCH_STRATEGIES]
     log(f"clip_search: each of the {len(SEARCH_STRATEGIES)} selection strategies runs at cache "
         f"sizes 1, 4, 32 (the config has 1, 2, 4, 8, 16, 32), to keep the script short")
 
     def search(ds: str, name: str, outs_key: str, value: str, extra=()):
         return (f"image_attention_{ds}_{name}", image_attention.run,
-                [*sizes, f"dataset_name={ds}", "dataset=synthetic_test", f"dataset.dataset={ds}",
-                 "dataset.load_images=false", "dataset@cache.dataset=synthetic_train",
-                 f"cache.dataset.dataset={ds}", "cache.dataset.load_images=false",
-                 f"data.features_key={ds}_test-{tag}", f"cache.features_key={ds}_train-{tag}",
-                 f"cache.outs_key={outs_key}", f"cache_value_strategy={value}", *extra])
+                search_argv(ds, outs_key, value, extra))
 
     def chain(ds: str, searches) -> list:
         runs = [
@@ -2722,7 +2747,8 @@ def run_gen_gpt(work: Path, launches_of) -> dict:
             "n_engine": n_engine, "guarded": guarded}
 
 
-def _greedy_margin(qmodel, table, ids, n_prompt: int, stepwise=False, mega=None) -> tuple:
+def _greedy_margin(qmodel, table, ids, n_prompt: int, stepwise=False, mega=None,
+                   stepper=None) -> tuple:
     """How far a route's greedy picks are from the plain route's, teacher
     forced: the whole sequence goes through the int8 tree in one forward (more
     than 8 rows, so every product is the plain version, and the hoisted int8
@@ -2735,7 +2761,9 @@ def _greedy_margin(qmodel, table, ids, n_prompt: int, stepwise=False, mega=None)
     largest |d| of those logits, centred, against the plain route's, as a
     share of the same spread; else None. With ``stepwise="mega"`` the walk is
     the megakernel route's: the wide prefill, the cache as int8 rings, then K8 a
-    token (``mega``: the packed parameters and the head of ``_mega_state``)."""
+    token (``mega``: the packed parameters and the head of ``_mega_state``).
+    ``stepper``: what walks the sequence step by step in ``qmodel``'s place
+    (a tensor-parallel decoder of it)."""
     import torch
 
     from summer_clip_torch.models.gpt2 import decode_inputs
@@ -2752,7 +2780,8 @@ def _greedy_margin(qmodel, table, ids, n_prompt: int, stepwise=False, mega=None)
         share = (best - picked) / spread
         logit_share = None
         if stepwise:
-            out = qmodel(x[:, :n_prompt], position_offset=0, cache=qmodel.init_cache(1, len(ids)),
+            walker = stepper or qmodel
+            out = walker(x[:, :n_prompt], position_offset=0, cache=walker.init_cache(1, len(ids)),
                          compute_logits=False)
             rows = [gemv.qdot(out["hidden"][:, -1, :], table, torch.float32)[0]]
             if stepwise == "mega":
@@ -2766,7 +2795,7 @@ def _greedy_margin(qmodel, table, ids, n_prompt: int, stepwise=False, mega=None)
                     DB.mega_update_kv(kv, *fresh, offset)
                     rows.append(head(y)[0])
                     continue
-                out = qmodel(x[:, pos:pos + 1], position_offset=pos, cache=out["cache"],
+                out = walker(x[:, pos:pos + 1], position_offset=pos, cache=out["cache"],
                              compute_logits=False)
                 rows.append(gemv.qdot(out["hidden"][:, -1, :], table, torch.float32)[0])
             own = torch.stack(rows)
@@ -3098,7 +3127,10 @@ TIP_IMAGENET_K3 = 2 * (1 + -(-200 // 16) + 1)
 # searched 35.648; the random RN50 text tower's zero-shot logits are noise that
 # the cache term has to outvote)
 MIN_TIP_IMAGENET_ACC = 10.0
-TIP_IMAGENET_EPOCHS = 20      # finetune.epochs of conf/tip_adapter_imagenet.yaml
+# finetune.epochs: conf/tip_adapter_imagenet.yaml's 20, cut to 10 (depth only: the
+# store, the grid and Tip-Adapter-F's steps are whole) to keep the script near half
+# its time limit
+TIP_IMAGENET_EPOCHS = 10
 
 
 def write_tip_imagenet_store(root: Path) -> dict:
@@ -3199,7 +3231,8 @@ def run_tip_imagenet(work: Path) -> dict:
 
 
 TIP_IMAGENET_ARGV = ["dataset=synthetic_1k", "load_cache=true", "load_pre_feat=true",
-                     "finetune.enabled=true", "hydra.job.chdir=false", "root_path=''"]
+                     "finetune.enabled=true", f"finetune.epochs={TIP_IMAGENET_EPOCHS}",
+                     "hydra.job.chdir=false", "root_path=''"]
 
 
 def check_tip_imagenet(work: Path) -> None:
@@ -4732,6 +4765,484 @@ def check_sandbox(out: dict) -> None:
         raise AssertionError("sandbox (o): the kernel route's search disagrees with plain")
 
 
+# ---------------------------------------------------------------------------
+# (p) multi_device: the serving side of the port's multi-device layer
+# ---------------------------------------------------------------------------
+MULTI_PATH = ("K1 cache_dense", "K2 labels_dense", "K3 onehot_grouped", "K5 fused_ln_attn",
+              "K6 fused_ln_mlp", "K7 streamed_qmatmul")
+# image_attention over the CLIP-search store at world 2: the one-class Hard
+# cache (K3 a rank), the scattered prototype labels (K2 a rank) and their
+# Softmax values (K1 a rank); (name, outs key, value strategy)
+MD_SEARCHES = (("hard_cache", f"synthetic_1k_train_outs-{SEARCH_TAG}", "hard_cache"),
+               ("protos_hard_cache", f"synthetic_1k_train_protos-{SEARCH_TAG}", "hard_cache"),
+               ("protos_softmax_cache", f"synthetic_1k_train_protos-{SEARCH_TAG}",
+                "softmax_cache"))
+MD_SELECTIONS = len(SEARCH_STRATEGIES) * 3 + 1
+
+
+def md_searches(world1: bool) -> tuple:
+    """The searches of a group: all three at world 2; at world 1 the two over the
+    prototype labels (K2, K1), to keep the phase short."""
+    return MD_SEARCHES[1:] if world1 else MD_SEARCHES
+# stored rows of the data-parallel store against the one-device store
+# (tests/test_parallel.py's DP tolerance); a planted fault (each batch's two
+# halves gathered in the wrong order) is read against it
+TOL_MD_FEATURES = 1e-4
+# a world-2 search's saved predictions against the one-device run's, record by
+# record: the shards' partial sums add in another order than one kernel's, so
+# a near-tie row may flip (the gate of the one-device run against the plain
+# version); a planted fault (rank 1's partial logits dropped) is read against it
+TOL_MD_PRED_AGREE = TOL_PRED_AGREE
+
+
+def tp_k7_per_token(cfg, tp_size: int, clip_emb: int = 512, hid: int = 1024,
+                    vocab: int = 49408) -> int:
+    """K7 launches a rank makes for one decoded token of the int8 ClipGPT at
+    ``tp_size``: every product that ``qdot`` sends to K7 (tile-legal at one
+    row): the emb adapter's two (replicated), each block's four on the rank's
+    slices (c_attn and mlp_c_fc column slices, c_proj and mlp_c_proj row
+    slices) and the hoisted int8 head table (the decode loops read it as the
+    one-device route does; the decoder's own plain head serves prefill only)."""
+    from summer_clip_torch.ops.gemv import _tile_legal
+
+    d = cfg.n_embd
+    shapes = [(clip_emb, hid), (hid, d)]
+    shapes += cfg.n_layer * [(d, 3 * d // tp_size), (d // tp_size, d), (d, 4 * d // tp_size),
+                             (4 * d // tp_size, d)]
+    shapes.append((d, vocab))
+    return sum(_tile_legal(k, n, 1) for k, n in shapes)
+
+
+def _md_count(out: dict, name: str, fn):
+    """Run ``fn`` in this rank with every launch count at 0, keep its counts
+    and seconds under ``name``."""
+    import torch
+
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    value = fn()
+    torch.cuda.synchronize()
+    out["seconds"][name] = time.perf_counter() - t0
+    out["launches"][name] = {k: f.launches for k, f in counters.items()}
+    return value
+
+
+def _md_app(work: str, name: str, fn, argv: list):
+    """An app of this rank in a directory of the rank's own (rank 0's gets the
+    records, the store's catalog and the results)."""
+    import torch.distributed as dist
+
+    sub = Path(work) / name / f"rank{dist.get_rank()}"
+    sub.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(sub)
+    try:
+        return fn(argv=argv)
+    finally:
+        os.chdir(cwd)
+
+
+def _md_int8_model(model):
+    """The int8 tree of ``model`` (its float tree dropped) and its head table."""
+    from summer_clip_torch.engine.quant import quant_head_table, quantize_tree
+
+    qmodel = model.with_tree(quantize_tree(model.tree())).eval()
+    return qmodel, quant_head_table(qmodel)
+
+
+def md_group_rank(work: str, search_store: str, ckpt_dir: str, world1: bool, sf_argv: list,
+                  gen_argv: list) -> dict:
+    """One rank of phase (p)'s groups. At world 2 first the apps inside the
+    group: ``save_features`` (``sf_argv``: data parallel, each rank renders
+    and encodes its half of every batch) and ``gen_gpt`` (``gen_argv``,
+    ``generation.tp=2``: the int8 device loop); then image_attention over the
+    CLIP-search store (and the same with rank 1's partial logits dropped), and
+    tensor-parallel decode of the gen_gpt path's checkpoint, reusing the app's
+    model: the engine (12 requests, 8 slots, the K7 route), the batched
+    sampler, and the app's device-loop ids walked step by step through the
+    decoder against the plain route, with a planted fault. At world 1 (NCCL)
+    the searches over the prototype labels and the device loop through the
+    decoder of one rank against the one-device sampler."""
+    import torch
+    import torch.distributed as dist
+
+    from summer_clip_torch.apps import gen_gpt, image_attention, save_features
+    from summer_clip_torch.engine.serving import ContinuousBatcher
+    from summer_clip_torch.models.tokenizer import get_tokenizer
+    from summer_clip_torch.parallel import create_mesh, sharded_cache
+    from summer_clip_torch.parallel.tp_int8 import tp_int8_decoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"launches": {}, "seconds": {}, "rank": dist.get_rank(), "backend": dist.get_backend()}
+    tok = get_tokenizer()
+    if not world1:
+        _md_count(out, "save_features", lambda: _md_app(work, "save_features", save_features.run,
+                                                         sf_argv))
+        trainer = _md_count(out, "gen_gpt tp2", lambda: _md_app(work, "gen_gpt_tp2", gen_gpt.run,
+                                                                 gen_argv))
+        dist.barrier()   # rank 0's results are written
+        out["tp_ids"] = [g["ids"] for g in
+                         _gen_results(Path(work) / "gen_gpt_tp2" / "rank0")["generations"]]
+        qmodel, table = _md_count(out, "int8 model", lambda: _md_int8_model(trainer.model))
+        del trainer
+    else:
+        qmodel, table = _md_count(out, "int8 model", lambda: _md_int8_model(
+            gen_gpt.load_pretrained_clip_gpt(ckpt_dir, tok)))
+    common = ["clip=vit_l14", f"store.root={search_store}"]
+    for name, outs_key, value in md_searches(world1):
+        _md_count(out, name, lambda: _md_app(
+            work, name, image_attention.run,
+            common + search_argv("synthetic_1k", outs_key, value, SEARCH_SAVES)))
+    if not world1:
+        real = sharded_cache.all_reduce
+
+        def dropped(x, mesh, axis="model"):   # the planted fault: rank 1 adds nothing
+            if mesh.coords[axis] == 1:
+                x.zero_()
+            return real(x, mesh, axis)
+
+        sharded_cache.all_reduce = dropped
+        try:
+            _, outs_key, value = MD_SEARCHES[1]
+            _md_count(out, "fault protos_hard_cache", lambda: _md_app(
+                work, "fault_protos_hard_cache", image_attention.run,
+                common + search_argv("synthetic_1k", outs_key, value, SEARCH_SAVES)))
+        finally:
+            sharded_cache.all_reduce = real
+
+    mesh = create_mesh(data=1, model=dist.get_world_size())
+    dec = tp_int8_decoder(qmodel, mesh)   # this rank's slices, cut once
+    greedy = dict(max_new_tokens=GEN_NEW_TOKENS, top_k=1, quant_int8=True, eot_id=tok.eot_token)
+    prompts = [[tok.sot_token] + tok.encode(p) for p in GEN_PROMPTS]
+    if world1:
+        solo = [gen_gpt.generate_device(qmodel, p, **greedy) for p in prompts]
+        out["device"] = _md_count(out, "device", lambda: [
+            gen_gpt.generate_device(dec, p, mesh=mesh, **greedy) for p in prompts])
+        diffs = []
+        for seq, p in zip(out["device"], prompts):
+            # the decoder's step-by-step logits against the one-device model's
+            walks = [_md_walk(m, table, seq, len(p)) for m in (dec, qmodel)]
+            diffs.append(float((walks[0] - walks[1]).abs().max()))
+        out["solo_device"], out["walk_max_abs_diff"] = solo, diffs
+        return out
+
+    engine_ids = [[tok.sot_token] + tok.encode(p) for p in ENGINE_PROMPTS]
+
+    def engine():
+        eng = ContinuousBatcher(qmodel, batch_slots=ENGINE_SLOTS,
+                                max_len=min(qmodel.config.n_positions,
+                                            max(map(len, engine_ids)) + GEN_NEW_TOKENS),
+                                top_k=1, burst=ENGINE_BURST, pipeline=ENGINE_PIPELINE,
+                                quant_int8=True, eot_id=tok.eot_token, mesh=mesh,
+                                generator=torch.Generator(device="cuda").manual_seed(0))
+        reqs = [eng.submit(p, max_new_tokens=GEN_NEW_TOKENS) for p in engine_ids]
+        eng.run()
+        return [p + r.out_ids for p, r in zip(engine_ids, reqs)]
+
+    out["engine"] = _md_count(out, "engine", engine)
+    out["batched"] = _md_count(out, "batched", lambda: gen_gpt.generate_device_batched(
+        dec, prompts, mesh=mesh, **greedy))
+
+    def margins():
+        got = {name: [_greedy_margin(qmodel, table, seq, len(p))[:2]
+                      for seq, p in zip(seqs, engine_ids if name == "engine" else prompts)]
+               for name, seqs in (("engine", out["engine"]), ("batched", out["batched"]))}
+        got["device"] = [_greedy_margin(qmodel, table, seq, len(p), stepwise=True, stepper=dec)
+                         for seq, p in zip(out["tp_ids"], prompts)]
+        return got
+
+    out["margins"] = _md_count(out, "margins", margins)
+
+    def fault():   # rank 1's slice of block 5's c_proj adds nothing to the sum; one prompt
+        leaf = dec.local["h_5"]["attn"]["c_proj"]["kernel"]
+        if mesh.coords["model"] == 1:
+            dec.local["h_5"]["attn"]["c_proj"]["kernel"] = type(leaf)(torch.zeros_like(leaf.q),
+                                                                      leaf.scale)
+        try:
+            seq = gen_gpt.generate_device(dec, prompts[0], mesh=mesh, **greedy)
+            return [_greedy_margin(qmodel, table, seq, len(prompts[0]), stepwise=True,
+                                   stepper=dec)]
+        finally:
+            dec.local["h_5"]["attn"]["c_proj"]["kernel"] = leaf
+
+    out["fault_margins"] = _md_count(out, "fault tp", fault)
+    return out
+
+
+def _md_walk(walker, table, ids, n_prompt: int):
+    """The int8 head's logits of every generated position, the sequence fed
+    token by token through ``walker``'s cache (as the device loop runs it)."""
+    import torch
+
+    from summer_clip_torch.ops import gemv
+
+    with torch.inference_mode():
+        x = torch.tensor([ids], device="cuda")
+        out = walker(x[:, :n_prompt], position_offset=0, cache=walker.init_cache(1, len(ids)),
+                     compute_logits=False)
+        rows = [gemv.qdot(out["hidden"][:, -1, :], table, torch.float32)[0]]
+        for pos in range(n_prompt, len(ids) - 1):
+            out = walker(x[:, pos:pos + 1], position_offset=pos, cache=out["cache"],
+                         compute_logits=False)
+            rows.append(gemv.qdot(out["hidden"][:, -1, :], table, torch.float32)[0])
+    return torch.stack(rows)
+
+
+def _md_preds_agreement(run_a: Path, run_b: Path) -> dict:
+    """Record by record: the share of test rows whose saved predictions agree
+    between two image_attention runs (the same grid), its least value, the
+    records equal bit for bit, and the largest |d acc1|."""
+    import numpy as np
+
+    def recs(root):
+        path, = root.rglob("records.jsonl")
+        rs = [json.loads(line) for line in path.read_text().splitlines()]
+        return path.parent, [r for r in rs if r.get("type") == "searcher_result"]
+
+    (da, ra), (db, rb) = recs(run_a), recs(run_b)
+    if len(ra) != len(rb) or not ra:
+        raise AssertionError(f"{run_a.name}: {len(ra)} records against {len(rb)}")
+    least, same, dacc = 1.0, 0, 0.0
+    for a, b in zip(ra, rb):
+        for k in ("cache_strategy", "cache_value_strategy", "cache_weights_strategy", "alpha"):
+            if a[k] != b[k]:
+                raise AssertionError(f"{run_a.name}: records out of step at {k}")
+        pa, pb = np.load(da / a["preds_path"]), np.load(db / b["preds_path"])
+        agree = float((pa == pb).mean())
+        least, same = min(least, agree), same + int(agree == 1.0)
+        dacc = max(dacc, abs(a["acc1"] - b["acc1"]))
+    return {"least": least, "equal": same, "records": len(ra), "max_dacc1": dacc}
+
+
+def _md_rank_sum(ranks: list, names) -> dict:
+    """Launches by kernel over the ranks and the named sub-runs."""
+    total = {}
+    for r in ranks:
+        for name in names:
+            for k, v in r["launches"][name].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def run_multi_device(work: Path, search_work: Path, tip_store: Path, gen: dict) -> dict:
+    """Phase (p): the serving side of the multi-device layer at full width.
+    World 2 on the one card (two processes, gloo over CUDA tensors), one group:
+    the apps inside it (``save_features`` at ViT-B/16, batch 32, data
+    parallel; ``gen_gpt`` with ``generation.tp=2``, the int8 device loop),
+    image_attention over the CLIP-search ViT-L/14 store (Hard: K3 / K2,
+    Softmax: K1 a rank), the engine and the batched sampler at tp = 2 (K7 a
+    rank). World 1 through NCCL: image_attention over the prototype labels
+    (K2, K1) and the device loop through the decoder of one rank. Every rank's
+    launches come back per sub-run; the path's are their sum (planted-fault
+    runs apart). Where the machine has more cards, the apps' own launchers
+    over every card through NCCL."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.apps import gen_gpt, image_attention
+    from summer_clip_torch.parallel import launch
+    from summer_clip_torch.store import FeatureStore
+
+    torch.cuda.empty_cache()
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"seconds": {}}
+    cwd = os.getcwd()
+
+    def app(name, fn, argv):
+        sub = work / name
+        sub.mkdir(parents=True, exist_ok=True)
+        os.chdir(sub)
+        t0 = time.perf_counter()
+        try:
+            res = fn(argv=argv)
+        finally:
+            os.chdir(cwd)
+        out["seconds"][name] = time.perf_counter() - t0
+        return res
+
+    sf_argv = ["clip=vit_b16", "dataset_name=synthetic", "dataset@train_dataset=synthetic_train",
+               "dataset@test_dataset=synthetic_test", "data.batch_size=32",
+               "save_train_outs=false", f"store.root={work / 'features'}"]
+    gen_argv = gen["int8"] + ["generation.tp=2"]
+    t0 = time.perf_counter()
+    shared = launch(md_group_rank, ["cuda:0", "cuda:0"], str(work / "w2"),
+                    str(search_work / "features"), str(gen["ckpt_dir"]), False, sf_argv, gen_argv)
+    out["seconds"]["group w2 (gloo)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = launch(md_group_rank, ["cuda:0"], str(work / "w1"), str(search_work / "features"),
+                  str(gen["ckpt_dir"]), True, [], [], backend="nccl")
+    out["seconds"]["group w1 (nccl)"] = time.perf_counter() - t0
+    out.update(shared=[r.value for r in shared], nccl=[r.value for r in nccl])
+
+    # the data-parallel store against the one-device store, row for row
+    one, two = FeatureStore(tip_store), FeatureStore(work / "features")
+    worst, fault, equal = 0.0, 0.0, True
+    for key in ("synthetic_train-ViT-B16", "synthetic_test-ViT-B16"):
+        if not np.array_equal(one.load(key, "labels"), two.load(key, "labels")):
+            raise AssertionError(f"{key}: the data-parallel store's labels or row order differ")
+        a, b = np.asarray(one.load(key, "features")), np.asarray(two.load(key, "features"))
+        worst, equal = max(worst, float(np.abs(a - b).max())), equal and np.array_equal(a, b)
+        # planted fault: each batch's two halves gathered in the wrong order
+        swapped = np.concatenate([np.roll(b[i:i + 32], 16, axis=0) for i in range(0, len(b), 32)])
+        fault = max(fault, float(np.abs(a - swapped).max()))
+    out["store"] = {"max_abs": worst, "bit_equal": equal, "fault": fault}
+
+    if torch.cuda.device_count() > 1:   # every card through NCCL, through the apps' launchers
+        n = torch.cuda.device_count()
+        name, outs_key, value = MD_SEARCHES[1]
+        app(f"image_attention_{name}_w{n}", image_attention.run,
+            ["clip=vit_l14", f"store.root={search_work / 'features'}", f"meta.world_size={n}",
+             *search_argv("synthetic_1k", outs_key, value, SEARCH_SAVES)])
+        if 20 % n == 0:   # gpt2-large's heads split over the cards
+            app(f"gen_gpt_tp{n}", gen_gpt.run, gen["int8"] + [f"generation.tp={n}"])
+    return out
+
+
+def check_multi_device(md: dict, search_work: Path, gen: dict) -> dict:
+    """Phase (p)'s gates, each beside a planted fault's reading, and its
+    launches per rank; every reading is logged before the first failed gate
+    raises (all of them, in one AssertionError). Returns the path's launches
+    (summed over ranks)."""
+    from summer_clip_torch.models.gpt2 import GPT2_CONFIGS
+
+    work = search_work.parent / "multi_device"
+    per_token = tp_k7_per_token(GPT2_CONFIGS["gpt2-large"], 2)
+    steps = GEN_NEW_TOKENS - 1
+    n_prompt = gen["n_prompt"]
+    prefill = sum(4 * 36 + 2 for n in n_prompt if n <= 8)
+    waves = -(-len(ENGINE_PROMPTS) // ENGINE_SLOTS)
+    engine_steps = waves * min(ENGINE_PIPELINE, -(-steps // ENGINE_BURST)) * ENGINE_BURST
+    failures = []
+
+    def fail(msg):
+        log(f"multi_device FAILED: {msg}")
+        failures.append(msg)
+
+    log(f"multi_device: seconds {json.dumps({k: round(v, 2) for k, v in md['seconds'].items()})}")
+    for name, group in (("w2 (gloo, one card shared)", md["shared"]),
+                        ("w1 (nccl)", md["nccl"])):
+        log(f"multi_device group {name}: backends {[r['backend'] for r in group]}, seconds by "
+            f"sub-run (rank 0) {json.dumps({k: round(v, 2) for k, v in group[0]['seconds'].items()})}")
+
+    # launches per rank, asserted
+    def check(label, launches, want):
+        got = {k: launches.get(k, 0) for k in want}
+        log(f"multi_device {label}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        if got != want:
+            fail(f"multi_device {label}: launches {got}, expected {want}")
+
+    for res in md["shared"]:
+        r = res["rank"]
+        check(f"save_features w2 rank {r}", res["launches"]["save_features"],
+              {"K5 fused_ln_attn": 12 * 2, "K6 fused_ln_mlp": 12 * 2})   # 2 batches of 16 rows a rank
+        check(f"gen_gpt tp=2 device loop rank {r}", res["launches"]["gen_gpt tp2"],
+              {"K7 streamed_qmatmul": prefill + 3 * steps * per_token, "K8 decode_block": 0,
+               "K10 fused_qmlp": 0})
+    for group, world in ((md["shared"], 2), (md["nccl"], 1)):
+        for res in group:
+            for name, _, value in md_searches(world == 1):
+                got = res["launches"][name]
+                label = f"image_attention {name} w{world} rank {res['rank']}"
+                if value == "hard_cache":
+                    check(label, got, {"K1 cache_dense": 0})
+                    if got["K2 labels_dense"] + got["K3 onehot_grouped"] != MD_SELECTIONS:
+                        fail(f"{label}: K2 + K3 launched "
+                                             f"{got['K2 labels_dense'] + got['K3 onehot_grouped']}"
+                                             f" times, expected {MD_SELECTIONS}")
+                else:
+                    check(label, got, {"K1 cache_dense": MD_SELECTIONS * 3, "K2 labels_dense": 0,
+                                       "K3 onehot_grouped": 0})
+    for res in md["shared"]:
+        check(f"engine tp=2 rank {res['rank']}", res["launches"]["engine"],
+              {"K7 streamed_qmatmul": engine_steps * per_token + waves, "K8 decode_block": 0})
+        check(f"batched tp=2 rank {res['rank']}", res["launches"]["batched"],
+              {"K7 streamed_qmatmul": steps * per_token})
+    for res in md["nccl"]:
+        check(f"device loop tp=1 (nccl) rank {res['rank']}", res["launches"]["device"],
+              {"K7 streamed_qmatmul": prefill + 3 * steps * per_token})
+
+    # the ranks agree
+    for key in ("engine", "batched"):
+        if md["shared"][0][key] != md["shared"][1][key]:
+            fail(f"multi_device: the two ranks picked different ids ({key})")
+
+    # the stores
+    st = md["store"]
+    log(f"multi_device save_features w2 store vs the one-device store (ViT-B/16, tip path): "
+        f"max|d| {st['max_abs']:.3e} (tol {TOL_MD_FEATURES}), bit for bit: {st['bit_equal']}; "
+        f"planted fault (each batch's halves gathered in the wrong order) reads "
+        f"{st['fault']:.3e}")
+    if st["max_abs"] > TOL_MD_FEATURES or st["fault"] <= TOL_MD_FEATURES:
+        fail("the data-parallel store disagrees with the one-device store")
+
+    # the searches, record by record against the clip_search path's one-device runs
+    for world, root in ((2, work / "w2"), (1, work / "w1")):
+        for name, _, _ in md_searches(world == 1):
+            one = search_work / f"image_attention_synthetic_1k_{name}"
+            got = _md_preds_agreement(root / name / "rank0", one)
+            log(f"multi_device image_attention {name} w{world}: saved predictions of "
+                f"{got['records']} records against the one-device run: least agreement "
+                f"{got['least']:.4f} (tol >= {TOL_MD_PRED_AGREE}), {got['equal']} records bit for "
+                f"bit, max |d acc1| {got['max_dacc1']:.3f}")
+            if got["least"] < TOL_MD_PRED_AGREE:
+                fail(f"multi_device image_attention {name} w{world} disagrees "
+                                     f"with the one-device run")
+    fault = _md_preds_agreement(work / "w2" / "fault_protos_hard_cache" / "rank0",
+                                search_work / "image_attention_synthetic_1k_protos_hard_cache")
+    log(f"multi_device planted fault (rank 1's partial logits dropped), protos_hard_cache: least "
+        f"agreement {fault['least']:.4f}, max |d acc1| {fault['max_dacc1']:.3f}")
+    if fault["least"] >= TOL_MD_PRED_AGREE:
+        fail("the planted fault passes the multi_device search gate")
+
+    # tensor-parallel decode
+    solo = {"device": [g["ids"] for g in gen["results"]["int8_device"]["generations"]],
+            "batched": [g["ids"] for g in gen["results"]["int8_batched"]["generations"]],
+            "engine": [g["ids"] for g in gen["results"]["engine_k7"]["generations"]]}
+    shared = md["shared"][0]
+    runs = {"device": shared["tp_ids"], "batched": shared["batched"], "engine": shared["engine"]}
+    for name, ids in runs.items():
+        same = sum(a == b for a, b in zip(ids, solo[name]))
+        margins = shared["margins"][name]
+        worst = max(m[0] for m in margins)
+        log(f"multi_device tp=2 {name}: {same} of {len(ids)} sequences equal the one-device "
+            f"run's; teacher forced through the plain route, {sum(m[1] for m in margins)} picks "
+            f"are not its argmax, the farthest by {worst:.3e} of the row's spread (tol "
+            f"{TOL_GREEDY_TIE})")
+        if worst > TOL_GREEDY_TIE:
+            fail(f"multi_device tp=2 {name}: picks beyond the tie tolerance")
+    walk = max(m[2] for m in shared["margins"]["device"])
+    f_pick = max(m[0] for m in shared["fault_margins"])
+    f_walk = max(m[2] for m in shared["fault_margins"])
+    log(f"multi_device tp=2 device loop, step by step through the decoder: logits {walk:.3e} of "
+        f"the spread from the plain route's (tol {TOL_GREEDY_LOGITS}); planted fault (rank 1's "
+        f"slice of block 5's c_proj dropped): picks {f_pick:.3e} (tol {TOL_GREEDY_TIE}), logits "
+        f"{f_walk:.3e}")
+    if walk > TOL_GREEDY_LOGITS or (f_walk <= TOL_GREEDY_LOGITS and f_pick <= TOL_GREEDY_TIE):
+        fail("multi_device tp=2: logits beyond the gate, or the fault passes it")
+    w1 = md["nccl"][0]
+    log(f"multi_device tp=1 (nccl) device loop: ids equal the one-device sampler's: "
+        f"{w1['device'] == w1['solo_device']}, step-by-step logits max|d| against the one-device "
+        f"model: {max(w1['walk_max_abs_diff']):.3e}")
+    if w1["device"] != w1["solo_device"] or max(w1["walk_max_abs_diff"]) != 0.0:
+        fail("the decoder of one rank is not the one-device forward bit for bit")
+
+    names = ["save_features", "gen_gpt tp2", "engine", "batched"] + [n for n, _, _ in MD_SEARCHES]
+    total = _md_rank_sum(md["shared"], names)
+    for k, v in _md_rank_sum(md["nccl"], ["device"] + [n for n, _, _ in md_searches(True)]).items():
+        total[k] = total.get(k, 0) + v
+    log(f"multi_device launches over every rank and sub-run: "
+        f"{json.dumps({k: v for k, v in total.items() if v})}")
+    missing = [k for k in MULTI_PATH if total.get(k, 0) <= 0]
+    if missing:
+        fail(f"main path multi_device did not launch {missing}")
+    if failures:
+        raise AssertionError("multi_device: " + "; ".join(failures))
+    return {k: total.get(k, 0) for k in launch_counters()}
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces, shape whose times stand in the kernels line)
     "K1 cache_dense": ("summer_clip_torch/csrc/cache_kernels.cu",
@@ -4774,7 +5285,7 @@ ONEHOT_SWEEP_PATH = ("K1 cache_dense", "K13 onehot_variant")
 MAIN_PATHS = {"tip_adapter": TIP_PATH, "clip_search": SEARCH_PATH, "gen_gpt": GEN_PATH,
               "train_coop": TRAIN_PATH, "tip_adapter_imagenet": TIP_IMAGENET_PATH,
               "onehot_sweep": ONEHOT_SWEEP_PATH, "prompt_search": PROMPT_SEARCH_PATH,
-              "train_gpt": TRAIN_GPT_PATH, "int8_towers": INT8_PATH, "sandbox": SANDBOX_PATH}
+              "multi_device": MULTI_PATH, "train_gpt": TRAIN_GPT_PATH, "int8_towers": INT8_PATH, "sandbox": SANDBOX_PATH}
 
 
 def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
@@ -4979,11 +5490,17 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         check_sandbox(sandbox)
         log(f"phase check sandbox: {time.perf_counter() - t0:.2f} s")
 
+        t0 = time.perf_counter()
+        md = run_multi_device(Path(tmp) / "multi_device", Path(tmp) / "search", pipe["store"], gen)
+        md_launches = check_multi_device(md, Path(tmp) / "search", gen)
+        log(f"phase multi_device: {time.perf_counter() - t0:.2f} s")
+
     kernels, off_path = kernels_lines(results, {
         "tip_adapter": tip_launches, "clip_search": search_launches, "gen_gpt": gen_launches,
         "train_coop": train_launches, "tip_adapter_imagenet": tipi_launches,
         "onehot_sweep": sweep_launches, "prompt_search": prompts_launches,
-        "train_gpt": lm_launches, "int8_towers": int8_launches, "sandbox": sandbox_launches})
+        "train_gpt": lm_launches, "int8_towers": int8_launches, "sandbox": sandbox_launches,
+        "multi_device": md_launches})
     log(f"card: {card}")
     # ported kernels that no main path runs: checked and timed above, listed apart
     print(json.dumps({"kernels_off_the_main_paths": off_path}))

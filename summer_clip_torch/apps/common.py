@@ -1,11 +1,19 @@
-"""Shared app plumbing: CLIP sessions on one device + feature extraction.
+"""Shared app plumbing: CLIP sessions + feature extraction.
 
 Counterpart of ``summer_clip_tpu/apps/common.py``. A :class:`ClipSession`
 holds a frozen CLIP on an explicit device in the compute dtype. Its image and
 token encoders run under ``torch.inference_mode()``; uint8 image batches are
 normalized on the device. :meth:`ClipSession.encode_text_embeds` runs with
 autograd, so prompt learning differentiates through the frozen text tower
-with respect to the embeddings. There is no mesh: one device per session.
+with respect to the embeddings.
+
+With a mesh (``parallel.create_mesh``) :func:`extract_image_features` splits
+every batch over its ``data`` axis: each rank decodes and encodes only its own
+rows of every batch (the batcher's ``shard``), and rank 0 gathers every
+rank's features once, at the end, in the one-device run's row order; the
+other ranks get none (only rank 0 writes the store and goes on). Encoders
+otherwise run on every rank alike. :func:`data_parallel_mesh` is the apps'
+rule for that mesh.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from summer_clip_torch.models.clip.modeling import CLIP, build_clip
 from summer_clip_torch.models.clip.convert import load_clip
 
 __all__ = ["ClipSession", "create_clip_session", "extract_image_features", "resolve_dtype",
-           "resolve_prompting"]
+           "resolve_prompting", "data_parallel_mesh", "data_parallel_world"]
 
 
 def resolve_dtype(name: tp.Optional[str], device: torch.device) -> torch.dtype:
@@ -36,12 +44,13 @@ def resolve_dtype(name: tp.Optional[str], device: torch.device) -> torch.dtype:
 
 
 class ClipSession:
-    """Frozen CLIP on one device with encode entry points."""
+    """Frozen CLIP on one device (per rank) with encode entry points."""
 
-    def __init__(self, model: CLIP, cfg, device: torch.device):
+    def __init__(self, model: CLIP, cfg, device: torch.device, mesh=None):
         self.model = model
         self.cfg = cfg
         self.device = device
+        self.mesh = mesh if mesh is not None and mesh.groups.get("data") is not None else None
         self._mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device)
         self._std = torch.tensor(CLIP_STD, dtype=torch.float32, device=device)
 
@@ -99,13 +108,15 @@ def create_clip_session(model_name: str, checkpoint_path: tp.Optional[str] = Non
                         logger: tp.Optional[tp.Any] = None,
                         proj_path: tp.Optional[str] = None,
                         quant: tp.Optional[str] = None, seed: int = 0,
-                        remat: tp.Optional[bool] = None) -> ClipSession:
+                        remat: tp.Optional[bool] = None, mesh=None) -> ClipSession:
     """A session from a converted checkpoint when ``checkpoint_path`` exists,
     otherwise random towers drawn from ``torch.Generator().manual_seed(seed)``.
     ``proj_path``: optional ``.npy`` (width, embed_dim) vision projection.
     ``remat``: checkpoint every residual block's activations when a gradient
     flows through the towers (config ``clip.remat``). ``quant="int8"``: the
-    int8 towers (config ``clip.quant``, ``models.clip.modeling``)."""
+    int8 towers (config ``clip.quant``, ``models.clip.modeling``). ``mesh``:
+    extraction batches split over its ``data`` axis (every rank builds the
+    same towers from the same seed or checkpoint)."""
     device = resolve_device(device)
     tdtype = resolve_dtype(dtype, device)
     if checkpoint_path and Path(checkpoint_path).exists():
@@ -126,7 +137,31 @@ def create_clip_session(model_name: str, checkpoint_path: tp.Optional[str] = Non
             old.copy_(w.to(old.dtype))
         if logger:
             logger.log_info(f"Swapped vision projection from {proj_path}")
-    return ClipSession(model.set_remat(bool(remat)), cfg, device)
+    return ClipSession(model.set_remat(bool(remat)), cfg, device, mesh=mesh)
+
+
+def data_parallel_world(cfg, batch_size: int) -> int:
+    """The ranks of a data-parallel extraction: every visible card
+    (``meta.world_size`` when set) when the batch divides over them, else one,
+    the JAX package's rule."""
+    from summer_clip_torch.engine.trainer import visible_world
+
+    n = visible_world(cfg)
+    return n if n > 1 and batch_size % n == 0 else 1
+
+
+def data_parallel_mesh(batch_size: int):
+    """The mesh of a data-parallel extraction: every rank of the process group
+    on the ``data`` axis when the batch divides over them, else None (one
+    device). Joins the group the environment names first (``distributed_init``)."""
+    import torch.distributed as dist
+
+    from summer_clip_torch.parallel import create_mesh, distributed_init
+
+    if not distributed_init():
+        return None
+    n = dist.get_world_size()
+    return create_mesh(data=n, model=1) if batch_size % n == 0 else None
 
 
 def resolve_prompting(cfg, view) -> tp.Tuple[tp.Sequence[str], tp.Sequence[str]]:
@@ -144,7 +179,16 @@ def extract_image_features(session: ClipSession, batcher: tp.Iterable[Batch],
     indices), padded tail rows dropped by the batch mask, rows in a stable
     sort on dataset index. Features stay on the device until the end, so the
     host never waits for the device inside the loop. ``preproj=True``: the
-    features before the final projection (ProLIP's input)."""
+    features before the final projection (ProLIP's input).
+
+    With the session's mesh each rank decodes and encodes only its rows of
+    every batch (``batcher.shard``), and the axis's first rank gathers every
+    rank's rows at the end; the other ranks return no rows."""
+    from summer_clip_torch.parallel import gather_rows
+
+    mesh = session.mesh
+    if mesh is not None:
+        batcher = batcher.shard(mesh.coords["data"], mesh.shape["data"])
     encode = session.encode_image_preproj if preproj else session.encode_image
     feats_parts: tp.List[torch.Tensor] = []
     labels_parts, index_parts, masks = [], [], []
@@ -153,10 +197,15 @@ def extract_image_features(session: ClipSession, batcher: tp.Iterable[Batch],
         labels_parts.append(batch.labels)
         index_parts.append(batch.indices)
         masks.append(batch.mask)
-    feats = torch.cat(feats_parts).float().cpu().numpy()
-    labels = np.concatenate(labels_parts)
-    indices = np.concatenate(index_parts)
-    mask = np.concatenate(masks)
+    local = torch.cat(feats_parts)
+    feats = gather_rows(local, mesh, "data")
+    meta = np.stack([np.concatenate(labels_parts), np.concatenate(index_parts),
+                     np.concatenate(masks)], 1).astype(np.int64)
+    meta = gather_rows(torch.from_numpy(meta).to(session.device), mesh, "data")
+    if feats is None:   # not the axis's first rank
+        return np.zeros((0, local.shape[1]), np.float32), np.zeros(0, np.int32), np.zeros(0, np.int32)
+    feats, meta = feats.float().cpu().numpy(), meta.cpu().numpy()
+    labels, indices, mask = meta[:, 0].astype(np.int32), meta[:, 1].astype(np.int32), meta[:, 2] > 0
     feats, labels, indices = feats[mask], labels[mask], indices[mask]
     order = np.argsort(indices, kind="stable")
     return feats[order], labels[order], indices[order]

@@ -35,9 +35,14 @@ least 24 blocks and a legal geometry (batched: at most 8 prompts too).
 continuous-batching engine (``engine/serving``), ``generation.speculative=true``
 through draft-model speculation (``engine/speculative``; both trees stay in
 full precision and ``quant_int8`` is ignored there, as in the JAX app).
-``generation.tp > 1`` raises
-``NotImplementedError`` (ROADMAP Queue 1 item 8). ``approx_top_k`` is accepted
-and runs the exact top-k.
+``generation.tp > 1`` runs the device loop and the batched sampler
+tensor-parallel, as the JAX app does: one process a rank over the first
+``tp`` cards (ranks share a card when there are fewer), each rank's block
+stack on its Megatron slices (``parallel.tp_int8.TPInt8Decoder``: K7 on its
+int8 slices), every rank sampling the same ids from the same logits with a
+generator seeded alike; rank 0 writes the results. Not with
+``continuous`` or ``speculative``, nor with the megakernel. ``approx_top_k``
+is accepted and runs the exact top-k.
 
 Run: ``python -m summer_clip_torch.apps.gen_gpt model.checkpoint_dir=<dir>
 generation.quant_int8=true`` (``meta.device=cpu`` for the CPU; a JAX step
@@ -64,6 +69,7 @@ from summer_clip_torch.models import gpt2 as gpt2_mod
 from summer_clip_torch.models.tokenizer import get_tokenizer
 from summer_clip_torch.ops import decode_block as DB
 from summer_clip_torch.ops.gemv import is_qleaf, matmul_reference, qdot
+from summer_clip_torch.parallel import TPInt8Decoder, check_tp_divisibility, tp_int8_decoder
 from summer_clip_torch.store import load_array
 
 __all__ = ["build_clip_gpt", "save_clip_gpt_checkpoint", "load_pretrained_clip_gpt", "generate",
@@ -170,17 +176,36 @@ def _generator_for(generator: tp.Optional[torch.Generator], device: torch.device
     return generator
 
 
+def _base(model):
+    """The model behind a tensor-parallel decoder (the model itself otherwise):
+    the head and the embeddings are replicated, so they are the model's."""
+    return model.model if isinstance(model, TPInt8Decoder) else model
+
+
 def _head(model, quant_int8: bool) -> tp.Callable[[torch.Tensor], torch.Tensor]:
     """Logits of the last hidden row off a head table built once before the
     loop: the int8 table through K7 on an int8 tree, else the f32 table. Inside
     the model the 49k-row head adapter would run again every token."""
+    base = _base(model)
     if quant_int8:
-        table = quant_head_table(model)
+        table = quant_head_table(base)
         return lambda h: qdot(h, table, torch.float32)
-    if isinstance(model, gpt2_mod.ClipGPT):
-        table = model.lm_head_table()
+    if isinstance(base, gpt2_mod.ClipGPT):
+        table = base.lm_head_table()
         return lambda h: gpt2_mod.logits_f32(h, table)
-    return model.head_logits
+    return base.head_logits
+
+
+def _tp(model, mesh, megakernel: bool):
+    """The decoder of ``mesh``'s model axis when there is a process group for
+    it (the model itself otherwise): the JAX samplers' ``mesh=``. A caller that
+    samples more than once passes the decoder (``tp_int8_decoder``) as
+    ``model``, so its slices are cut once."""
+    if mesh is None or mesh.groups.get("model") is None:
+        return model
+    if megakernel:
+        raise ValueError("TP decode and the megakernel do not compose")
+    return tp_int8_decoder(model, mesh)
 
 
 def _mega_state(model, what: str):
@@ -252,7 +277,7 @@ def generate_device(model, prompt_ids: tp.Sequence[int], *, max_new_tokens: int 
                     generator: tp.Optional[torch.Generator] = None,
                     eot_id: tp.Optional[int] = None, approx_top_k: bool = False,
                     quant_int8: bool = False, top_p: float = 1.0,
-                    megakernel: bool = False) -> tp.List[int]:
+                    megakernel: bool = False, mesh=None) -> tp.List[int]:
     """Whole-sequence sampling without a read-back inside the loop.
 
     The host loop pays a device synchronisation per token for its fetched
@@ -266,8 +291,13 @@ def generate_device(model, prompt_ids: tp.Sequence[int], *, max_new_tokens: int 
     ``megakernel``: after the wide prefill the cache becomes K8's rings (int8
     with ``quant_int8``, else bf16) and every decode step runs the whole block
     stack in one launch; the position is a device tensor, so nothing is read
-    back here either."""
+    back here either.
+
+    ``mesh`` (in a process group): the block stack runs tensor-parallel over
+    its ``model`` axis (``parallel.tp_int8.TPInt8Decoder``), every rank of it
+    calling this with the same arguments and getting the same ids."""
     del approx_top_k   # the exact top-k runs
+    model = _tp(model, mesh, megakernel)
     device = _device_of(model)
     generator = _generator_for(generator, device)
     n_prompt = len(prompt_ids)
@@ -314,7 +344,7 @@ def generate_device_batched(model, prompts: tp.Sequence[tp.Sequence[int]], *,
                             generator: tp.Optional[torch.Generator] = None,
                             eot_id: tp.Optional[int] = None, approx_top_k: bool = False,
                             quant_int8: bool = False, top_p: float = 1.0,
-                            megakernel: bool = False) -> tp.List[tp.List[int]]:
+                            megakernel: bool = False, mesh=None) -> tp.List[tp.List[int]]:
     """Batched serving path: sample B variable-length prompts in one loop.
 
     Prompts are left-padded to a shared length so that every row appends at
@@ -326,8 +356,10 @@ def generate_device_batched(model, prompts: tp.Sequence[tp.Sequence[int]], *,
     ``megakernel`` (at most 8 prompts): the decode steps run the whole block
     stack for the batch in one launch of K8 each, so the weight read of a token
     is shared by the rows; the prefill goes into a short cache that becomes the
-    rings, and the left pads ride K8's ``pad`` mask."""
+    rings, and the left pads ride K8's ``pad`` mask. ``mesh``: as for
+    :func:`generate_device`."""
     del approx_top_k
+    model = _tp(model, mesh, megakernel)
     device = _device_of(model)
     generator = _generator_for(generator, device)
     lens = [len(p) for p in prompts]
@@ -386,7 +418,34 @@ def generate_device_batched(model, prompts: tp.Sequence[tp.Sequence[int]], *,
 # ---------------------------------------------------------------------------
 # the app
 # ---------------------------------------------------------------------------
+def _check_tp_switches(gcfg) -> None:
+    if gcfg.get("continuous") or gcfg.get("speculative"):
+        raise ValueError("generation.tp (tensor-parallel decode) composes with the "
+                         "device_loop/batched samplers, not the serving/speculative engines")
+    if not (gcfg.get("batched") or gcfg.get("device_loop", True)):
+        raise ValueError("generation.tp (tensor-parallel decode) needs a device-scan sampler: "
+                         "set generation.device_loop=true or generation.batched=true (the "
+                         "host-loop oracle would run unsharded)")
+
+
 class GptGenerator(BaseTrainer):
+    @classmethod
+    def world_size(cls, cfg) -> int:
+        """``generation.tp`` ranks (one process each, over the first tp cards),
+        checked against the JAX app's limits before any process starts."""
+        gcfg = cfg.get("generation") or {}
+        tp_size = max(int(gcfg.get("tp", 1) or 1), 1)
+        if tp_size > 1:
+            _check_tp_switches(gcfg)
+        return tp_size
+
+    def setup_mesh(self):
+        """Every rank of the process group on the ``model`` axis (tensor
+        parallel); one device without a group."""
+        from summer_clip_torch.parallel import model_mesh
+
+        self.mesh = model_mesh()
+
     def setup_dataset(self):
         self.tokenizer = get_tokenizer()
         vcfg = self.cfg.get("val")
@@ -416,11 +475,13 @@ class GptGenerator(BaseTrainer):
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator))
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _check_ported(self, gcfg) -> None:
-        if int(gcfg.get("tp", 1)) > 1:
-            raise NotImplementedError("generation.tp > 1 needs the tensor-parallel decode "
-                                      "(parallel/tp), which is not ported yet: ROADMAP Queue 1 "
-                                      "item 8")
+    def _check_tp(self, gcfg) -> None:
+        """The JAX app's limits of ``generation.tp``."""
+        if self.mesh is None:
+            return
+        _check_tp_switches(gcfg)
+        cfg = self.model.config
+        check_tp_divisibility(cfg.n_embd, cfg.n_head, self.mesh.shape["model"])
 
     def _megakernel(self, gcfg, quant: bool, fits: bool) -> bool:
         """``generation.megakernel``: true, false, or ``auto``, which rides the
@@ -432,7 +493,7 @@ class GptGenerator(BaseTrainer):
         if mk != "auto":
             return bool(mk)
         cfg = self.model.config
-        return (quant and fits and cfg.n_layer >= 24
+        return (quant and fits and self.mesh is None and cfg.n_layer >= 24
                 and DB.mega_legal(cfg.n_embd, 4 * cfg.n_embd, cfg.n_head))
 
     def _serve_continuous(self, gcfg, ids_all, quant: bool) -> tp.List[tp.List[int]]:
@@ -493,13 +554,13 @@ class GptGenerator(BaseTrainer):
 
     def train_loop(self):
         results: dict = {"generations": []}
-        ppl = self.perplexity()
+        ppl = self.perplexity() if self.leads else None
         if ppl is not None:
             results["perplexity"] = ppl
             self.logger.log_info({"type": "gpt_perplexity", "perplexity": ppl})
 
         gcfg = self.cfg.generation
-        self._check_ported(gcfg)
+        self._check_tp(gcfg)
         base_prompts = [str(p) for p in (self.cfg.prompts or [])]
         # each of num_return_sequences repeats goes through the samplers as a
         # row or a generator of its own, so samples stay independent
@@ -515,6 +576,8 @@ class GptGenerator(BaseTrainer):
         engine = bool(gcfg.get("continuous", False)) or bool(gcfg.get("speculative", False))
         if prompts and quant and not engine:   # the stored-int8 tree through the kernels
             model = model.with_tree(quantize_tree(model.tree())).eval()
+        if prompts and self.mesh is not None:   # this rank's slices, cut once for every prompt
+            model = tp_int8_decoder(model, self.mesh)
         if prompts and bool(gcfg.get("continuous", False)):
             outs = self._serve_continuous(gcfg, ids_all, quant)
         elif prompts and bool(gcfg.get("speculative", False)):
@@ -523,7 +586,7 @@ class GptGenerator(BaseTrainer):
             outs = generate_device_batched(
                 model, ids_all, generator=self._prompt_generator(), quant_int8=quant,
                 megakernel=self._megakernel(gcfg, quant, len(ids_all) <= DB.MAX_STREAMS),
-                approx_top_k=bool(gcfg.get("approx_top_k", False)), **common)
+                approx_top_k=bool(gcfg.get("approx_top_k", False)), mesh=self.mesh, **common)
         else:
             device_loop = bool(gcfg.get("device_loop", True))
             mk = self._megakernel(gcfg, quant, device_loop) if device_loop else False
@@ -531,11 +594,13 @@ class GptGenerator(BaseTrainer):
                 if device_loop:
                     outs.append(generate_device(
                         model, ids, generator=self._prompt_generator(), quant_int8=quant,
-                        megakernel=mk,
-                        approx_top_k=bool(gcfg.get("approx_top_k", False)), **common))
+                        megakernel=mk, approx_top_k=bool(gcfg.get("approx_top_k", False)),
+                        mesh=self.mesh, **common))
                 else:
                     outs.append(generate(model, ids, generator=self._prompt_generator(),
                                          **common))
+        if not self.leads:
+            return   # rank 0 writes the results
         for i, (prompt, out_ids) in enumerate(zip(prompts, outs)):
             text = self.tokenizer.decode(out_ids)
             results["generations"].append({"prompt": prompt, "sample": i % n_ret,
@@ -548,8 +613,8 @@ class GptGenerator(BaseTrainer):
 
 
 @C.main(config_path="../conf", config_name="gen_gpt")
-def run(cfg) -> None:
-    run_trainer(GptGenerator, cfg)
+def run(cfg):
+    return run_trainer(GptGenerator, cfg)
 
 
 if __name__ == "__main__":

@@ -26,8 +26,14 @@ Execution, as in the JAX package:
   ``transform`` builds the (Nt, Nc) weights on the host and one f32 product
   with the values gives the cache logits (no cache kernel computes it).
 
-This port runs on one device. The JAX package's mesh path (``setup_mesh``,
-``ShardedResidentCache``, ``sharded_cache_logits``) is not ported.
+Several cards, as in the JAX app: with more than one visible card
+(``meta.world_size`` ranks when set) the cache's rows are split over the
+ranks of a ``model`` axis (``setup_mesh``, one process a rank):
+``parallel.ShardedResidentCache`` keeps each rank's rows resident and a
+selection becomes a row mask, each rank runs K3 / K2 (Hard) or K1 (Softmax)
+on its rows and one all-reduce adds the partial logits; values built on the
+host go through ``parallel.sharded_cache_logits`` (K1 on each rank's rows).
+Rank 0 logs the records and saves the arrays.
 
 Run: ``python -m summer_clip_torch.apps.image_attention dataset_name=<name>
 data.features_key=<key> cache.features_key=<key> cache.outs_key=<key>``
@@ -47,7 +53,7 @@ from summer_clip_torch.apps.common import create_clip_session
 from summer_clip_torch.apps.features_io import resolve_array
 from summer_clip_torch.apps.savers import TensorsNumpySaver
 from summer_clip_torch.core import config as C
-from summer_clip_torch.engine.trainer import BaseTrainer, run_trainer
+from summer_clip_torch.engine.trainer import BaseTrainer, run_trainer, visible_world
 from summer_clip_torch.methods import cache as cache_methods
 from summer_clip_torch.methods.cache import cache_logits_for_betas
 from summer_clip_torch.methods.zeroshot import compute_accuracy, label_rank, zeroshot_classifier
@@ -82,6 +88,13 @@ def _device_softmax_values(outs: torch.Tensor, valid: int, scale: float) -> torc
     return v.to(torch.bfloat16) if outs.is_cuda else v
 
 
+class _ShardedValueSpec(tp.NamedTuple):
+    """A value strategy computed on each rank from its resident outs
+    (``parallel.ShardedResidentCache``) instead of on the host."""
+    kind: str            # "hard" | "softmax"
+    scale: float
+
+
 class _OnehotValues(tp.NamedTuple):
     """Hard (one-hot) values represented by per-row labels only: they feed the
     label-driven kernels and the value matrix is never built. Produced from
@@ -92,6 +105,18 @@ class _OnehotValues(tp.NamedTuple):
 
 class ImageAttention(BaseTrainer):
     # -- setup ---------------------------------------------------------------
+    @classmethod
+    def world_size(cls, cfg) -> int:
+        """Every visible card when there is more than one (the JAX app's rule)."""
+        return max(visible_world(cfg), 1)
+
+    def setup_mesh(self):
+        """The cache's rows split over every rank of the process group (one
+        device without a group)."""
+        from summer_clip_torch.parallel import model_mesh
+
+        self.mesh = model_mesh()
+
     def setup_dataset(self):
         self.dataset = C.instantiate(self.cfg.dataset)
         self.test_labels = np.asarray(self.dataset.labels(), np.int32)
@@ -99,7 +124,7 @@ class ImageAttention(BaseTrainer):
         if self.cfg.cache.get("dataset"):
             cache_view = C.instantiate(self.cfg.cache.dataset)
             self.cache_labels = np.asarray(cache_view.labels(), np.int32)
-        if self.cfg.run_saves.save_labels:
+        if self.cfg.run_saves.save_labels and self.leads:
             self.save_labels()
 
     def setup_logger(self):
@@ -147,6 +172,17 @@ class ImageAttention(BaseTrainer):
         rdtype = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                   "float32": torch.float32, "f32": torch.float32}[rd]
         self._cache_rows = self.origin_cache_image_features.shape[0]
+        self._last_inds: tp.Optional[np.ndarray] = None
+        self._outs_replaced = False
+        self._sel_cache: tp.Optional[tp.Tuple[np.ndarray, tp.Any]] = None
+        self._resident_shards = None
+        if self.mesh is not None:
+            from summer_clip_torch.parallel import ShardedResidentCache
+
+            self._resident_shards = ShardedResidentCache(
+                self.origin_cache_image_features, self.origin_cache_image_outs, self.mesh,
+                axis="model", resident_dtype=rdtype)
+            return
         # PREDICTION-SORTED residence: row order is irrelevant to every
         # combination (the cache logits are sums over rows), so the resident
         # matrices are grouped by predicted class. Selections map through
@@ -165,9 +201,6 @@ class ImageAttention(BaseTrainer):
         co = _pad_rows(self.origin_cache_image_outs[order])
         self._cache_dev = torch.from_numpy(cn).to(dev, rdtype)
         self._outs_dev = torch.from_numpy(co).to(dev, rdtype)
-        self._last_inds: tp.Optional[np.ndarray] = None
-        self._outs_replaced = False
-        self._sel_cache: tp.Optional[tp.Tuple[np.ndarray, tp.Any]] = None
 
     # -- cache construction ----------------------------------------------------
     def build_cache(self, strategy, feats: np.ndarray, outs: np.ndarray
@@ -181,7 +214,7 @@ class ImageAttention(BaseTrainer):
         self._last_inds = inds
         cf, co = feats[inds], outs[inds]
         info: dict = {"cache_size": int(co.shape[0])}
-        if self.cfg.run_saves.save_cache_inds:
+        if self.cfg.run_saves.save_cache_inds and self.leads:
             info["cache_inds_path"] = str(self.cache_saver.save_tensor(inds))
         if self.cache_labels is not None:
             labels = self.cache_labels[inds]
@@ -230,10 +263,10 @@ class ImageAttention(BaseTrainer):
     def train_loop(self):
         a1, a5 = compute_accuracy(self.clip_logits, self.test_labels)
         zinfo: dict = {"acc1": a1, "acc5": a5}
-        if self.cfg.run_saves.save_preds:
+        if self.cfg.run_saves.save_preds and self.leads:
             preds = self.clip_logits.argmax(dim=1).cpu().numpy()
             zinfo["preds_path"] = str(self.preds_saver.save_tensor(preds))
-        if self.cfg.run_saves.save_logits:
+        if self.cfg.run_saves.save_logits and self.leads:
             zinfo["logits_path"] = str(self.preds_saver.save_tensor(self.clip_logits.cpu().numpy()))
         self.logger.log_info({**zinfo, "type": "zero_shot"})
 
@@ -285,12 +318,24 @@ class ImageAttention(BaseTrainer):
             self._sel_cache = (inds, sel)
         return self._sel_cache[1]
 
-    def _device_values(self, value_strategy) -> tp.Union[torch.Tensor, _OnehotValues, None]:
+    def _device_values(self, value_strategy
+                       ) -> tp.Union[torch.Tensor, _OnehotValues, _ShardedValueSpec, None]:
         """The value operand from the resident outs, padded in lockstep with
         the feature gather (pad rows carry zero values or label -1): labels
         for Hard values, a device matrix for Softmax values. None when the
         device path does not apply (non-indexed selection, outs replaced by
-        golds, or another strategy); the caller then builds values on the host."""
+        golds, or another strategy); the caller then builds values on the host.
+        On a mesh: a :class:`_ShardedValueSpec` that each rank computes from its
+        resident outs."""
+        if self._resident_shards is not None:
+            if self._last_inds is None or self._outs_replaced:
+                return None
+            if isinstance(value_strategy, cache_methods.HardCacheStrategy):
+                return _ShardedValueSpec("hard", 1.0)
+            if isinstance(value_strategy, cache_methods.SoftmaxCacheStrategy):
+                return _ShardedValueSpec("softmax", float(value_strategy.clip_scale)
+                                         * float(value_strategy.scale))
+            return None
         sel = None if self._outs_replaced else self._selection_dev()
         if sel is None:
             return None
@@ -305,6 +350,15 @@ class ImageAttention(BaseTrainer):
         return None
 
     def _fused_cache_logits(self, cache_features, values, betas) -> torch.Tensor:
+        if self.mesh is not None:
+            if isinstance(values, _ShardedValueSpec):
+                # the resident ranks: the selection goes as a row mask
+                return self._resident_shards.logits(self._test_norm, self._last_inds, list(betas),
+                                                    kind=values.kind, scale=values.scale)
+            from summer_clip_torch.parallel import sharded_cache_logits
+
+            return sharded_cache_logits(self._test_norm, _l2n(np.asarray(cache_features, np.float32)),
+                                        np.asarray(values), list(betas), self.mesh, axis="model")
         sel = self._selection_dev()
         if sel is None:
             return cache_logits_for_betas(self.test_image_features, cache_features,
@@ -369,6 +423,8 @@ class ImageAttention(BaseTrainer):
 
     def _log_results(self, strategy_params, weights_params, value_params,
                      alphas, accs: np.ndarray, cache_logits_one: torch.Tensor) -> None:
+        if not self.leads:
+            return
         for ai, alpha in enumerate(alphas):
             info: dict = {
                 "cache_strategy": strategy_params,
@@ -384,8 +440,8 @@ class ImageAttention(BaseTrainer):
 
 
 @C.main(config_path="../conf", config_name="image_attention")
-def run(cfg) -> None:
-    run_trainer(ImageAttention, cfg)
+def run(cfg):
+    return run_trainer(ImageAttention, cfg)
 
 
 if __name__ == "__main__":

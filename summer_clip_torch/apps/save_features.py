@@ -17,9 +17,11 @@ import logging
 import numpy as np
 import torch
 
-from summer_clip_torch.apps.common import create_clip_session, extract_image_features
+from summer_clip_torch.apps.common import (create_clip_session, data_parallel_mesh,
+                                           data_parallel_world, extract_image_features)
 from summer_clip_torch.core import config as C
 from summer_clip_torch.engine.trainer import make_logger, resolve_device
+from summer_clip_torch.parallel import mesh as M
 from summer_clip_torch.methods.zeroshot import clip_logits, zeroshot_classifier
 from summer_clip_torch.store import FeatureStore
 
@@ -37,6 +39,8 @@ def save_split_features(cfg, session, store: FeatureStore, dataset_cfg, key: str
     feats, labels, indices = extract_image_features(session, batcher)
     if not (indices == np.arange(len(indices))).all():
         raise RuntimeError("Indexes should have consequent order")
+    if not M.leads():
+        return   # rank 0 writes the store
 
     outs = None
     if save_outs:
@@ -52,15 +56,17 @@ def save_split_features(cfg, session, store: FeatureStore, dataset_cfg, key: str
     logger.log_info({"type": "features_saved", "key": key, "count": int(len(feats))})
 
 
-@C.main(config_path="../conf", config_name="save_features")
-def run(cfg) -> None:
+def _extract(cfg) -> None:
     logging.info("Start!")
     logger = make_logger(cfg.exp.project, cfg.exp.name, C.to_container(cfg))
+    mesh = data_parallel_mesh(int(cfg.data.batch_size))
+    if mesh is not None:
+        logger.log_info(f"Sharding extraction batches over {mesh.shape['data']} ranks")
     session = create_clip_session(cfg.clip.model_name, cfg.clip.get("checkpoint_path"),
                                   cfg.clip.get("dtype"),
                                   device=resolve_device(cfg.meta.get("device")),
                                   logger=logger, proj_path=cfg.clip.get("proj_path"),
-                                  quant=cfg.clip.get("quant"))
+                                  quant=cfg.clip.get("quant"), mesh=mesh)
     store = FeatureStore(cfg.store.root)
     model_tag = session.cfg.name.replace("/", "")
     if cfg.get("train_dataset") is not None:
@@ -71,6 +77,18 @@ def run(cfg) -> None:
         save_split_features(cfg, session, store, cfg.test_dataset,
                             f"{cfg.dataset_name}_test-{model_tag}", False, logger)
     logging.info("Finish!")
+
+
+@C.main(config_path="../conf", config_name="save_features")
+def run(cfg):
+    """One process, or one a rank (``data_parallel_world``) unless a process
+    group exists; returns each rank's ``parallel.mesh.RankResult`` then."""
+    if not M.distributed_init():
+        world = data_parallel_world(cfg, int(cfg.data.batch_size))
+        if world > 1:
+            return M.launch(_extract, M.rank_devices(resolve_device(cfg.meta.get("device")), world),
+                            cfg)
+    return _extract(cfg)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,11 @@ trains the cache keys (``methods.tip.finetune_cache_keys``) on the un-augmented
 few-shot train split, saves them as ``cache_{shots}shots_finetuned`` and
 writes ``tipf_result`` and ``tipf_searched``.
 
+Data parallel, as in the JAX app: with several cards (``meta.world_size``
+ranks when set) and a batch that divides over them, every image extraction
+is split over the ranks (``apps.common.data_parallel_mesh``); rank 0 writes
+the store and runs the search, the other ranks end after the extractions.
+
 Run: ``python -m summer_clip_torch.apps.tip_adapter dataset=<name> shots=16``;
 :func:`run_imagenet` is the same app with the ImageNet prompt-ensemble config
 (``conf/tip_adapter_imagenet.yaml``).
@@ -21,7 +26,8 @@ import typing as tp
 import numpy as np
 import torch
 
-from summer_clip_torch.apps.common import (create_clip_session, extract_image_features,
+from summer_clip_torch.apps.common import (create_clip_session, data_parallel_mesh,
+                                           data_parallel_world, extract_image_features,
                                            resolve_prompting)
 from summer_clip_torch.core import config as C
 from summer_clip_torch.data.views import DatasetView
@@ -34,6 +40,13 @@ from summer_clip_torch.store import FeatureStore
 class TipAdapterTrainer(BaseTrainer):
     dataset_view_cls = DatasetView
 
+    @classmethod
+    def world_size(cls, cfg) -> int:
+        return data_parallel_world(cfg, int(cfg.data.batch_size))
+
+    def setup_mesh(self):
+        self.mesh = data_parallel_mesh(int(self.cfg.data.batch_size))
+
     def setup_model(self):
         cfg = self.cfg
         self.store = FeatureStore(f"./caches/{cfg.dataset}")
@@ -42,7 +55,7 @@ class TipAdapterTrainer(BaseTrainer):
                                            cfg.clip.get("dtype"), device=self.device,
                                            logger=self.logger,
                                            proj_path=cfg.clip.get("proj_path"),
-                                           quant=cfg.clip.get("quant"))
+                                           quant=cfg.clip.get("quant"), mesh=self.mesh)
         size = self.session.input_size
         bs = int(cfg.data.batch_size)
         shots = int(cfg.shots)
@@ -105,8 +118,9 @@ class TipAdapterTrainer(BaseTrainer):
             if labels is None:
                 labels = lab
         keys, values = tip_methods.build_cache_from_features(passes, labels, self.num_classes)
-        self.store.save(key, features=keys, extra={"values": values},
-                        meta={"shots": int(self.cfg.shots)})
+        if self.leads:
+            self.store.save(key, features=keys, extra={"values": values},
+                            meta={"shots": int(self.cfg.shots)})
         return keys, values
 
     def preload_features(self, split: str, view: DatasetView, batch_size: int
@@ -117,7 +131,8 @@ class TipAdapterTrainer(BaseTrainer):
             return np.asarray(arrs["features"]), np.asarray(arrs["labels"])
         feats, labels, _ = extract_image_features(self.session, view.batcher(batch_size=batch_size))
         feats = feats / np.maximum(np.linalg.norm(feats, axis=-1, keepdims=True), 1e-12)
-        self.store.save(key, features=feats, labels=labels)
+        if self.leads:
+            self.store.save(key, features=feats, labels=labels)
         return feats, labels
 
     # -- evaluation ---------------------------------------------------------------
@@ -143,6 +158,8 @@ class TipAdapterTrainer(BaseTrainer):
         return beta, alpha, acc, accuracy(tip, self.test_labels)[0]
 
     def train_loop(self):
+        if not self.leads:
+            return   # the other ranks end after the extractions
         cfg = self.cfg
         dev = self.device
         clip_logits = self._clip_logits(self.test_features)
@@ -204,13 +221,13 @@ class TipAdapterTrainer(BaseTrainer):
 
 
 @C.main(config_path="../conf", config_name="tip_adapter")
-def run(cfg) -> None:
-    run_trainer(TipAdapterTrainer, cfg)
+def run(cfg):
+    return run_trainer(TipAdapterTrainer, cfg)
 
 
 @C.main(config_path="../conf", config_name="tip_adapter_imagenet")
-def run_imagenet(cfg) -> None:
-    run_trainer(TipAdapterTrainer, cfg)
+def run_imagenet(cfg):
+    return run_trainer(TipAdapterTrainer, cfg)
 
 
 if __name__ == "__main__":

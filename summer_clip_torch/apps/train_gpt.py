@@ -20,7 +20,8 @@ On the card each causal self-attention (T <= ``SHORT_MAX_T``) launches K4
 ``training.remat`` a block runs again in the backward, so K4 launches twice
 a block and micro-step. ``training.tp > 1``, ``pp > 1``, ``fsdp`` and
 ``scan_layers`` raise ``NotImplementedError``: the JAX package's mesh,
-pipeline, sharded and stacked layouts wait for ROADMAP Queue 1 item 8.
+pipeline, sharded and stacked layouts are the training side of the
+multi-device layer, which follows its serving side (ROADMAP Queue 1 item 1).
 
 Run: ``python -m summer_clip_torch.apps.train_gpt dataset.train.tokens_path=<npy>
 dataset.val.tokens_path=<npy>`` (``meta.device=cpu`` for the CPU).
@@ -66,8 +67,9 @@ def eval_starts(n_rows: int, batch: int) -> range:
 
 
 def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"train_gpt: {what} is not ported (ROADMAP Queue 1 item 8); "
-                               f"the port trains on one device")
+    return NotImplementedError(f"train_gpt: {what} is not ported yet (the training side of "
+                               f"multi-device, ROADMAP Queue 1 item 1); the port trains on one "
+                               f"device")
 
 
 class ClipGPTTrainer(BaseTrainer):

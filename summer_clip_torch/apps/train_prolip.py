@@ -6,8 +6,10 @@ pre-projection features (the image tower, K5 and K6 on the card) -> W
 trained against the frozen zero-shot text classifier -> zero-shot and ProLIP
 test top-1. The tuned projection goes into the run's feature store
 (``prolip_proj_{shots}shots``) and into ``prolip_proj.npy``, which
-``clip.proj_path`` swaps into any downstream tower. One device: the JAX app's
-data-parallel mesh is not ported.
+``clip.proj_path`` swaps into any downstream tower. Data parallel as in the
+JAX app (``apps.common.data_parallel_mesh``): the feature extraction is split
+over the ranks, and rank 0 alone trains and writes; the other ranks end after
+the extraction.
 
 Run: ``python -m summer_clip_torch.apps.train_prolip dataset=<name> shots=<k>``.
 """
@@ -16,7 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from summer_clip_torch.apps.common import (create_clip_session, extract_image_features,
+from summer_clip_torch.apps.common import (create_clip_session, data_parallel_mesh,
+                                           data_parallel_world, extract_image_features,
                                            resolve_prompting)
 from summer_clip_torch.core import config as C
 from summer_clip_torch.data.views import DatasetView
@@ -31,12 +34,19 @@ __all__ = ["ProLipTrainer", "run"]
 class ProLipTrainer(BaseTrainer):
     dataset_view_cls = DatasetView
 
+    @classmethod
+    def world_size(cls, cfg) -> int:
+        return data_parallel_world(cfg, int(cfg.data.batch_size))
+
+    def setup_mesh(self):
+        self.mesh = data_parallel_mesh(int(self.cfg.data.batch_size))
+
     def setup_model(self):
         cfg = self.cfg
         self.store = FeatureStore(f"./caches/{cfg.dataset}")
         self.session = create_clip_session(cfg.clip.model_name, cfg.clip.get("checkpoint_path"),
                                            cfg.clip.get("dtype"), device=self.device,
-                                           logger=self.logger)
+                                           logger=self.logger, mesh=self.mesh)
         size = self.session.input_size
         bs = int(cfg.data.batch_size)
         dn = bool(cfg.data.get("device_normalize", False))
@@ -67,6 +77,8 @@ class ProLipTrainer(BaseTrainer):
         return accuracy(logits, labels)[0]
 
     def train_loop(self):
+        if not self.leads:
+            return   # the other ranks end after the extractions
         tcfg = self.cfg.train
         acc0 = self._top1(self.W0)
         self.logger.log_info(f"**** Zero-shot CLIP's test accuracy: {acc0:.2f}. ****")
@@ -94,8 +106,8 @@ class ProLipTrainer(BaseTrainer):
 
 
 @C.main(config_path="../conf", config_name="train_prolip")
-def run(cfg) -> None:
-    run_trainer(ProLipTrainer, cfg)
+def run(cfg):
+    return run_trainer(ProLipTrainer, cfg)
 
 
 if __name__ == "__main__":

@@ -560,11 +560,13 @@ def _make_run_dir(base: tp.Union[str, Path] = "outputs",
         run_dir = Path(base) / now.strftime("%Y-%m-%d") / now.strftime("%H-%M-%S")
     first = run_dir
     suffix = 0
-    while run_dir.exists():
-        suffix += 1
-        run_dir = first.with_name(f"{first.name}-{suffix}")
-    run_dir.mkdir(parents=True)
-    return run_dir
+    while True:   # ranks of one launch may reach the same name at once
+        try:
+            run_dir.mkdir(parents=True)
+            return run_dir
+        except FileExistsError:
+            suffix += 1
+            run_dir = first.with_name(f"{first.name}-{suffix}")
 
 
 def main(config_path: tp.Union[str, Path], config_name: str,

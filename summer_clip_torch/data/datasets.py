@@ -14,6 +14,7 @@ procedurally-generated images, no disk layout required.
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import typing as tp
@@ -304,28 +305,39 @@ class SyntheticDataset(DatasetBase):
 
 
 class SyntheticBatcher:
-    """Batcher over SyntheticDataset items (images rendered, not decoded)."""
+    """Batcher over SyntheticDataset items (images rendered, not decoded).
+    :meth:`shard`: as ``ImageBatcher.shard``."""
 
     def __init__(self, data: tp.Sequence[Datum], batch_size: int = 8, image_size: int = 32):
         self.data = list(data)
         self.batch_size = batch_size
         self.image_size = image_size
+        self.rows = slice(0, batch_size)
 
     def __len__(self):
         return -(-len(self.data) // self.batch_size)
 
+    def shard(self, index: int, count: int) -> "SyntheticBatcher":
+        from summer_clip_torch.data.loader import share_rows
+
+        out = copy.copy(self)
+        out.rows = share_rows(self.batch_size, (index, count))
+        return out
+
     def __iter__(self):
         from summer_clip_torch.data.loader import Batch, pad_to_batch
 
-        bs = self.batch_size
+        bs, width = self.batch_size, self.rows.stop - self.rows.start
+        size = self.image_size
         for s in range(0, len(self.data), bs):
-            chunk = self.data[s:s + bs]
-            imgs = np.stack([SyntheticDataset.render(i.impath, self.image_size) for i in chunk])
+            idx = np.arange(s, min(s + bs, len(self.data)), dtype=np.int32)[self.rows]
+            chunk = [self.data[i] for i in idx]
+            imgs = np.stack([SyntheticDataset.render(i.impath, size) for i in chunk]
+                            or [np.zeros((size, size, 3), np.float32)])[:len(chunk)]
             labels = np.asarray([i.label for i in chunk], np.int32)
-            idx = np.arange(s, s + len(chunk), dtype=np.int32)
             mask = np.ones(len(chunk), bool)
-            yield Batch(pad_to_batch(imgs, bs), pad_to_batch(labels, bs),
-                        pad_to_batch(idx, bs), pad_to_batch(mask, bs))
+            yield Batch(pad_to_batch(imgs, width), pad_to_batch(labels, width),
+                        pad_to_batch(idx, width), pad_to_batch(mask, width))
 
 
 @register_dataset("synthetic_1k")

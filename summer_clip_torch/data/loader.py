@@ -12,7 +12,9 @@ reference's torch DataLoader worker processes
 
 Two differences from the JAX package's module: the native C++ JPEG decoder is
 not ported (``use_native`` is accepted and the PIL path always runs), and
-``prefetch_to_device`` lives in :mod:`summer_clip_torch.data.prefetch`.
+``prefetch_to_device`` lives in :mod:`summer_clip_torch.data.prefetch`. One
+addition: :meth:`ImageBatcher.shard`, a data-parallel rank's rows of every
+batch (the JAX package decodes every row in its one controller).
 
 The label-only fast path (reference ``NoImageImageNetDataset`` /
 ``load_images=False``) never touches image bytes.
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import copy
 import typing as tp
 
 import numpy as np
@@ -29,7 +32,7 @@ import numpy as np
 from summer_clip_torch.data.core import Datum
 from summer_clip_torch.data.transforms import CLIP_MEAN, CLIP_STD, EvalTransform, load_image
 
-__all__ = ["Batch", "ImageBatcher", "labels_of", "pad_to_batch"]
+__all__ = ["Batch", "ImageBatcher", "labels_of", "pad_to_batch", "share_rows"]
 
 
 class Batch(tp.NamedTuple):
@@ -52,11 +55,23 @@ def pad_to_batch(arr: np.ndarray, batch_size: int) -> np.ndarray:
     return np.pad(arr, pad)
 
 
+def share_rows(batch_size: int, share: tp.Tuple[int, int]) -> slice:
+    """Rank ``i`` of ``n``'s rows of every (padded) batch: ``share = (i, n)``,
+    the JAX package's even split of a batch over the data axis."""
+    i, n = share
+    if batch_size % n:
+        raise ValueError(f"a batch of {batch_size} does not split over {n} ranks")
+    k = batch_size // n
+    return slice(i * k, (i + 1) * k)
+
+
 class ImageBatcher:
     """Iterates fixed-shape batches over a Datum list.
 
     Decoding is overlapped: the next batch's images decode on a thread pool
-    while the caller consumes the current one.
+    while the caller consumes the current one. :meth:`shard` gives a batcher
+    that yields (and decodes) only one data-parallel rank's rows of every
+    batch.
     """
 
     def __init__(self, data: tp.Sequence[Datum], batch_size: int = 256,
@@ -95,6 +110,14 @@ class ImageBatcher:
         # small quality cost (native.preprocess_batch docstring); default
         # off so the PIL-parity reference path stays the default
         self.native_fast = bool(native_fast)
+        self.rows = slice(0, batch_size)   # the rows of every padded batch this yields
+
+    def shard(self, index: int, count: int) -> "ImageBatcher":
+        """A copy that yields only rank ``index`` of ``count``'s rows of every
+        padded batch (``share_rows``), so a rank decodes only its own images."""
+        out = copy.copy(self)
+        out.rows = share_rows(self.batch_size, (index, count))
+        return out
 
     @staticmethod
     def _native_available() -> bool:
@@ -147,36 +170,41 @@ class ImageBatcher:
         n = len(order)
         bs = self.batch_size
         starts = list(range(0, n - bs + 1, bs)) if self.drop_last else list(range(0, n, bs))
+        width = self.rows.stop - self.rows.start
 
         if not self.load_images:
             for s in starts:
-                idx = order[s:s + bs]
+                idx = order[s:s + bs][self.rows]
                 labels = np.asarray([self.data[i].label for i in idx], np.int32)
                 mask = np.ones(len(idx), bool)
                 yield Batch(
                     None,
-                    pad_to_batch(labels, bs),
-                    pad_to_batch(idx.astype(np.int32), bs),
-                    pad_to_batch(mask, bs),
+                    pad_to_batch(labels, width),
+                    pad_to_batch(idx.astype(np.int32), width),
+                    pad_to_batch(mask, width),
                 )
             return
 
         def make_batch(s: int, pool: cf.ThreadPoolExecutor) -> "cf.Future":
-            idx = order[s:s + bs]
+            idx = order[s:s + bs][self.rows]
 
             def build() -> Batch:
-                with cf.ThreadPoolExecutor(max_workers=min(self.num_threads, max(1, len(idx)))) as inner:
-                    imgs = list(inner.map(self._decode_one, idx, [int(i) for i in idx]))
-                images = np.stack(imgs)
+                if len(idx):
+                    with cf.ThreadPoolExecutor(max_workers=min(self.num_threads, len(idx))) as inner:
+                        images = np.stack(list(inner.map(self._decode_one, idx,
+                                                         [int(i) for i in idx])))
+                else:   # a shard's rows of a tail batch that are all padding
+                    one = self._decode_one(int(order[s]), int(order[s]))
+                    images = np.zeros((0,) + one.shape, one.dtype)
                 if images.dtype != np.uint8:  # device_normalize ships raw bytes
                     images = images.astype(np.float32)
                 labels = np.asarray([self.data[i].label for i in idx], np.int32)
                 mask = np.ones(len(idx), bool)
                 return Batch(
-                    pad_to_batch(images, bs),
-                    pad_to_batch(labels, bs),
-                    pad_to_batch(idx.astype(np.int32), bs),
-                    pad_to_batch(mask, bs),
+                    pad_to_batch(images, width),
+                    pad_to_batch(labels, width),
+                    pad_to_batch(idx.astype(np.int32), width),
+                    pad_to_batch(mask, width),
                 )
 
             return pool.submit(build)

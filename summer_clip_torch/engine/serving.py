@@ -32,8 +32,15 @@ Determinism: with ``top_k=1`` or ``greedy=True`` a request's output does not
 depend on what shares the batch or how prefill is chunked, and equals
 ``gen_gpt.generate_device`` on the same model wherever a row's arithmetic does
 not depend on its companions (the kernels' rows do not; see PERF.md for the
-wide prefill on the card). The tensor-parallel arms are not ported: ``mesh``
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 8).
+wide prefill on the card).
+
+``mesh`` (a ``parallel.create_mesh`` in a process group): every iteration's
+block stack runs tensor-parallel over the mesh's ``model`` axis
+(``parallel.tp_int8.TPInt8Decoder``: each rank streams its Megatron slices,
+K7 on an int8 tree, and all-reduces the row-parallel products), as the JAX
+engine swaps in its TP decoder. Every rank of the axis drives an engine with
+the same requests and arguments; the slot state machine runs on each host
+alike and the ranks emit the same ids. TP and the megakernel do not compose.
 """
 
 from __future__ import annotations
@@ -193,15 +200,19 @@ class ContinuousBatcher:
                  generator: tp.Optional[torch.Generator] = None, prefill_chunk: bool = True,
                  quant_int8: bool = False, burst: int = 8, pipeline: int = 4, wave: bool = True,
                  megakernel: bool = False, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) is not ported yet: "
-                                      "ROADMAP Queue 1 item 8")
+        tp_mesh = mesh is not None and mesh.groups.get("model") is not None
+        if tp_mesh and megakernel:
+            raise ValueError("TP serving and the megakernel do not compose")
         self._head_table = None
         if quant_int8:
             model = model.with_tree(quantize_tree(model.tree())).eval()
             # hoisted once per engine: every step reads its logits off this
             # int8 table instead of running the model's head again
             self._head_table = quant_head_table(model)
+        if tp_mesh:
+            from summer_clip_torch.parallel import tp_int8_decoder
+
+            model = tp_int8_decoder(model, mesh)
         self.model = model
         self.device = model.core.ln_f.scale.device
         self.quant_int8 = bool(quant_int8)

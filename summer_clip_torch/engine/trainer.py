@@ -6,14 +6,23 @@ timed train/val phases, metric logging and per-epoch checkpoints; one-shot
 evaluators override ``train_loop``. :func:`run_trainer` guards the whole run
 with a SIGTERM preemption guard (``engine/preemption.py``): after the first
 signal the epoch in flight finishes, its checkpoint is written, and the loop
-stops. There is no device mesh. The device comes from the config
-(``meta.device``) or is CUDA when present; seeding covers python, numpy and torch, and ``self.generator`` is the
+stops. The device comes from the config (``meta.device``) or is CUDA when
+present; seeding covers python, numpy and torch, and ``self.generator`` is the
 run's explicit ``torch.Generator``.
+
+Several devices: an app's :meth:`BaseTrainer.world_size` is its rule for the
+number of ranks (one by default; ``meta.world_size`` overrides the visible
+cards where an app has a rule). :func:`run_trainer` starts that many
+processes when it is not in a process group already (``parallel.launch``; a
+group that ``torchrun`` or a caller made is joined by ``setup_mesh``), each
+rank runs the app with ``self.mesh`` set, and rank 0 alone writes records and
+files (:attr:`BaseTrainer.leads`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 import random
 import time
@@ -27,14 +36,24 @@ from summer_clip_torch.core.config import ConfigNode, to_container, to_yaml
 from summer_clip_torch.core.device import resolve_device
 
 __all__ = ["BaseTrainer", "run_trainer", "make_logger", "set_random_state", "resolve_device",
-           "timed"]
+           "timed", "visible_world"]
 
 
 def make_logger(project: str = "summer_clip_torch", name: tp.Optional[str] = None,
                 config: tp.Optional[dict] = None) -> log_utils.LoggingManager:
     """Console + ``records.jsonl`` in the run dir. Unlike the JAX package's
     ``make_logger`` this never picks wandb, so a run opens no network
-    connection whatever is installed."""
+    connection whatever is installed. A rank other than 0 of a process group
+    logs nothing: rank 0 writes the run's records."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
+        quiet = logging.getLogger("summer_clip_torch.quiet_rank")
+        quiet.propagate = False
+        if not quiet.handlers:
+            quiet.addHandler(logging.NullHandler())
+        return log_utils.LoggingManager(log_utils.NullExpLogger(),
+                                        log_utils.ConsoleLogger(name or project, quiet))
     return log_utils.LoggingManager(log_utils.JsonlLogger("records.jsonl", config=config),
                                     log_utils.ConsoleLogger(name or project))
 
@@ -46,6 +65,16 @@ def set_random_state(seed: int) -> torch.Generator:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
+
+
+def visible_world(cfg) -> int:
+    """The ranks an app with a multi-device rule may take: ``meta.world_size``
+    when set, else every visible card (one on the CPU)."""
+    meta = cfg.get("meta", {}) or {}
+    if meta.get("world_size") is not None:
+        return int(meta.get("world_size"))
+    device = resolve_device(meta.get("device"))
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 @contextlib.contextmanager
@@ -65,6 +94,19 @@ class BaseTrainer:
     def __init__(self, cfg: ConfigNode):
         self.cfg = cfg
         self.generator: tp.Optional[torch.Generator] = None
+        self.mesh = None
+
+    @classmethod
+    def world_size(cls, cfg: ConfigNode) -> int:
+        """The app's rule for its number of ranks: one device unless an app
+        says otherwise."""
+        return 1
+
+    @property
+    def leads(self) -> bool:
+        """Whether this rank writes what a one-device run writes: rank 0 of
+        the mesh, or the only process."""
+        return self.mesh is None or self.mesh.leads
 
     # -- setup hooks (overridden by apps) -----------------------------------
     def setup_logger(self):
@@ -81,6 +123,15 @@ class BaseTrainer:
 
     def setup_device(self):
         self.device = resolve_device(self.cfg.get("meta", {}).get("device"))
+
+    def setup_mesh(self):
+        """Hook for multi-device apps; one device (no mesh) by default. Joins
+        the process group the environment names first (``distributed_init``
+        is a no-op without one), as the JAX package's hook does."""
+        from summer_clip_torch.parallel import distributed_init
+
+        distributed_init()
+        self.mesh = None
 
     def setup_dataset(self):
         pass
@@ -104,6 +155,7 @@ class BaseTrainer:
         self.setup_rng()
         self.setup_logger()
         self.setup_device()
+        self.setup_mesh()
         self.setup_dataset()
         self.setup_loaders()
         self.setup_model()
@@ -164,8 +216,26 @@ class BaseTrainer:
         time_log.end()
 
 
-def run_trainer(trainer_cls: tp.Type[BaseTrainer], cfg: ConfigNode) -> BaseTrainer:
+def _rank_trainer(trainer_cls: tp.Type[BaseTrainer], cfg: ConfigNode) -> None:
+    _run_here(trainer_cls, cfg)
+
+
+def run_trainer(trainer_cls: tp.Type[BaseTrainer], cfg: ConfigNode):
+    """Run the app: here when its world is one device or a process group
+    exists (returns the trainer), else in ``trainer_cls.world_size(cfg)`` new
+    processes (returns each rank's ``parallel.mesh.RankResult``)."""
+    from summer_clip_torch.parallel import mesh as M
+
     print(to_yaml(cfg))
+    if not M.distributed_init():
+        world = trainer_cls.world_size(cfg)
+        if world > 1:
+            devices = M.rank_devices(resolve_device(cfg.get("meta", {}).get("device")), world)
+            return M.launch(_rank_trainer, devices, trainer_cls, cfg)
+    return _run_here(trainer_cls, cfg)
+
+
+def _run_here(trainer_cls: tp.Type[BaseTrainer], cfg: ConfigNode) -> BaseTrainer:
     trainer = trainer_cls(cfg)
     # guard the whole run, setup included: an eviction does not wait for the
     # first epoch

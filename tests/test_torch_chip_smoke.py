@@ -260,3 +260,77 @@ def test_sandbox_path_rehearsed_on_the_cpu(tmp_path, monkeypatch):
     assert out["launches"]["generate"] == {}
     chip_smoke.check_sandbox(out)
     assert at.short_attention_packed is k4
+
+
+def test_kernels_line_lists_multi_device():
+    """The ``multi_device`` path (phase (p)) has its entry in every kernel's
+    ``launches_by_path``, and its launches count in ``launches``."""
+    assert chip_smoke.MAIN_PATHS["multi_device"] is chip_smoke.MULTI_PATH
+    assert {"K1 cache_dense", "K2 labels_dense", "K3 onehot_grouped",
+            "K7 streamed_qmatmul"} <= set(chip_smoke.MULTI_PATH)
+    paths = list(chip_smoke.MAIN_PATHS)
+    launches = {p: {n: 0 for n in chip_smoke.KERNELS} for p in paths}
+    launches["gen_gpt"]["K7 streamed_qmatmul"] = 25645
+    launches["multi_device"]["K7 streamed_qmatmul"] = 2 * (8817 + 9410 + 2793) + 8817
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    results = {n: {"max_abs_err": 0.0, **{k: 1.0 for k in keys},
+                   "shapes": {s: {k: 1.0 for k in keys} for s in (shape,)} if shape else {}}
+               for n, (_, _, shape) in chip_smoke.KERNELS.items()}
+    on, _ = chip_smoke.kernels_lines(results, launches)
+    k7 = next(e for e in on if e["name"] == "K7 streamed_qmatmul")
+    assert k7["launches_by_path"]["multi_device"] == 2 * (8817 + 9410 + 2793) + 8817
+    assert k7["launches"] == 25645 + 2 * (8817 + 9410 + 2793) + 8817
+
+
+def test_tp_k7_launch_arithmetic():
+    """K7 launches a rank makes a decoded token of the int8 ClipGPT under TP:
+    at gpt2-large every slice at tp = 2 ((1280, 1920), (640, 1280), (1280, 2560),
+    (2560, 1280)) and tp = 4 (c_proj's K = 320) is tile-legal, so a rank makes
+    the one-device route's 147 (4 a block, 2 adapters, the hoisted head). At
+    test-gpt-mega's widths the count is 11 a token (2 blocks), which the
+    decoder's own calls confirm on the CPU (counted at K7's wrapper on rank
+    0's slices of a 1 x 2 mesh)."""
+    import torch
+
+    from summer_clip_torch.apps import gen_gpt
+    from summer_clip_torch.engine.quant import quantize_tree
+    from summer_clip_torch.models.gpt2 import GPT2_CONFIGS, ClipGPT
+    from summer_clip_torch.ops import gemv
+    from summer_clip_torch.ops.gemv import _tile_legal
+    from summer_clip_torch.parallel import Mesh
+    from summer_clip_torch.parallel.tp_int8 import TPInt8Decoder
+
+    large = GPT2_CONFIGS["gpt2-large"]
+    assert [chip_smoke.tp_k7_per_token(large, t) for t in (1, 2, 4)] == [147, 147, 147]
+    for k, n in ((1280, 1920), (640, 1280), (1280, 2560), (2560, 1280), (320, 1280)):
+        assert _tile_legal(k, n, 1)
+    mega = GPT2_CONFIGS["test-gpt-mega"]
+    assert chip_smoke.tp_k7_per_token(mega, 2, clip_emb=128, hid=128, vocab=512) == 11
+
+    model = ClipGPT(mega, clip_vocab_size=512, clip_emb_dim=128, emb_hid_dim=128,
+                    head_hid_dim=128, device="cpu").init_weights(torch.Generator().manual_seed(0))
+    model = model.with_tree(quantize_tree(model.tree())).eval()
+    mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0}, 0, torch.device("cpu"),
+                {"data": None, "model": None})
+    dec = TPInt8Decoder(model, mesh)
+    head = gen_gpt._head(dec, True)
+    calls = {"n": 0}
+    real = gemv.streamed_qmatmul
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return real(*a, **k)
+
+    gemv.streamed_qmatmul = counted
+    try:
+        cache = dec.init_cache(1, 8)
+        out = dec(torch.tensor([[3, 4, 5]]), cache=cache, compute_logits=False)
+        calls["n"] = 0
+        with torch.inference_mode():
+            out = dec(torch.tensor([[6]]), position_offset=3, cache=out["cache"],
+                      compute_logits=False)
+            head(out["hidden"][:, -1, :])
+    finally:
+        gemv.streamed_qmatmul = real
+    assert calls["n"] == 11
+    assert cache[0]["k"].shape == (1, 8, 128)     # the rank's half of the embedding dim

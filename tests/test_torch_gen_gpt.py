@@ -240,11 +240,15 @@ def test_app_end_to_end_writes_results(tmp_path, monkeypatch):
 @pytest.mark.parametrize("override,match", [
     ("generation.tp=2", "tensor-parallel")])
 def test_switches_not_ported_yet_raise(tmp_path, monkeypatch, override, match):
+    """``generation.tp`` is ported (``tests/test_torch_parallel_tp.py``); what
+    still raises is what the JAX app refuses with it, before any rank starts:
+    the serving engine and the host loop."""
     path, _ = _checkpoint(tmp_path)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        tgen.run(argv=[f"model.checkpoint_dir={path}", "meta.device=cpu", override,
-                       'prompts=["a"]'])
+    for extra in ("generation.continuous=true", "generation.device_loop=false"):
+        with pytest.raises(ValueError, match=match):
+            tgen.run(argv=[f"model.checkpoint_dir={path}", "meta.device=cpu", override, extra,
+                           'prompts=["a"]'])
 
 
 SERVING_SWITCHES = {

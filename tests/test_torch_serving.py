@@ -222,8 +222,12 @@ def test_engine_refuses_what_it_cannot_serve(f32, mega):
         ContinuousBatcher(mega.tm, quant_int8=True, megakernel=True, batch_slots=9)
     with pytest.raises(ValueError, match="geometry"):
         ContinuousBatcher(f32.tm, quant_int8=True, megakernel=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ContinuousBatcher(f32.tm, mesh=object())
+    from summer_clip_torch.parallel import Mesh
+
+    tp_mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0}, 0, torch.device("cpu"),
+                   {"data": None, "model": object()})
+    with pytest.raises(ValueError, match="do not compose"):
+        ContinuousBatcher(mega.tm, quant_int8=True, megakernel=True, mesh=tp_mesh)
     eng = ContinuousBatcher(f32.tm, batch_slots=1, max_len=16)
     with pytest.raises(ValueError, match="exceeds"):
         eng.submit(list(range(1, 13)), max_new_tokens=8)

@@ -333,7 +333,7 @@ def test_dots_policy_saves_only_dense_products():
                                   "training.scan_layers=true"])
 def test_unported_layouts_raise(corpus, what):
     root, data = corpus
-    with _Chdir(root), pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with _Chdir(root), pytest.raises(NotImplementedError, match="training side of multi-device"):
         _port_trainer(data + [what])
 
 
