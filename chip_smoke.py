@@ -290,6 +290,23 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
      block's c_proj dropped); at world 1 the decoder's ids and logits equal to
      the one-device model's bit for bit. With more than one card also every
      card through NCCL (image_attention, gen_gpt where the heads divide).
+   - The training side of the multi-device layer (``multi_device_train``,
+     phase (q)): ``train_gpt`` at gpt2-large full width and depth (ClipGPT
+     with the train_gpt path's adapters, bf16, remat, batch 8 x 80,
+     ``grad_accum_steps`` 2, ``clip_grad_norm`` 1.0: 2 micro-steps, one
+     update, one eval batch) at world 1 as the reference and with
+     ``scan_layers``, then in one world-2 group on the one card (gloo) under
+     dp = 2, tp = 2 (K4 on 10 heads a rank), fsdp and pp = 2 (2
+     microbatches), and EP at width 1280 (4 experts over 2 ranks) against the
+     dense MoE. ``tools/torch_gloo_probe.py`` first logs what gloo does with
+     CUDA tensors. Gates, each layout against the reference: every
+     micro-step's loss, the update's norm over every leaf, the eval loss, the
+     adapters and their first Adam moments read from the step checkpoint
+     rank 0 wrote, loaded into the one-device trainer (standard layout); K4's
+     launches a rank exactly (``mdt_k4_per_rank``); a planted fault (the
+     pipeline's stage sum transposed as a second all-reduce) read against
+     the norm gate. Logs each layout's seconds, ms a micro-step, the update's
+     gradient all-reduce, peak memory and parameter bytes a rank.
 5. Prints a JSON line of the kernels of the main paths (K12 runs on none,
    so it has a line of its own), then as its last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -4823,7 +4840,8 @@ def _md_count(out: dict, name: str, fn):
         f.launches = 0
     t0 = time.perf_counter()
     value = fn()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     out["seconds"][name] = time.perf_counter() - t0
     out["launches"][name] = {k: f.launches for k, f in counters.items()}
     return value
@@ -5243,6 +5261,438 @@ def check_multi_device(md: dict, search_work: Path, gen: dict) -> dict:
     return {k: total.get(k, 0) for k in launch_counters()}
 
 
+# ---------------------------------------------------------------------------
+# (q) multi_device_train: the training side of the multi-device layer
+# ---------------------------------------------------------------------------
+MDT_PATH = ("K4 short_attention_packed",)
+MDT_BATCH, MDT_ACCUM, MDT_MICRO = 8, 2, 2      # global batch 8 x 80, one update, one eval batch
+MDT_STAGES, MDT_PP_MICRO = 2, 2
+MDT_DEVICES = ("cuda:0", "cuda:0")             # world 2 on the one card
+MDT_LAYOUTS = {"dp": [], "tp": ["training.tp=2"], "fsdp": ["training.fsdp=true"],
+               "pp": [f"training.pp={MDT_STAGES}", f"training.pp_microbatches={MDT_PP_MICRO}"]}
+# a layout's micro-step losses, eval loss, update norm (over every leaf) and
+# the adapters' first Adam moments against the one-device reference (bf16,
+# K4): the train_gpt gate's limits (kernel route against plain on one device);
+# the one-device bf16 route's own distance to an f32 route of the same
+# weights and batch is logged beside them. The update's learning rate is
+# warmup's 0, so the adapters themselves must equal the reference's.
+TOL_MDT_LOSS_REL = TOL_LM_LOSS_REL
+TOL_MDT_NORM_REL = TOL_LM_NORM_REL
+TOL_MDT_MOMENT_REL = TOL_LM_NORM_REL
+# EP at width 1280, f32: the forward and every gradient against the dense MoE
+TOL_EP_REL = 1e-4
+
+
+def mdt_k4_per_rank(layout: str, n_layer: int = 36, micro: int = MDT_MICRO, evals: int = 1,
+                    stages: int = MDT_STAGES, n_micro: int = MDT_PP_MICRO) -> int:
+    """K4's launches a rank makes in a layout's run: a block and forward, a
+    second time under remat's recompute, once an eval batch; a pipeline stage
+    runs its blocks at every one of ``M + S - 1`` ticks."""
+    if layout == "pp":
+        return n_layer // stages * (n_micro + stages - 1) * (2 * micro + evals)
+    return n_layer * (2 * micro + evals)
+
+
+def mdt_argv(work: Path, corpus: Path, val: Path, name: str, rows: int) -> list:
+    return ["clip_gpt.gpt_config=gpt2-large", "clip_gpt.clip_emb_dim=512",
+            "clip_gpt.adapters.emb_hid_dim=1024", "clip_gpt.adapters.head_hid_dim=1024",
+            f"dataset.train.tokens_path={corpus}",
+            f"dataset.train.subpart={(MDT_BATCH * MDT_MICRO + 0.5) / rows}",
+            f"dataset.val.tokens_path={val}", f"data_loader.train.batch_size={MDT_BATCH}",
+            f"data_loader.val.batch_size={MDT_BATCH}", "training.epochs_num=1",
+            f"training.grad_accum_steps={MDT_ACCUM}", "training.clip_grad_norm=1.0",
+            "training.evals_per_epoch=1", "training.info_steps=1", "training.bf16=true",
+            "training.remat=true", f"training.checkpoints_dir={work / ('ckpt_' + name)}",
+            # one update: the cosine schedule would have no decay steps (optax raises)
+            "scheduler.name=linear"]
+
+
+def _mdt_run(work: str, name: str, argv: list, out: dict):
+    """One layout's ``train_gpt`` in this rank: each micro-step's loss, ms,
+    and each update's norm and gradient all-reduce seconds recorded, with the
+    rank's peak memory and resident parameter bytes."""
+    import gc
+
+    import torch
+
+    from summer_clip_torch.apps import train_gpt
+
+    cls = train_gpt.ClipGPTTrainer
+    step = cls.train_step
+    rec = {"losses": [], "ms": [], "norms": [], "sync_s": []}
+    cuda = torch.cuda.is_available()
+
+    def recorded(self, ids):
+        count = self.tx.count
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(self, ids)
+        if cuda:
+            torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(loss)
+        if self.tx.count != count:
+            rec["norms"].append(self.tx.inner.last_grad_norm)
+            rec["sync_s"].append(self.layout.last_sync_s)
+        return loss
+
+    gc.collect()      # the previous layout's trainer
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cls.train_step = recorded
+    try:
+        trainer = _md_count(out, name, lambda: _md_app(work, f"mdt_{name}", train_gpt.run, argv))
+    finally:
+        cls.train_step = step
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    rec["param_bytes"] = sum(p.numel() * p.element_size() for p in trainer.model.parameters())
+    rec["describe"] = trainer.layout.describe
+    out["runs"][name] = rec
+
+
+def _mdt_fault_run(work: str, argv: list, out: dict) -> None:
+    """The planted fault: a pipeline run whose stage sum is transposed as a
+    second all-reduce (``axis_sum`` then ``axis_copy``) instead of the
+    identity, so every gradient is summed over the stages once too often."""
+    from summer_clip_torch.parallel import pp
+    from summer_clip_torch.parallel.mesh import axis_copy
+
+    real = pp.axis_sum
+    pp.axis_sum = lambda x, mesh, axis: axis_copy(real(x, mesh, axis), mesh, axis)
+    try:
+        _mdt_run(work, "fault pp", argv, out)
+    finally:
+        pp.axis_sum = real
+
+
+def mdt_group_rank(work: str, argvs: dict, fault_argv: list, ep: dict) -> dict:
+    """One rank of phase (q)'s world-2 group on the one card: each layout's
+    train_gpt run (dp, tp, fsdp, pp), the planted fault's pipeline run, and EP
+    at width 1280 against the dense MoE."""
+    import torch
+    import torch.distributed as dist
+
+    from summer_clip_torch.parallel import create_mesh, moe_apply_ep, moe_forward_dense
+    from summer_clip_torch.parallel import shard_experts_ep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"launches": {}, "seconds": {}, "runs": {}, "rank": dist.get_rank(),
+           "backend": dist.get_backend()}
+    for name, argv in argvs.items():
+        _mdt_run(work, name, argv, out)
+    _mdt_fault_run(work, fault_argv, out)
+
+    def experts():
+        mesh = create_mesh(axes={"expert": 2})
+        g = torch.Generator().manual_seed(ep["seed"])
+        whole = {k: (torch.randn(shape, generator=g) * scale).to(mesh.device)
+                 for k, (shape, scale) in ep["shapes"].items()}
+        x = torch.randn(ep["x"], generator=g).to(mesh.device)
+        res = {}
+        for route in ("dense", "ep"):
+            params = {k: v.clone().requires_grad_(True) for k, v in whole.items()}
+            xx = x.clone().requires_grad_(True)
+            if route == "dense":
+                y = moe_forward_dense(params, xx)
+            else:
+                local = shard_experts_ep(params, mesh)
+                y = moe_apply_ep(local, xx, mesh)
+            (y ** 2).sum().backward()
+            res[route] = {"y": y.detach(), "x": xx.grad, **{k: p.grad for k, p in params.items()}}
+        i = mesh.coords["expert"]
+        e = ep["shapes"]["w1"][0][0] // 2
+        rel = {}
+        for k in res["dense"]:
+            want = res["dense"][k]
+            if k in ("w1", "b1", "w2", "b2"):     # this rank's experts
+                want = want[i * e:(i + 1) * e]
+                got = res["ep"][k][i * e:(i + 1) * e]
+            else:
+                got = res["ep"][k]
+            rel[k] = float((got - want).norm() / want.norm())
+        return rel
+
+    out["ep_rel"] = _md_count(out, "ep", experts)
+    return out
+
+
+def gloo_probe():
+    """Start ``tools/torch_gloo_probe.py`` in a process of its own (it may
+    crash or hang a rank, and kills its ranks after 60 s): what gloo does with
+    CUDA tensors of two ranks on one card, op by op. Returns a function that
+    waits for its answer."""
+    import subprocess
+
+    probe = subprocess.Popen([sys.executable, str(Path(__file__).resolve().parent / "tools"
+                                                  / "torch_gloo_probe.py"), "--timeout", "60"],
+                             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def answer() -> dict:
+        try:
+            stdout, _ = probe.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            probe.kill()
+            stdout, _ = probe.communicate()
+        lines = [line for line in stdout.splitlines() if line.startswith("{")]
+        return json.loads(lines[-1]) if lines else {"probe": f"exit {probe.returncode}"}
+
+    return answer
+
+
+def run_multi_device_train(work: Path, lm_work: Path) -> dict:
+    """Phase (q): ``train_gpt`` at gpt2-large full width and depth (36 layers,
+    1280 wide, 20 heads; ClipGPT with the adapters of ``train_gpt_argv``; bf16,
+    remat; batch 8 x 80, ``grad_accum_steps`` 2, ``clip_grad_norm`` 1.0; 2
+    micro-steps and one eval batch) at world 1 in this process (the
+    reference, then ``scan_layers``), then in one world-2 group on the one
+    card (gloo) under dp = 2, tp = 2, fsdp and pp = 2 (2 microbatches), and EP
+    at width 1280 (4 experts over 2 ranks); the gloo probe first."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.apps import train_gpt
+    from summer_clip_torch.parallel import launch
+
+    torch.cuda.empty_cache()
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"seconds": {}}
+    probe = gloo_probe()      # beside the world-1 runs
+
+    corpus = lm_work / "corpus.npy"
+    rows = len(np.load(corpus))
+    val = work / "val8.npy"
+    np.save(val, np.load(lm_work / "val.npy")[:MDT_BATCH])      # one eval batch
+    captured = {}
+    real_run_trainer = train_gpt.run_trainer
+
+    def capture(cls, cfg):
+        captured["trainer"] = real_run_trainer(cls, cfg)
+        return captured["trainer"]
+
+    ref = {}
+    train_gpt.run_trainer = capture
+    try:
+        for name, extra in (("reference", []), ("scan", ["training.scan_layers=true"])):
+            sub = work / name
+            sub.mkdir()
+            cwd = os.getcwd()
+            os.chdir(sub)
+            losses, norms = [], []
+            step = train_gpt.ClipGPTTrainer.train_step
+
+            def recorded(self, ids, losses=losses, norms=norms, step=step):
+                count = self.tx.count
+                loss = step(self, ids)
+                losses.append(loss)
+                if self.tx.count != count:
+                    norms.append(self.tx.inner.last_grad_norm)
+                return loss
+
+            train_gpt.ClipGPTTrainer.train_step = recorded
+            t0 = time.perf_counter()
+            try:
+                counters = launch_counters()
+                for f in counters.values():
+                    f.launches = 0
+                train_gpt.run(argv=mdt_argv(work, corpus, val, name, rows) + extra
+                              + ["meta.world_size=1"])
+                launches = {k: f.launches for k, f in counters.items()}
+            finally:
+                train_gpt.ClipGPTTrainer.train_step = step
+                os.chdir(cwd)
+            out["seconds"][name] = time.perf_counter() - t0
+            trainer = captured.pop("trainer")
+            ref[name] = {"losses": losses, "norms": norms, "launches": launches,
+                         "k4": launches["K4 short_attention_packed"],
+                         "eval": records(sub, "gpt_eval")[-1]["loss/eval"],
+                         "adapters": {n: p.detach().cpu().clone()
+                                      for n, p in trainer.model.named_parameters()
+                                      if n.startswith("adapter_")}}
+            if name == "reference":
+                ref[name]["moments"] = {
+                    n: trainer.tx.inner.optimizer.state[p]["exp_avg"].detach().cpu().clone()
+                    for n, p in trainer.model.named_parameters() if n.startswith("adapter_")}
+                ref[name]["f32_spread"] = _mdt_f32_spread(trainer)
+                out["reference_trainer"] = trainer
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        train_gpt.run_trainer = real_run_trainer
+    out["ref"] = ref
+
+    argvs = {name: mdt_argv(work, corpus, val, name, rows) + extra
+             for name, extra in MDT_LAYOUTS.items()}
+    ep = {"seed": 17, "x": (8, 80, 1280),
+          "shapes": {"router": ((1280, 4), 1280 ** -0.5), "w1": ((4, 1280, 5120), 1280 ** -0.5),
+                     "b1": ((4, 5120), 0.02), "w2": ((4, 5120, 1280), 5120 ** -0.5),
+                     "b2": ((4, 1280), 0.02)}}
+    t0 = time.perf_counter()
+    out["gloo"] = probe()
+    fault_argv = mdt_argv(work, corpus, val, "fault_pp", rows) + MDT_LAYOUTS["pp"]
+    group = launch(mdt_group_rank, list(MDT_DEVICES), str(work / "w2"), argvs, fault_argv, ep)
+    out["seconds"]["group w2 (gloo)"] = time.perf_counter() - t0
+    out["group"] = [r.value for r in group]
+    return out
+
+
+def _mdt_f32_spread(trainer) -> float:
+    """The one-device bf16 route's first micro-step loss against an f32 route
+    of the same weights and batch (relative): the spread of the bf16 route
+    itself, logged beside the layouts' gates. The weights are the initial
+    ones (the one update's rate is warmup's 0)."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.apps.train_gpt import lm_loss_fn
+    from summer_clip_torch.models import gpt2 as G
+
+    order = np.random.default_rng((int(trainer.cfg.meta.random_state), 1)).permutation(
+        len(trainer.train_tokens))
+    ids = torch.from_numpy(trainer.train_tokens[order[:MDT_BATCH]]).to(trainer.device)
+    with torch.no_grad():
+        bf16 = float(lm_loss_fn(trainer.model(ids)["logits"], ids))
+        m32 = G.ClipGPT(**{**trainer.model._ctor, "dtype": torch.float32}, device="meta")
+        m32.load_tree(trainer.model.tree())
+        f32 = float(lm_loss_fn(plain_route(lambda: m32(ids)["logits"]), ids))
+    return abs(bf16 - f32) / abs(f32)
+
+
+def check_multi_device_train(mdt: dict, work: Path) -> dict:
+    """Phase (q)'s gates, each beside the planted fault's reading where one
+    applies; every reading is logged before the failures raise together.
+    Returns the path's launches (every rank's layout runs summed)."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch.engine import checkpoint as ckpt
+
+    failures = []
+
+    def fail(msg):
+        log(f"multi_device_train FAILED: {msg}")
+        failures.append(msg)
+
+    ref = mdt["ref"]["reference"]
+    ref_trainer = mdt.pop("reference_trainer")
+    log(f"multi_device_train gloo on CUDA tensors, two ranks on one card "
+        f"(tools/torch_gloo_probe.py): {json.dumps(mdt['gloo'])}")
+    log(f"multi_device_train seconds {json.dumps({k: round(v, 2) for k, v in mdt['seconds'].items()})}")
+    want_ref = mdt_k4_per_rank("dp")
+    log(f"multi_device_train reference (world 1): losses {ref['losses']}, norm {ref['norms']}, "
+        f"eval {ref['eval']:.6f}, K4 {ref['k4']} (expected {want_ref}); the bf16 route's first "
+        f"loss {ref['f32_spread']:.3e} from an f32 route of the same weights")
+    if ref["k4"] != want_ref or len(ref["losses"]) != MDT_MICRO or len(ref["norms"]) != 1:
+        fail(f"the reference run: K4 {ref['k4']}, {len(ref['losses'])} micro-steps")
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def gate_run(label, run_losses, run_norms, run_eval, adapters):
+        loss_rel = max(rel(a, b) for a, b in zip(run_losses, ref["losses"]))
+        norm_rel = rel(run_norms[0], ref["norms"][0])
+        eval_rel = rel(run_eval, ref["eval"])
+        same = all(torch.equal(adapters[n].cpu(), ref["adapters"][n]) for n in ref["adapters"])
+        log(f"multi_device_train {label}: micro-step losses {loss_rel:.3e} (tol "
+            f"{TOL_MDT_LOSS_REL}), update norm {norm_rel:.3e} (tol {TOL_MDT_NORM_REL}), eval "
+            f"{eval_rel:.3e} (tol {TOL_MDT_LOSS_REL}), adapters equal the reference's (the "
+            f"update's rate is warmup's 0): {same}")
+        if (len(run_losses) != MDT_MICRO or loss_rel > TOL_MDT_LOSS_REL
+                or norm_rel > TOL_MDT_NORM_REL or eval_rel > TOL_MDT_LOSS_REL or not same):
+            fail(f"{label} disagrees with the one-device reference")
+
+    scan = mdt["ref"]["scan"]
+    gate_run("scan_layers (world 1)", scan["losses"], scan["norms"], scan["eval"],
+             scan["adapters"])
+    if scan["k4"] != want_ref:
+        fail(f"scan_layers: K4 {scan['k4']}, expected {want_ref}")
+
+    group = mdt["group"]
+    total: dict = {}
+    for run in (ref, scan):
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+    for name in MDT_LAYOUTS:
+        want_k4 = mdt_k4_per_rank(name)
+        for res in group:
+            run, r = res["runs"][name], res["rank"]
+            k4 = res["launches"][name]["K4 short_attention_packed"]
+            for k, v in res["launches"][name].items():
+                total[k] = total.get(k, 0) + v
+            log(f"multi_device_train {name} ({run['describe']}) rank {r}: {res['seconds'][name]:.2f} "
+                f"s, micro-steps {[round(m, 1) for m in run['ms']]} ms, update all-reduce "
+                f"{[round(s * 1e3, 1) for s in run['sync_s']]} ms, peak {run['peak_gib']:.3f} GiB, "
+                f"parameters {run['param_bytes'] / 2 ** 30:.3f} GiB, K4 {k4} (expected {want_k4})")
+            if k4 != want_k4:
+                fail(f"{name} rank {r}: K4 launched {k4} times, expected {want_k4}")
+            if any(v for k, v in res["launches"][name].items() if k != "K4 short_attention_packed"):
+                fail(f"{name} rank {r} launched another kernel")
+            if run["losses"] != group[0]["runs"][name]["losses"]:
+                fail(f"{name}: the ranks logged other losses")
+        step_dir = work / f"ckpt_{name}" / "epoch_1" / f"step_{MDT_MICRO}"
+        saved = ckpt.load_checkpoint(step_dir)
+        flat = dict(ckpt_leaves(saved["params"]))
+        run = group[0]["runs"][name]
+        records_eval = records(work / "w2" / f"mdt_{name}" / "rank0", "gpt_eval")[-1]["loss/eval"]
+        gate_run(name, run["losses"], run["norms"], records_eval, flat)
+        # the one-device app reads it: the standard layout, and its optimizer state
+        named = dict(ref_trainer.model.named_parameters())
+        try:
+            for n, leaf in flat.items():
+                if tuple(leaf.shape) != tuple(named[n].shape):
+                    raise ValueError(f"{n} is {tuple(leaf.shape)}, the model's "
+                                     f"{tuple(named[n].shape)}")
+                with torch.no_grad():
+                    named[n].copy_(leaf)
+            ref_trainer.tx.load_state_dict(saved["opt_state"])
+            moment_rel = max(
+                float((ref_trainer.tx.inner.optimizer.state[named[n]]["exp_avg"].cpu() - m).norm()
+                      / m.norm()) for n, m in ref["moments"].items())
+        except (ValueError, KeyError, RuntimeError) as exc:
+            fail(f"{name}: the step checkpoint does not load into the one-device app ({exc})")
+            continue
+        log(f"multi_device_train {name}: step checkpoint {sorted(flat)[:2]}... ({len(flat)} "
+            f"leaves) loads into the one-device trainer; the adapters' first moments "
+            f"{moment_rel:.3e} from the reference's (tol {TOL_MDT_MOMENT_REL})")
+        if moment_rel > TOL_MDT_MOMENT_REL:
+            fail(f"{name}: the update's moments disagree with the reference's")
+    fault = group[0]["runs"]["fault pp"]
+    fault_rel = rel(fault["norms"][0], ref["norms"][0])
+    log(f"multi_device_train planted fault (pp, the stage sum's backward a second all-reduce): "
+        f"update norm {fault['norms'][0]:.6e}, {fault_rel:.3e} from the reference's (tol "
+        f"{TOL_MDT_NORM_REL}, {fault_rel / TOL_MDT_NORM_REL:.1f}x); losses "
+        f"{max(rel(a, b) for a, b in zip(fault['losses'], ref['losses'])):.3e}")
+    if fault_rel < 3 * TOL_MDT_NORM_REL:
+        fail("the planted fault passes the multi_device_train gates")
+    for res in group:
+        ep_rel = res["ep_rel"]
+        log(f"multi_device_train EP (width 1280, 4 experts over 2 ranks) rank {res['rank']}: "
+            f"relative to the dense MoE {json.dumps({k: float(f'{v:.3e}') for k, v in ep_rel.items()})} "
+            f"(tol {TOL_EP_REL})")
+        if max(ep_rel.values()) > TOL_EP_REL:
+            fail("EP disagrees with the dense MoE")
+    log(f"multi_device_train launches over the world-1 runs, both ranks and the layouts: "
+        f"{json.dumps({k: v for k, v in total.items() if v})}")
+    missing = [k for k in MDT_PATH if total.get(k, 0) <= 0]
+    if missing:
+        fail(f"main path multi_device_train did not launch {missing}")
+    del ref_trainer
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("multi_device_train: " + "; ".join(failures))
+    return {k: total.get(k, 0) for k in launch_counters()}
+
+
+def ckpt_leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from ckpt_leaves(v, prefix + (k,))
+        else:
+            yield ".".join(prefix + (k,)), v
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces, shape whose times stand in the kernels line)
     "K1 cache_dense": ("summer_clip_torch/csrc/cache_kernels.cu",
@@ -5285,7 +5735,8 @@ ONEHOT_SWEEP_PATH = ("K1 cache_dense", "K13 onehot_variant")
 MAIN_PATHS = {"tip_adapter": TIP_PATH, "clip_search": SEARCH_PATH, "gen_gpt": GEN_PATH,
               "train_coop": TRAIN_PATH, "tip_adapter_imagenet": TIP_IMAGENET_PATH,
               "onehot_sweep": ONEHOT_SWEEP_PATH, "prompt_search": PROMPT_SEARCH_PATH,
-              "multi_device": MULTI_PATH, "train_gpt": TRAIN_GPT_PATH, "int8_towers": INT8_PATH, "sandbox": SANDBOX_PATH}
+              "multi_device": MULTI_PATH, "multi_device_train": MDT_PATH,
+              "train_gpt": TRAIN_GPT_PATH, "int8_towers": INT8_PATH, "sandbox": SANDBOX_PATH}
 
 
 def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
@@ -5495,12 +5946,17 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         md_launches = check_multi_device(md, Path(tmp) / "search", gen)
         log(f"phase multi_device: {time.perf_counter() - t0:.2f} s")
 
+        t0 = time.perf_counter()
+        mdt = run_multi_device_train(Path(tmp) / "multi_device_train", Path(tmp) / "train_gpt")
+        mdt_launches = check_multi_device_train(mdt, Path(tmp) / "multi_device_train")
+        log(f"phase multi_device_train: {time.perf_counter() - t0:.2f} s")
+
     kernels, off_path = kernels_lines(results, {
         "tip_adapter": tip_launches, "clip_search": search_launches, "gen_gpt": gen_launches,
         "train_coop": train_launches, "tip_adapter_imagenet": tipi_launches,
         "onehot_sweep": sweep_launches, "prompt_search": prompts_launches,
         "train_gpt": lm_launches, "int8_towers": int8_launches, "sandbox": sandbox_launches,
-        "multi_device": md_launches})
+        "multi_device": md_launches, "multi_device_train": mdt_launches})
     log(f"card: {card}")
     # ported kernels that no main path runs: checked and timed above, listed apart
     print(json.dumps({"kernels_off_the_main_paths": off_path}))

@@ -51,7 +51,7 @@ from summer_clip_torch.engine.quant import map_tree
 
 __all__ = ["save_pytree", "load_pytree", "msgpack_restore", "msgpack_serialize", "filter_tree",
            "merge_tree", "save_checkpoint", "load_checkpoint", "optax_state_dict",
-           "trainable_over_base", "MAX_CHUNK_SIZE"]
+           "trainable_over_base", "MAX_CHUNK_SIZE", "is_port_state"]
 
 MAX_CHUNK_SIZE = 2 ** 30     # flax.serialization's: an array of more bytes is written in chunks
 _CHUNKED = "__msgpack_chunked_array__"
@@ -418,7 +418,7 @@ def save_checkpoint(ckpt_dir: tp.Union[str, Path], *, params: tp.Any = None,
     return ckpt_dir
 
 
-def _is_port_state(state: tp.Any) -> bool:
+def is_port_state(state: tp.Any) -> bool:
     return isinstance(state, tp.Mapping) and (
         {"count", "optimizer"} <= set(state) or {"calls", "inner"} <= set(state))
 
@@ -444,7 +444,7 @@ def load_checkpoint(ckpt_dir: tp.Union[str, Path], *, params_target: tp.Any = No
         out["opt_state"] = load_pytree(opt_path)
         if opt_target is not None:
             state = out["opt_state"]
-            if not _is_port_state(state):
+            if not is_port_state(state):
                 if named_params is None:
                     raise ValueError(f"{opt_path} is an optax state: restoring it needs the "
                                      f"parameters by name (named_params=)")
@@ -478,6 +478,17 @@ def _leaves(tree: tp.Any, path: tp.Tuple[str, ...] = ()) -> tp.Iterator[tp.Tuple
         yield ".".join(path), tree
 
 
+def _unstacked(tree: tp.Any) -> tp.Any:
+    """A tree of the JAX app's stacked layouts (``{"rest", "stacked"}``:
+    ``scan_layers`` leaves ``(1, L, ...)``, ``pp`` ``(S, L/S, ...)``) on the
+    standard paths; any other tree as it is."""
+    if isinstance(tree, tp.Mapping) and set(tree) == {"rest", "stacked"}:
+        from summer_clip_torch.parallel.pp import unstack_block_params
+
+        return unstack_block_params(tree["rest"], tree["stacked"])
+    return tree
+
+
 def optax_state_dict(state: tp.Mapping[str, tp.Any], tx: tp.Any,
                      named_params: tp.Mapping[str, torch.Tensor]) -> dict:
     """A JAX ``train_gpt`` ``optimizer.ckpt`` as ``tx.state_dict()`` of the
@@ -489,7 +500,9 @@ def optax_state_dict(state: tp.Mapping[str, tp.Any], tx: tp.Any,
     "no_decay": adamw, "freeze": set_to_zero})))`` (the chain without clipping,
     the MultiSteps without accumulation): the accumulator over every leaf, and
     per label Adam's count and moments over the whole tree with ``{}`` where
-    the label masks a leaf. Each updated parameter takes the moments of the
+    the label masks a leaf; the trees of a stacked layout (``scan_layers``,
+    ``pp``: the state mirrors ``{"rest", "stacked"}``) are unstacked onto the
+    standard paths first. Each updated parameter takes the moments of the
     label that holds them (checked against its group's weight decay); every
     layout the port's optimizer does not match raises, naming the path."""
     from summer_clip_torch.engine.optim import GradAccum
@@ -516,8 +529,8 @@ def optax_state_dict(state: tp.Mapping[str, tp.Any], tx: tp.Any,
             continue
         adam = _at(sub, ["0"], f"label {label}'s scale_by_adam")
         counts |= {int(adam["count"]), int(_at(sub, ["2", "count"], f"label {label}'s schedule"))}
-        nu = dict(_leaves(_at(adam, ["nu"], f"label {label}'s second moments")))
-        for name, mu in _leaves(_at(adam, ["mu"], f"label {label}'s first moments")):
+        nu = dict(_leaves(_unstacked(_at(adam, ["nu"], f"label {label}'s second moments"))))
+        for name, mu in _leaves(_unstacked(_at(adam, ["mu"], f"label {label}'s first moments"))):
             if name in moments:
                 raise ValueError(f"optimizer.ckpt: {name} has moments in labels "
                                  f"{moments[name][0]} and {label}")
@@ -556,7 +569,7 @@ def optax_state_dict(state: tp.Mapping[str, tp.Any], tx: tp.Any,
     mini = int(state["mini_step"])
     acc = None
     if mini:
-        grads = dict(_leaves(_at(state, ["acc_grads"], "MultiSteps' accumulator")))
+        grads = dict(_leaves(_unstacked(_at(state, ["acc_grads"], "MultiSteps' accumulator"))))
         missing = [names[id(p)] for p in opt.grad_params if names.get(id(p)) not in grads]
         if missing:
             raise ValueError(f"optimizer.ckpt: acc_grads lacks {missing[:6]}")

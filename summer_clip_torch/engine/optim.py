@@ -26,6 +26,14 @@ adds around it, with optax's semantics:
 - ``state_dict`` / ``load_state_dict`` on :class:`Optimizer` and
   :class:`GradAccum`: the update count, the ``torch.optim`` state and
   ``MultiSteps``' call count and running mean, so a run resumes exactly;
+  :func:`named_state` / :func:`state_from_named` key that state by leaf name
+  instead of position (layouts that cut or drop leaves move it so);
+- ``grad_layout=`` (:class:`Optimizer`): gradients over ranks. Its
+  ``sync(params)`` runs on the update's gradients before the clipping (the
+  data axis's mean, once an update: the running mean is linear, so the mean
+  of the ranks' means is the mean of the step's gradients up to the order of
+  the sum), and its ``squared_norm(pairs)`` gives the clipping norm's square
+  over every rank's shards, a replicated leaf counted once;
 - :func:`langevin`: SGLD, an SGD step plus ``sqrt(2 lr beta_t)`` Gaussian
   noise drawn from an explicit ``torch.Generator``.
 """
@@ -41,7 +49,7 @@ import torch
 __all__ = ["Optimizer", "GradAccum", "Langevin", "decay_mask", "adamw_grouped", "adamw", "adam",
            "sgd", "langevin", "warmup_cosine", "warmup_linear", "cosine_decay_schedule",
            "with_grad_accum",
-           "trainable_only", "clip_by_global_norm"]
+           "trainable_only", "clip_by_global_norm", "named_state", "state_from_named"]
 
 Schedule = tp.Callable[[int], float]
 Named = tp.Union[tp.Mapping[str, torch.Tensor], tp.Iterable[tp.Tuple[str, torch.Tensor]]]
@@ -51,11 +59,17 @@ def _named(params: Named) -> tp.Dict[str, torch.Tensor]:
     return dict(params.items() if isinstance(params, tp.Mapping) else params)
 
 
-def clip_by_global_norm(tensors: tp.Sequence[torch.Tensor], max_norm: float) -> float:
+def clip_by_global_norm(tensors: tp.Sequence[torch.Tensor], max_norm: float,
+                        layout: tp.Any = None) -> float:
     """Scale the gradients of ``tensors`` in place by ``max_norm / norm`` when
-    their global L2 norm reaches ``max_norm`` (optax's rule); return the norm."""
+    their global L2 norm reaches ``max_norm`` (optax's rule); return the norm.
+    ``layout.squared_norm`` gives the square over the ranks' shards, where
+    the leaves are cut over ranks."""
     grads = [t.grad for t in tensors if t.grad is not None]
-    norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads))) if grads else 0.0
+    if layout is not None:
+        norm = math.sqrt(layout.squared_norm([(t, t.grad) for t in tensors if t.grad is not None]))
+    else:
+        norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads))) if grads else 0.0
     if norm >= max_norm > 0:
         for g in grads:
             g.mul_(max_norm / norm)
@@ -66,16 +80,18 @@ class Optimizer:
     """A ``torch.optim`` optimizer with a learning-rate schedule read at the
     update count and optional global-norm clipping; ``step()`` consumes the
     ``.grad`` of its parameters. ``frozen`` leaves count in the clipping norm
-    (and in :class:`GradAccum`'s mean) but are never updated."""
+    (and in :class:`GradAccum`'s mean) but are never updated. ``grad_layout``:
+    see the module docstring."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  learning_rate: tp.Union[float, Schedule],
                  grad_clip_norm: tp.Optional[float] = None,
-                 frozen: tp.Sequence[torch.Tensor] = ()):
+                 frozen: tp.Sequence[torch.Tensor] = (), grad_layout: tp.Any = None):
         self.optimizer = optimizer
         self.learning_rate = learning_rate
         self.grad_clip_norm = grad_clip_norm
         self.frozen = list(frozen)
+        self.grad_layout = grad_layout
         self.count = 0
         self.last_grad_norm: tp.Optional[float] = None   # the norm the last clipping read
 
@@ -94,8 +110,11 @@ class Optimizer:
         return float(lr(self.count)) if callable(lr) else float(lr)
 
     def step(self) -> None:
+        if self.grad_layout is not None:
+            self.grad_layout.sync(self.grad_params)
         if self.grad_clip_norm is not None:
-            self.last_grad_norm = clip_by_global_norm(self.grad_params, self.grad_clip_norm)
+            self.last_grad_norm = clip_by_global_norm(self.grad_params, self.grad_clip_norm,
+                                                      self.grad_layout)
         lr = self.current_lr()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -179,9 +198,9 @@ def adamw(params: Named, learning_rate: tp.Union[float, Schedule], *, b1: float 
           b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
           mask: tp.Optional[tp.Mapping[str, bool]] = None,
           grad_clip_norm: tp.Optional[float] = None,
-          frozen: tp.Sequence[torch.Tensor] = ()) -> Optimizer:
-    """optax ``adamw`` (with ``mask``: decay only where it is True; ``frozen``:
-    see :class:`Optimizer`)."""
+          frozen: tp.Sequence[torch.Tensor] = (), grad_layout: tp.Any = None) -> Optimizer:
+    """optax ``adamw`` (with ``mask``: decay only where it is True; ``frozen``
+    and ``grad_layout``: see :class:`Optimizer`)."""
     named = _named(params)
     if mask is None:
         groups = [{"params": list(named.values()), "weight_decay": weight_decay}]
@@ -191,7 +210,7 @@ def adamw(params: Named, learning_rate: tp.Union[float, Schedule], *, b1: float 
                   {"params": [p for n, p in named.items() if not mask[n]], "weight_decay": 0.0}]
         groups = [g for g in groups if g["params"]]
     opt = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
-    return Optimizer(opt, learning_rate, grad_clip_norm, frozen)
+    return Optimizer(opt, learning_rate, grad_clip_norm, frozen, grad_layout)
 
 
 def adamw_grouped(params: Named, learning_rate: tp.Union[float, Schedule],
@@ -319,3 +338,40 @@ def trainable_only(params: Named, is_trainable: tp.Callable[[str, torch.Tensor],
         else:
             p.requires_grad_(False)
     return kept
+
+
+def _parts(tx) -> tp.Tuple[Optimizer, bool]:
+    accum = isinstance(tx, GradAccum)
+    return (tx.inner if accum else tx), accum
+
+
+def named_state(state: tp.Mapping[str, tp.Any], tx: tp.Union[Optimizer, GradAccum],
+                names: tp.Mapping[int, str]) -> dict:
+    """``state`` (a ``tx.state_dict()``, or one of the same layout) keyed by
+    leaf name: ``{"calls", "count", "moments": {name: Adam's state},
+    "acc": {name: running mean} or None}``; ``names`` maps ``id(parameter)``
+    of ``tx``'s leaves to their names."""
+    opt, accum = _parts(tx)
+    inner = state["inner"] if accum else state
+    order = [names[id(p)] for p in opt.params]
+    moments = {order[i]: dict(v) for i, v in inner["optimizer"]["state"].items()}
+    acc = state.get("acc") if accum else None
+    if acc is not None:
+        acc = {names[id(p)]: a for p, a in zip(opt.grad_params, acc)}
+    return {"calls": state["calls"] if accum else None, "count": int(inner["count"]),
+            "moments": moments, "acc": acc}
+
+
+def state_from_named(named: tp.Mapping[str, tp.Any], tx: tp.Union[Optimizer, GradAccum],
+                     names: tp.Mapping[int, str]) -> dict:
+    """The ``state_dict`` that ``tx`` loads from a :func:`named_state`."""
+    opt, accum = _parts(tx)
+    state = {i: dict(named["moments"][names[id(p)]]) for i, p in enumerate(opt.params)
+             if names[id(p)] in named["moments"]}
+    inner = {"count": named["count"], "optimizer": {
+        "state": state, "param_groups": opt.optimizer.state_dict()["param_groups"]}}
+    if not accum:
+        return inner
+    acc = named["acc"]
+    return {"calls": named["calls"], "inner": inner,
+            "acc": None if acc is None else [acc[names[id(p)]] for p in opt.grad_params]}

@@ -16,7 +16,11 @@ cards where an app has a rule). :func:`run_trainer` starts that many
 processes when it is not in a process group already (``parallel.launch``; a
 group that ``torchrun`` or a caller made is joined by ``setup_mesh``), each
 rank runs the app with ``self.mesh`` set, and rank 0 alone writes records and
-files (:attr:`BaseTrainer.leads`).
+files (:attr:`BaseTrainer.leads`). A SIGTERM may reach one rank only: a
+training loop over a mesh calls :meth:`BaseTrainer.agree` once a step (one
+small all-reduce of its values and the guard's flag), and from then on
+:meth:`BaseTrainer.preempted` answers the flag the ranks agreed on, so every
+rank stops at the same step and none waits alone in a collective.
 """
 
 from __future__ import annotations
@@ -91,6 +95,8 @@ def timed(info: log_utils.StreamingMeans, event: str, device: torch.device):
 
 
 class BaseTrainer:
+    _agreed_stop: tp.Optional[bool] = None     # set by agree()
+
     def __init__(self, cfg: ConfigNode):
         self.cfg = cfg
         self.generator: tp.Optional[torch.Generator] = None
@@ -192,8 +198,30 @@ class BaseTrainer:
         return self.preempt
 
     def preempted(self) -> bool:
+        """Whether to stop: this process's SIGTERM guard, or over a mesh the
+        flag the ranks agreed on at the last :meth:`agree`."""
+        if self._agreed_stop is not None:
+            return self._agreed_stop
+        return self._signalled()
+
+    def _signalled(self) -> bool:
         guard = getattr(self, "preempt", None)
         return guard is not None and guard.triggered
+
+    def agree(self, *values: float) -> tp.List[float]:
+        """One all-reduce over the process group (f64): the sums of
+        ``values`` over the ranks, and whether any rank's guard was triggered,
+        which :meth:`preempted` then answers on every rank. Without a mesh,
+        the values as they are."""
+        if self.mesh is None:
+            return list(values)
+        import torch.distributed as dist
+
+        both = torch.tensor([*values, float(self._signalled())], dtype=torch.float64,
+                            device=self.mesh.device)
+        dist.all_reduce(both)
+        self._agreed_stop = bool(both[-1] > 0)
+        return both[:-1].tolist()
 
     def train_loop(self):
         epochs_num = int(self.cfg.training.epochs_num)

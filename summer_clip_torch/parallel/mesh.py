@@ -4,9 +4,11 @@ Counterpart of ``summer_clip_tpu/parallel/mesh.py``. The JAX package runs one
 controller over a ``jax.sharding.Mesh`` of devices; here every rank is a
 process of its own, on one card (or the CPU), joined by ``torch.distributed``:
 
-- :func:`create_mesh` lays the group's ranks out on the ``('data', 'model')``
-  axes, row-major as ``np.reshape`` lays out the JAX mesh's devices, and gives
-  each axis a process group (the whole group where the axis spans it, a
+- :func:`create_mesh` lays the group's ranks out on named axes, row-major as
+  ``np.reshape`` lays out the JAX mesh's devices: ``('data', 'model')`` by
+  default, or any axes given by name and size (the training layouts use
+  ``('stage',)``, ``('data', 'stage')`` and ``('expert',)``), and gives each
+  axis a process group (the whole group where the axis spans it, a
   ``new_group`` where it does not); :class:`Mesh` holds the axis sizes, this
   rank's coordinates and device, and those groups;
 - :func:`distributed_init` joins the group that the environment names
@@ -24,19 +26,40 @@ process of its own, on one card (or the CPU), joined by ``torch.distributed``:
   caller.
 
 Backends (:func:`backend_for`): NCCL where each rank has a card of its own,
-gloo on the CPU and where ranks share a card (gloo all-reduces and broadcasts
-CUDA tensors through the host; NCCL refuses two ranks on one device). The
-caller's choice is kept: a group is never switched to another backend after
-a failure.
+gloo on the CPU and where ranks share a card (gloo all-reduces, broadcasts,
+gathers and all-gathers CUDA tensors through the host; NCCL refuses two ranks
+on one device). The caller's choice is kept: a group is never switched to
+another backend after a failure.
 
 Collectives on a mesh axis go through :func:`all_reduce` and
 :func:`gather_rows`, which do nothing on an axis without a group (one
-process, no ``torch.distributed``).
+process, no ``torch.distributed``). The collectives GSPMD and ``shard_map``
+insert in the JAX package's training step are explicit here, each an autograd
+function whose backward is its transpose, built on all-reduce and all-gather
+alone (the two collectives both backends take on a card):
+
+- :func:`axis_copy` (Megatron's *f*): the identity, its backward sums the
+  gradient over the axis (a replicated input that every rank feeds into its
+  own part of a sum);
+- :func:`axis_sum` (Megatron's *g*, a ``psum`` whose result every rank then
+  holds): the sum over the axis, its backward the identity (every rank
+  computes the same loss from it; a second sum would scale the gradient by
+  the axis size);
+- :func:`axis_all_gather`: a rank's shard gathered along a dim, its backward
+  the gradient summed over the axis and cut back to the rank's shard (a
+  reduce-scatter, as an all-reduce and a slice);
+- :func:`axis_shift`: ``lax.ppermute`` from each coordinate i to i + 1
+  (cyclic), its backward the reverse shift (an all-gather from which each
+  rank takes its neighbour's part).
+
+Sums run in f32 whatever the input's type (bf16 partial sums widened, summed
+and rounded once); gathers move bytes and keep the type.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import pickle
 import shutil
@@ -49,16 +72,17 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "create_mesh", "distributed_init", "replicate", "shard_batch", "launch",
            "backend_for", "rank_devices", "all_reduce", "gather_rows", "RankResult",
-           "leads", "model_mesh", "kernel_counters"]
+           "leads", "model_mesh", "kernel_counters", "axis_copy", "axis_sum", "axis_all_gather",
+           "axis_shift", "all_gather"]
 
 Device = tp.Union[str, torch.device]
 
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """This rank's place on the ``('data', 'model')`` axes. ``groups`` maps an
-    axis to its process group, None where the axis has no collective to run
-    (one process without ``torch.distributed``)."""
+    """This rank's place on the mesh's named axes (``shape`` in axis order).
+    ``groups`` maps an axis to its process group, None where the axis has no
+    collective to run (one process without ``torch.distributed``)."""
     shape: tp.Dict[str, int]
     coords: tp.Dict[str, int]
     rank: int
@@ -69,6 +93,18 @@ class Mesh:
     def leads(self) -> bool:
         """Rank 0 writes what a one-device run writes (records, stores)."""
         return self.rank == 0
+
+    def size(self, axis: str) -> int:
+        """The axis's size; 1 for an axis the mesh does not have."""
+        return self.shape.get(axis, 1)
+
+    def stride(self, axis: str) -> int:
+        """How far apart two neighbours of ``axis`` are in rank order."""
+        names = list(self.shape)
+        out = 1
+        for a in names[names.index(axis) + 1:]:
+            out *= self.shape[a]
+        return out
 
 
 def backend_for(devices: tp.Sequence[Device]) -> str:
@@ -130,36 +166,43 @@ def _default_device() -> torch.device:
     return torch.device("cpu")
 
 
-def create_mesh(data: tp.Optional[int] = None, model: int = 1) -> Mesh:
-    """A ``data x model`` mesh over the ranks of the process group (one rank
-    without a group), this rank on its current card, or the CPU (the devices
-    are named where the ranks start: :func:`launch`). ``data=None``: every rank
-    on the data axis, as in the JAX package. Every rank calls this with the
-    same arguments (``new_group`` is collective)."""
+def create_mesh(data: tp.Optional[int] = None, model: int = 1,
+                axes: tp.Optional[tp.Mapping[str, int]] = None) -> Mesh:
+    """A mesh over the ranks of the process group (one rank without a group),
+    this rank on its current card, or the CPU (the devices are named where the
+    ranks start: :func:`launch`). By default a ``data x model`` mesh,
+    ``data=None`` putting every rank on the data axis as in the JAX package;
+    ``axes`` names the axes and their sizes instead, in order (``{"data": 2,
+    "stage": 2}``). Ranks are laid out row-major. Every rank calls this with
+    the same arguments (``new_group`` is collective)."""
     grouped = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if grouped else 1
     rank = dist.get_rank() if grouped else 0
-    if data is None:
-        data = world // model
-    if data * model != world:
-        raise ValueError(f"mesh {data}x{model} != {world} ranks")
-    device = _default_device()
-    coords = {"data": rank // model, "model": rank % model}
-    groups: tp.Dict[str, tp.Any] = {"data": None, "model": None}
+    if axes is None:
+        if data is None:
+            data = world // model
+        axes = {"data": data, "model": model}
+    shape = {str(k): int(v) for k, v in axes.items()}
+    if math.prod(shape.values()) != world:
+        raise ValueError(f"mesh {'x'.join(map(str, shape.values()))} != {world} ranks")
+    names = list(shape)
+    strides = {a: math.prod(shape[b] for b in names[i + 1:]) for i, a in enumerate(names)}
+    coords = {a: rank // strides[a] % shape[a] for a in names}
+    groups: tp.Dict[str, tp.Any] = {a: None for a in names}
     if grouped:
-        world_group = dist.group.WORLD
-        for axis, size in (("data", data), ("model", model)):
-            if size == world:
-                groups[axis] = world_group
+        for a in names:
+            if shape[a] == world:
+                groups[a] = dist.group.WORLD
                 continue
             # every rank creates every group of the axis, in the same order
-            for fixed in range(world // size):
-                members = ([fixed * model + j for j in range(model)] if axis == "model"
-                           else [i * model + fixed for i in range(data)])
+            for base in range(world):
+                if base // strides[a] % shape[a]:
+                    continue            # not the first rank of its line along the axis
+                members = [base + i * strides[a] for i in range(shape[a])]
                 group = dist.new_group(members)
                 if rank in members:
-                    groups[axis] = group
-    return Mesh({"data": data, "model": model}, coords, rank, device, groups)
+                    groups[a] = group
+    return Mesh(shape, coords, rank, _default_device(), groups)
 
 
 def model_mesh() -> tp.Optional[Mesh]:
@@ -219,10 +262,112 @@ def gather_rows(x: torch.Tensor, mesh: tp.Optional[Mesh],
     if group is None:
         return x
     i = mesh.coords[axis]
-    first = mesh.rank - i * (mesh.shape["model"] if axis == "data" else 1)
+    first = mesh.rank - i * mesh.stride(axis)
     parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])] if i == 0 else None
     dist.gather(x.contiguous(), parts, dst=first, group=group)
     return torch.cat(parts) if i == 0 else None
+
+
+def _group(mesh: tp.Optional[Mesh], axis: str):
+    return None if mesh is None else mesh.groups.get(axis)
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, out of place, added in f32."""
+    y = x.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+def all_gather(x: torch.Tensor, mesh: tp.Optional[Mesh], axis: str) -> tp.List[torch.Tensor]:
+    """Every rank's ``x`` along ``axis``, in the axis order (the bytes moved as
+    they are: a bf16 tensor travels as uint8, a type both backends take).
+    ``[x]`` without a group."""
+    group = _group(mesh, axis)
+    if group is None:
+        return [x]
+    x = x.contiguous()
+    wire = x.view(torch.uint8) if x.dtype == torch.bfloat16 else x
+    parts = [torch.empty_like(wire) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, wire, group=group)
+    return [p.view(x.dtype) for p in parts]
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum(grad, ctx.group), None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, x.shape[dim]
+        return torch.cat(all_gather(x, mesh, axis), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        i = ctx.mesh.coords[ctx.axis]
+        whole = _sum(grad, _group(ctx.mesh, ctx.axis))
+        return whole.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous(), None, None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, step):
+        ctx.mesh, ctx.axis, ctx.step = mesh, axis, step
+        parts = all_gather(x, mesh, axis)
+        return parts[(mesh.coords[axis] - step) % len(parts)]
+
+    @staticmethod
+    def backward(ctx, grad):
+        parts = all_gather(grad, ctx.mesh, ctx.axis)
+        return parts[(ctx.mesh.coords[ctx.axis] + ctx.step) % len(parts)], None, None, None
+
+
+def axis_copy(x: torch.Tensor, mesh: tp.Optional[Mesh], axis: str) -> torch.Tensor:
+    """Megatron's *f*: ``x`` as it is, with its gradient summed over ``axis``."""
+    group = _group(mesh, axis)
+    return x if group is None else _Copy.apply(x, group)
+
+
+def axis_sum(x: torch.Tensor, mesh: tp.Optional[Mesh], axis: str) -> torch.Tensor:
+    """Megatron's *g*: the sum of ``x`` over ``axis`` (in f32, rounded to
+    ``x``'s type once), its gradient passed through unchanged."""
+    group = _group(mesh, axis)
+    return x if group is None else _Sum.apply(x, group)
+
+
+def axis_all_gather(x: torch.Tensor, mesh: tp.Optional[Mesh], axis: str,
+                    dim: int = 0) -> torch.Tensor:
+    """Every rank's shard of ``axis`` concatenated along ``dim``; the
+    gradient is summed over the axis and cut back to this rank's shard."""
+    if _group(mesh, axis) is None:
+        return x
+    return _AllGather.apply(x, mesh, axis, dim)
+
+
+def axis_shift(x: torch.Tensor, mesh: tp.Optional[Mesh], axis: str, step: int = 1) -> torch.Tensor:
+    """``lax.ppermute`` with ``perm = [(i, (i + step) % n)]``: this rank gets
+    the ``x`` of coordinate ``i - step``; the gradient goes the other way."""
+    if _group(mesh, axis) is None:
+        return x
+    return _Shift.apply(x, mesh, axis, step)
 
 
 # ---------------------------------------------------------------------------

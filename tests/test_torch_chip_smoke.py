@@ -173,11 +173,14 @@ def test_train_gpt_corpora_have_the_phase_sizes(tmp_path):
 
 
 def test_kernels_line_lists_every_path():
-    """Every kernel entry carries launches for all ten paths, train_gpt,
-    int8_towers and sandbox among them, and ``launches`` is their sum."""
+    """Every kernel entry carries launches for all twelve paths, train_gpt,
+    int8_towers, sandbox and multi_device_train among them, and ``launches``
+    is their sum."""
     paths = list(chip_smoke.MAIN_PATHS)
     assert paths[-3:] == ["train_gpt", "int8_towers", "sandbox"]
+    assert len(paths) == 12 and "multi_device_train" in paths
     launches = {p: {n: 0 for n in chip_smoke.KERNELS} for p in paths}
+    launches["multi_device_train"]["K4 short_attention_packed"] = 1980
     launches["train_gpt"]["K4 short_attention_packed"] = 396
     launches["int8_towers"]["K4 short_attention_packed"] = 24
     launches["clip_search"]["K4 short_attention_packed"] = 2280
@@ -193,7 +196,8 @@ def test_kernels_line_lists_every_path():
     assert k4["launches_by_path"]["train_gpt"] == 396
     assert k4["launches_by_path"]["int8_towers"] == 24
     assert k4["launches_by_path"]["sandbox"] == 1044
-    assert k4["launches"] == 396 + 24 + 2280 + 1044
+    assert k4["launches_by_path"]["multi_device_train"] == 1980
+    assert k4["launches"] == 396 + 24 + 2280 + 1044 + 1980
     assert all({"name", "route", "source", "replaces", "launches", "max_abs_err", *keys}
                <= set(e) for e in on + off)
 

@@ -329,14 +329,6 @@ def test_dots_policy_saves_only_dense_products():
         assert _dots_policy(None, op) == CheckpointPolicy.PREFER_RECOMPUTE, op
 
 
-@pytest.mark.parametrize("what", ["training.tp=2", "training.pp=2", "training.fsdp=true",
-                                  "training.scan_layers=true"])
-def test_unported_layouts_raise(corpus, what):
-    root, data = corpus
-    with _Chdir(root), pytest.raises(NotImplementedError, match="training side of multi-device"):
-        _port_trainer(data + [what])
-
-
 @pytest.mark.parametrize("kind", ["synthetic", "text_files"])
 def test_tokenize_dataset_equals_the_jax_app(tmp_path, kind):
     """``tokenize_texts`` and ``run`` give the JAX app's (N, max_length)
