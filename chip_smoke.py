@@ -29,7 +29,9 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
 1. Refuses to run without CUDA. Prints the card (``nvidia-smi`` name and power
    limit) and the torch, CUDA, nvcc and Triton versions.
 2. Builds every kernel from ``summer_clip_torch/csrc`` with nvcc, one process
-   per source, all started together (``-Xptxas -v`` report printed).
+   per source, all started together (``-Xptxas -v`` report printed), and
+   beside them the native JPEG library (``summer_clip_torch/native``, g++;
+   which decoder the host's build takes is printed).
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths, with the tolerances below, and times both with
    CUDA events (TF32 off for the plain f32 products):
@@ -307,6 +309,29 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
      pipeline's stage sum transposed as a second all-reduce) read against
      the norm gate. Logs each layout's seconds, ms a micro-step, the update's
      gradient all-reduce, peak memory and parameter bytes a rank.
+   - The JPEG input path (``jpeg_extract``, phase (r)): a Caltech101-shaped
+     tree of 2048 JPEG files written from the seed (101 classes, quality 90,
+     smooth content plus noise; half at 500x375 or 375x500, a quarter at
+     1600x1200, which takes the DCT-scaled decode, a quarter at 300x200; 1024
+     train and 1024 test rows), then ``save_features`` (``dataset_name=
+     caltech101``, ViT-B/16, batch 32) on the loader's own choice (the test
+     split through the native library) and with the library reported
+     missing (PIL throughout), and ``eval_clip`` over the first store. Checks
+     each split's route, K5 and K6 12 times an image batch and a text chunk,
+     the native store against the PIL run's (min row cosine 0.99, not equal
+     bit for bit; the train split, PIL in both, equal bit for bit), the native
+     library's pixels of the first 64 test files against PIL's EvalTransform
+     (per-image mean and max |d|, with two planted faults: the crop one pixel
+     off, bilinear taps), the stored native rows of those files against the
+     f32 CPU model on those pixels (cosine 0.99) with a planted fault's
+     reading (the channel means applied in reversed order), and eval_clip's
+     record; prints img/s of each run and split, the card's busy share (an
+     estimate from one batch's kernel time, taken after the apps), the loader
+     alone (native at 1 thread and at one a core, PIL) and the host's cores.
+   The CLIP-search, train_coop and prompt_search paths, the analysis apps and
+   phase (p)'s searches build their apps' random towers once a process
+   (``shared_towers``: the host spends ~6 s drawing ViT-L/14 an app); every
+   app still runs whole.
 5. Prints a JSON line of the kernels of the main paths (K12 runs on none,
    so it has a line of its own), then as its last line
    ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -315,6 +340,7 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import json
 import os
@@ -2227,6 +2253,43 @@ def run_apps(runs, work: Path) -> dict:
     return times
 
 
+@contextlib.contextmanager
+def shared_towers():
+    """Inside, every CLIP session an app builds from random weights takes the
+    towers already drawn in this process for the same (model, seed, dtype,
+    device, quant) instead of drawing them again: drawing ViT-L/14 takes the
+    host ~6 s an app. Building a model also draws from torch's global
+    generator (the modules' default initialisation); that generator is left
+    where the build would have left it, so what an app draws after its session
+    does not change. Only for apps that leave the towers as they are (none of
+    them is given ``clip.proj_path``, which writes into the tower)."""
+    import torch
+
+    from summer_clip_torch.apps import common
+    from summer_clip_torch.models.clip.modeling import CLIP, CLIP_CONFIGS
+
+    real, drawn, moves = common.build_clip, {}, {}
+
+    def build(name, gen, **kw):
+        key = (name, gen.initial_seed(), *sorted((k, str(v)) for k, v in kw.items()))
+        before = (name, torch.get_rng_state().numpy().tobytes())
+        if key not in drawn:
+            drawn[key] = real(name, gen, **kw)
+        elif before in moves:
+            torch.set_rng_state(moves[before])
+        else:
+            CLIP(CLIP_CONFIGS[name])   # draws what the build draws from the global generator
+        moves[before] = torch.get_rng_state()
+        return drawn[key]
+
+    common.build_clip = build
+    try:
+        yield
+    finally:
+        common.build_clip = real
+        drawn.clear()
+
+
 def records(run_root: Path, kind: tp.Optional[str]) -> list:
     """The records of every run under ``run_root`` of type ``kind`` (all with None)."""
     out = []
@@ -2462,16 +2525,18 @@ def run_clip_search(work: Path) -> dict:
         return [(name, fn, common + argv) for name, fn, argv in runs]
 
     outs_1k, protos_1k = f"synthetic_1k_train_outs-{tag}", f"synthetic_1k_train_protos-{tag}"
-    times = run_apps(
-        chain("synthetic_1k", [
-            search("synthetic_1k", "hard_cache", outs_1k, "hard_cache", saves),
-            search("synthetic_1k", "softmax_cache", outs_1k, "softmax_cache"),
-            ("prototype_outs", lambda argv: scattered.update(
-                classes=write_prototype_outs(store, "synthetic_1k", tag)), []),
-            search("synthetic_1k", "protos_hard_cache", protos_1k, "hard_cache", saves),
-            search("synthetic_1k", "protos_softmax_cache", protos_1k, "softmax_cache", saves)])
-        + chain("synthetic", [search("synthetic", "hard_cache", f"synthetic_train_outs-{tag}",
-                                     "hard_cache")]), work)
+    with shared_towers():
+        times = run_apps(
+            chain("synthetic_1k", [
+                search("synthetic_1k", "hard_cache", outs_1k, "hard_cache", saves),
+                search("synthetic_1k", "softmax_cache", outs_1k, "softmax_cache"),
+                ("prototype_outs", lambda argv: scattered.update(
+                    classes=write_prototype_outs(store, "synthetic_1k", tag)), []),
+                search("synthetic_1k", "protos_hard_cache", protos_1k, "hard_cache", saves),
+                search("synthetic_1k", "protos_softmax_cache", protos_1k, "softmax_cache",
+                       saves)])
+            + chain("synthetic", [search("synthetic", "hard_cache",
+                                         f"synthetic_train_outs-{tag}", "hard_cache")]), work)
     log(f"prototype pseudo-labels of synthetic_1k: {scattered['classes']} distinct predicted "
         f"classes of 1000")
     if scattered["classes"] < 500:
@@ -3337,11 +3402,12 @@ def run_analysis(store: Path, work: Path) -> dict:
              watch(train_em.FixedMeansGMM, "predict_log_proba"),
              watch(class_projector.ClassProjector, "compute_clip_logits")]
     try:
-        times = run_apps([
-            ("maha_distance", maha_distance.run,
-             common + [f"cache.features_key=synthetic_1k_train-{tag}"]),
-            ("train_em", train_em.run, common + ["em_model.covariance_type=diag"]),
-            ("class_projector", class_projector.run, common)], work)
+        with shared_towers():
+            times = run_apps([
+                ("maha_distance", maha_distance.run,
+                 common + [f"cache.features_key=synthetic_1k_train-{tag}"]),
+                ("train_em", train_em.run, common + ["em_model.covariance_type=diag"]),
+                ("class_projector", class_projector.run, common)], work)
     finally:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
@@ -4910,26 +4976,27 @@ def md_group_rank(work: str, search_store: str, ckpt_dir: str, world1: bool, sf_
         qmodel, table = _md_count(out, "int8 model", lambda: _md_int8_model(
             gen_gpt.load_pretrained_clip_gpt(ckpt_dir, tok)))
     common = ["clip=vit_l14", f"store.root={search_store}"]
-    for name, outs_key, value in md_searches(world1):
-        _md_count(out, name, lambda: _md_app(
-            work, name, image_attention.run,
-            common + search_argv("synthetic_1k", outs_key, value, SEARCH_SAVES)))
-    if not world1:
-        real = sharded_cache.all_reduce
-
-        def dropped(x, mesh, axis="model"):   # the planted fault: rank 1 adds nothing
-            if mesh.coords[axis] == 1:
-                x.zero_()
-            return real(x, mesh, axis)
-
-        sharded_cache.all_reduce = dropped
-        try:
-            _, outs_key, value = MD_SEARCHES[1]
-            _md_count(out, "fault protos_hard_cache", lambda: _md_app(
-                work, "fault_protos_hard_cache", image_attention.run,
+    with shared_towers():   # one ViT-L/14 drawn a rank, not one a search
+        for name, outs_key, value in md_searches(world1):
+            _md_count(out, name, lambda: _md_app(
+                work, name, image_attention.run,
                 common + search_argv("synthetic_1k", outs_key, value, SEARCH_SAVES)))
-        finally:
-            sharded_cache.all_reduce = real
+        if not world1:
+            real = sharded_cache.all_reduce
+
+            def dropped(x, mesh, axis="model"):   # the planted fault: rank 1 adds nothing
+                if mesh.coords[axis] == 1:
+                    x.zero_()
+                return real(x, mesh, axis)
+
+            sharded_cache.all_reduce = dropped
+            try:
+                _, outs_key, value = MD_SEARCHES[1]
+                _md_count(out, "fault protos_hard_cache", lambda: _md_app(
+                    work, "fault_protos_hard_cache", image_attention.run,
+                    common + search_argv("synthetic_1k", outs_key, value, SEARCH_SAVES)))
+            finally:
+                sharded_cache.all_reduce = real
 
     mesh = create_mesh(data=1, model=dist.get_world_size())
     dec = tp_int8_decoder(qmodel, mesh)   # this rank's slices, cut once
@@ -5685,6 +5752,398 @@ def check_multi_device_train(mdt: dict, work: Path) -> dict:
     return {k: total.get(k, 0) for k in launch_counters()}
 
 
+# --------------------------------------------------------------------------- #
+# phase (r): save_features on JPEG files through the native input path
+# --------------------------------------------------------------------------- #
+JPEG_PATH = ("K5 fused_ln_attn", "K6 fused_ln_mlp")
+JPEG_IMAGES = 2048
+JPEG_CLASSES = 101                       # Caltech101's object classes
+# (width, height) by image index mod 4: half at ImageNet's common 500x375 (both
+# orientations), a quarter at 1600x1200 (the DCT-scaled decode: 1/2 for a 224
+# target), a quarter at Caltech101's typical 300x200
+JPEG_SIZES = ((500, 375), (375, 500), (1600, 1200), (300, 200))
+JPEG_QUALITY = 90
+JPEG_BATCH = 32
+JPEG_CPU_ROWS = 64
+# stored native rows against the PIL run's and against the f32 CPU model on the
+# native library's own pixels (min row cosine, the pipelines' gate)
+TOL_JPEG_COS = 0.99
+# the native library's pixels against PIL's EvalTransform of the same files
+# (normalized units): the largest per-image mean |d| and the max |d| over the
+# first JPEG_CPU_ROWS test files. Readings 0.004941 / 0.042558 under Pillow
+# 12.1.0 and 12.2.0 alike (the latter the H100 host's); planted faults: the crop
+# one pixel off 0.1395 / 0.5687, bilinear taps 0.010425 / 0.090047
+TOL_JPEG_PIX_MEAN = 0.008
+TOL_JPEG_PIX_MAX = 0.065
+
+
+def write_caltech_tree(root: Path, seed: int, n_images: int = JPEG_IMAGES,
+                       n_classes: int = JPEG_CLASSES, threads: int = 0) -> dict:
+    """A Caltech101-shaped tree under ``root``: ``caltech-101/101_ObjectCategories/
+    <class>/*.jpg`` (JPEG quality 90; smooth content plus noise drawn from
+    ``(seed, i)``, the noise a window of one field a size; image ``i`` at
+    ``JPEG_SIZES[i % 4]``, of class ``i %
+    n_classes``) and ``caltech-101/split_zhou_Caltech101.json``, whose train and
+    test splits take alternate blocks of four images (each split holds every
+    size; no val rows). Returns each split's row count."""
+    import numpy as np
+    from PIL import Image
+
+    base = root / "caltech-101"
+    names = [f"class_{k:03d}" for k in range(n_classes)]
+
+    # noise: one field a size, each image a window of it at an offset of its own
+    pad = 64
+    noise = {(w, h): np.random.default_rng((seed, w, h)).integers(
+        -12, 13, (h + pad, w + pad, 3), dtype=np.int16) for w, h in JPEG_SIZES}
+
+    def one(i: int) -> list:
+        w, h = JPEG_SIZES[i % len(JPEG_SIZES)]
+        rng = np.random.default_rng((seed, i))
+        coarse = (rng.random((h // 40 + 2, w // 40 + 2, 3)) * 255).astype(np.uint8)
+        arr = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BILINEAR), np.int16)
+        dy, dx = rng.integers(0, pad, 2)
+        arr = np.clip(arr + noise[w, h][dy:dy + h, dx:dx + w], 0, 255)
+        label = i % n_classes
+        rel = f"{names[label]}/image_{i:05d}.jpg"
+        path = base / "101_ObjectCategories" / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(arr.astype(np.uint8)).save(path, quality=JPEG_QUALITY)
+        return [rel, label, names[label]]
+
+    with concurrent.futures.ThreadPoolExecutor(threads or os.cpu_count() or 4) as pool:
+        rows = list(pool.map(one, range(n_images)))
+    split = {"train": [r for i, r in enumerate(rows) if (i // 4) % 2 == 0], "val": [],
+             "test": [r for i, r in enumerate(rows) if (i // 4) % 2 == 1]}
+    (base / "split_zhou_Caltech101.json").write_text(json.dumps(split))
+    return {k: len(v) for k, v in split.items()}
+
+
+def jpeg_argv(data: Path, store: Path) -> list:
+    """save_features over the Caltech101 tree at ``data`` at ViT-B/16, batch 32."""
+    return ["clip=vit_b16", "dataset_name=caltech101", f"path.cache_dir={data}",
+            f"data.batch_size={JPEG_BATCH}", f"store.root={store}"]
+
+
+def build_native() -> str:
+    """Build the native JPEG library from the checkout's source; what it took."""
+    import PIL
+
+    from summer_clip_torch import native
+
+    t0 = time.perf_counter()
+    native.ensure_built()
+    return (f"native preprocess library built in {time.perf_counter() - t0:.2f} s (g++; Pillow "
+            f"{PIL.__version__} decodes at the library's DCT scale)")
+
+
+def jpeg_pixel_readings(paths: tp.Sequence[str], pixels) -> dict:
+    """(largest per-image mean |d|, max |d|) of the native rows ``pixels`` of
+    ``paths`` against PIL's ``EvalTransform`` rows of the same files, and of
+    two planted faults read the same way: the native crop one pixel off (its
+    columns 1.. against PIL's 0..S-2) and bilinear taps (Pillow's bilinear
+    resize, then the same crop and normalize, in the native rows' place)."""
+    import numpy as np
+    from PIL import Image
+
+    from summer_clip_torch.data.transforms import (CLIP_MEAN, CLIP_STD, EvalTransform,
+                                                   load_image)
+
+    size = pixels.shape[1]
+
+    def bilinear(path):
+        img = load_image(path)
+        w, h = img.size
+        nw, nh = (size, max(1, round(h * size / w))) if w <= h else \
+            (max(1, round(w * size / h)), size)
+        left, top = (nw - size) // 2, (nh - size) // 2
+        img = img.resize((nw, nh), Image.BILINEAR).crop((left, top, left + size, top + size))
+        return (np.asarray(img, np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
+
+    pil = np.stack([EvalTransform(size)(load_image(p)) for p in paths])
+
+    def reading(a, b):
+        d = np.abs(a - b).reshape(len(a), -1)
+        return float(d.mean(1).max()), float(d.max())
+
+    return {"native": reading(pixels, pil),
+            "the crop one pixel off": reading(pixels[:, :, 1:], pil[:, :, :-1]),
+            "bilinear taps": reading(np.stack([bilinear(p) for p in paths]), pil)}
+
+
+def loader_rate(data, **kw) -> float:
+    """Images a second of an ``ImageBatcher`` over ``data`` alone (no device)."""
+    from summer_clip_torch.data.loader import ImageBatcher
+    from summer_clip_torch.data.transforms import EvalTransform
+
+    batcher = ImageBatcher(data, batch_size=JPEG_BATCH,
+                           transform=EvalTransform(224, device_normalize=True), **kw)
+    t0 = time.perf_counter()
+    rows = sum(int(b.mask.sum()) for b in batcher)
+    return rows / (time.perf_counter() - t0)
+
+
+def run_jpeg_extract(work: Path, seed: int = 0) -> dict:
+    """Phase (r): a seed-made Caltech101 tree of JPEG files through the port's
+    ``save_features`` at ViT-B/16 (K5 + K6), batch 32, twice: on the loader's
+    own choice (the test split's eval transform over ``.jpg`` files takes the
+    native library; the train split's train transform decodes with PIL) and
+    with ``ImageBatcher._native_available`` answering False; then
+    ``eval_clip`` over the first run's store. Wrapping
+    ``save_features.extract_image_features`` records each split's route, rows
+    and wall time, and the span of its encode calls between CUDA events (two
+    event records a batch: the only instrumentation inside the apps' timed
+    windows). After the apps, one batch's encode with nothing else running,
+    between CUDA events and as its kernels' device time; each app's launches
+    are kept. Then the loader alone: the native path at one thread and at one
+    a core, and PIL."""
+    import torch
+
+    from summer_clip_torch.apps import eval_clip, save_features
+    from summer_clip_torch.data.datasets import build_dataset
+    from summer_clip_torch.data.loader import ImageBatcher
+
+    t0 = time.perf_counter()
+    rows = write_caltech_tree(work / "data", seed)
+    times = {"write_tree": time.perf_counter() - t0}
+    log(f"jpeg_extract: a Caltech101 tree of {JPEG_IMAGES} JPEG files ({json.dumps(rows)}; "
+        f"{JPEG_CLASSES} classes; sizes {JPEG_SIZES}, quality {JPEG_QUALITY}) written in "
+        f"{times['write_tree']:.2f} s")
+    splits: tp.List[dict] = []
+    encoders = []
+    real_extract = save_features.extract_image_features
+    counters = launch_counters()
+
+    def extract(session, batcher, preproj=False):
+        events = []
+        real_encode = session.encode_image
+
+        def encode(images):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = real_encode(images)
+            end.record()
+            events.append((start, end))
+            return out
+
+        session.encode_image = encode
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            res = real_extract(session, batcher, preproj)
+        finally:
+            del session.encode_image
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        encoders[:] = [(real_encode, session.input_size)]
+        splits.append({"native": bool(batcher.use_native), "rows": len(res[0]),
+                       "batches": len(events), "wall_s": wall,
+                       "span_s": sum(s.elapsed_time(e) for s, e in events) / 1e3})
+        return res
+
+    stores = {"native": work / "native" / "features", "pil": work / "pil" / "features"}
+    runs = [("save_features_native", save_features.run, jpeg_argv(work / "data", stores["native"])),
+            ("save_features_pil", save_features.run, jpeg_argv(work / "data", stores["pil"])),
+            ("eval_clip", eval_clip.run,
+             ["clip=vit_b16", "dataset_name=caltech101", f"path.cache_dir={work / 'data'}",
+              f"store.root={stores['native']}", "eval.features_key=caltech101_test-ViT-B16"])]
+    launches, by_run = {}, {}
+    real_available = ImageBatcher.__dict__["_native_available"]
+    save_features.extract_image_features = extract
+    try:
+        for name, fn, argv in runs:
+            if name == "save_features_pil":
+                ImageBatcher._native_available = staticmethod(lambda: False)
+            before, n_splits = {k: f.launches for k, f in counters.items()}, len(splits)
+            try:
+                times.update(run_apps([(name, fn, argv)], work))
+            finally:
+                ImageBatcher._native_available = real_available
+            launches[name] = {k: f.launches - before[k] for k, f in counters.items()}
+            by_run[name] = splits[n_splits:]
+    finally:
+        save_features.extract_image_features = real_extract
+
+    # one batch's encode with nothing else running on the host, after the apps: its
+    # time between CUDA events and its kernels' device time (torch.profiler); these
+    # launches are not the path's, so the counts are put back
+    (encode, input_size), = encoders
+    launched = {k: f.launches for k, f in counters.items()}
+    x = torch.zeros((JPEG_BATCH, input_size, input_size, 3), device="cuda")
+    alone = {"alone_ms": cuda_time_ms(lambda: encode(x), 5, 1),
+             "device_ms": sum(_device_kernels_ms(lambda: encode(x)).values()) or None}
+    for k, f in counters.items():
+        f.launches = launched[k]
+    del encoders[:], encode, x
+
+    test = build_dataset("caltech101", str(work / "data"), -1).test
+    cores = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    loader = {"native, 1 thread": loader_rate(test[:256], use_native=True, num_threads=1),
+              f"native, {cores} threads": loader_rate(test[:512], use_native=True,
+                                                      num_threads=cores),
+              "PIL, 16 threads": loader_rate(test[:512], use_native=False)}
+    times["loader_alone"] = time.perf_counter() - t0
+    return {"times_s": times, "rows": rows, "stores": stores, "splits": by_run, "alone": alone,
+            "launches": launches, "loader": loader, "cores": cores, "test": test,
+            "data": work / "data", "work": work}
+
+
+def check_jpeg_extract(out: dict) -> None:
+    """Phase (r)'s gates, each reading beside its limit: the routes each
+    extraction took, K5's and K6's launches (12 an image batch and a text
+    chunk), the native store against the PIL run's (min cosine; not equal bit
+    for bit; the train split's, PIL in both runs, equal bit for bit), the
+    native library's pixels of the first ``JPEG_CPU_ROWS`` test files against
+    PIL's ``EvalTransform`` of them, with two planted faults (the crop one
+    pixel off, bilinear taps) read against the same limits, the stored native
+    rows of those files against the f32 CPU model on those pixels, a planted
+    fault (the pixels with the channel means applied in reversed order,
+    encoded on the card) read against the same limit, and eval_clip's record;
+    then the rates."""
+    import numpy as np
+    import torch
+
+    from summer_clip_torch import native
+    from summer_clip_torch.apps import save_features
+    from summer_clip_torch.core import config as C
+    from summer_clip_torch.data.transforms import CLIP_MEAN, CLIP_STD
+    from summer_clip_torch.models.clip import build_clip
+    from summer_clip_torch.store import FeatureStore
+
+    failures = []
+
+    def fail(msg):
+        log(f"jpeg_extract FAILED: {msg}")
+        failures.append(msg)
+
+    rows, splits = out["rows"], out["splits"]
+    routes = {k: [s["native"] for s in v] for k, v in splits.items()}
+    log(f"jpeg_extract routes (train split, test split; native?): {json.dumps(routes)}")
+    if routes.get("save_features_native") != [False, True] \
+            or routes.get("save_features_pil") != [False, False]:
+        fail(f"the runs took routes {routes}, expected the native library for the first run's "
+             f"test split only")
+    cfg = C.compose(Path(save_features.__file__).resolve().parent.parent / "conf",
+                    "save_features", jpeg_argv(out["data"], out["stores"]["native"]))
+    chunks = -(-JPEG_CLASSES * len(cfg.prompting.templates) // 256)   # zeroshot_classifier's
+    batches = -(-rows["train"] // JPEG_BATCH) + -(-rows["test"] // JPEG_BATCH)
+    for name, want in (("save_features_native", 12 * (batches + chunks)),
+                       ("save_features_pil", 12 * (batches + chunks)),
+                       ("eval_clip", 12 * chunks)):
+        got = {k: v for k, v in out["launches"][name].items() if v}
+        log(f"jpeg_extract {name} launches: {json.dumps(got)} (expected K5 = K6 = {want}: 12 "
+            f"blocks x ({batches if name != 'eval_clip' else 0} image batches + {chunks} text "
+            f"chunk))")
+        if got != {"K5 fused_ln_attn": want, "K6 fused_ln_mlp": want}:
+            fail(f"{name} launched {got}, expected K5 = K6 = {want}")
+
+    nat, pil = FeatureStore(out["stores"]["native"]), FeatureStore(out["stores"]["pil"])
+
+    def cosines(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+    key = "caltech101_test-ViT-B16"
+    a, b = nat.load(key, "features"), pil.load(key, "features")
+    cos = cosines(a, b)
+    same_train = np.array_equal(nat.load("caltech101_train-ViT-B16", "features"),
+                                pil.load("caltech101_train-ViT-B16", "features"))
+    log(f"jpeg_extract native test store ({len(a)} rows) against the PIL run's: min row cosine "
+        f"{cos.min():.6f} (tol >= {TOL_JPEG_COS}), mean {cos.mean():.6f}, equal bit for bit: "
+        f"{np.array_equal(a, b)} (must be False); the train split (PIL in both runs) equal bit "
+        f"for bit: {same_train}")
+    if len(a) != rows["test"] or cos.min() < TOL_JPEG_COS or np.array_equal(a, b) or not same_train:
+        fail("the native store against the PIL run's")
+
+    # the native library's own pixels of the first test files against PIL's
+    t0 = time.perf_counter()
+    paths = [d.impath for d in out["test"][:JPEG_CPU_ROWS]]
+    pixels, ok = native.preprocess_batch(paths, 224)
+    pix = jpeg_pixel_readings(paths, pixels)
+    log(f"jpeg_extract the native library's pixels of the first {len(paths)} test files against "
+        f"PIL's EvalTransform (normalized units): the largest per-image mean |d| "
+        f"{pix['native'][0]:.6f} (tol <= {TOL_JPEG_PIX_MEAN}), max |d| {pix['native'][1]:.6f} "
+        f"(tol <= {TOL_JPEG_PIX_MAX}); planted faults: "
+        + "; ".join(f"{k} {m:.6f} ({m / TOL_JPEG_PIX_MEAN:.2f}x the limit) / {x:.6f} "
+                    f"({x / TOL_JPEG_PIX_MAX:.2f}x)" for k, (m, x) in pix.items() if k != "native")
+        + f" ({time.perf_counter() - t0:.2f} s)")
+    if not ok.all() or pix["native"][0] > TOL_JPEG_PIX_MEAN or pix["native"][1] > TOL_JPEG_PIX_MAX:
+        fail("the native library's pixels against PIL's")
+    for k, (m, x) in pix.items():
+        if k != "native" and m <= TOL_JPEG_PIX_MEAN and x <= TOL_JPEG_PIX_MAX:
+            fail(f"the planted fault ({k}) passes the pixel gate")
+
+    # the stored native rows of those files against the f32 CPU model on those pixels
+    t0 = time.perf_counter()
+    model, _ = build_clip("ViT-B/16", torch.Generator().manual_seed(0), device="cpu")
+    with torch.inference_mode():
+        ref = model.encode_image(torch.from_numpy(pixels)).numpy()
+    del model
+    card, _ = build_clip("ViT-B/16", torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                         device="cuda")
+    mean, std = np.asarray(CLIP_MEAN), np.asarray(CLIP_STD)
+    faulty = ((pixels * std + mean) - mean[::-1]) / std   # the channel means in reversed order
+    with torch.inference_mode():
+        again = torch.cat([card.encode_image(torch.from_numpy(pixels[i:i + JPEG_BATCH]).cuda())
+                           for i in range(0, len(pixels), JPEG_BATCH)]).float().cpu().numpy()
+        fault = torch.cat([card.encode_image(
+            torch.from_numpy(np.ascontiguousarray(faulty[i:i + JPEG_BATCH], np.float32)).cuda())
+            for i in range(0, len(faulty), JPEG_BATCH)]).float().cpu().numpy()
+    del card
+    torch.cuda.empty_cache()
+    stored = np.asarray(a[:JPEG_CPU_ROWS])
+    got, bad = cosines(stored, ref).min(), cosines(fault, ref).min()
+    log(f"jpeg_extract first {JPEG_CPU_ROWS} native test rows against the f32 CPU model on the "
+        f"native library's pixels of those files: min cosine {got:.6f} (tol >= {TOL_JPEG_COS}); "
+        f"the card's encode of the same pixels against the stored rows: max|d| "
+        f"{np.abs(again - stored).max():.3e}; planted fault (the channel means applied in "
+        f"reversed order) reads {bad:.6f}, {(1 - bad) / (1 - TOL_JPEG_COS):.1f}x the limit's "
+        f"distance from 1 ({time.perf_counter() - t0:.2f} s)")
+    if got < TOL_JPEG_COS:
+        fail("the native store against the f32 CPU model")
+    if bad >= TOL_JPEG_COS:
+        fail("the planted fault passes the CPU gate")
+
+    zero = records(out["work"] / "eval_clip", "zero_shot")
+    log(f"jpeg_extract eval_clip over the native store: {zero}")
+    if len(zero) != 1 or not 0.0 <= zero[0]["acc1"] <= zero[0]["acc5"] <= 100.0:
+        fail(f"eval_clip's record missing or out of range: {zero}")
+
+    card_name = card_line()
+    host = (f"host: {out['cores']} cores (os.cpu_count), {len(os.sched_getaffinity(0))} "
+            f"usable; card: {card_name}")
+    times, alone = out["times_s"], out["alone"]
+    log(f"jpeg_extract one batch's encode alone, after the apps: {alone['alone_ms']:.3f} ms "
+        f"between CUDA events, "
+        + (f"{alone['device_ms']:.3f} ms of kernel time" if alone["device_ms"] is not None else
+           "kernel time not measured (the profiler saw no device time)") + f"; card: {card_line()}")
+    for name in ("save_features_native", "save_features_pil"):
+        n = sum(s["rows"] for s in splits[name])
+
+        def busy(s):
+            if alone["device_ms"] is None:
+                return "the card's busy share not measured (the profiler saw no device time)"
+            return (f"the card busy ~{s['batches'] * alone['device_ms'] / 1e3 / s['wall_s']:.3f} "
+                    f"of it (an estimate: {s['batches']} batches x one batch's "
+                    f"{alone['device_ms']:.3f} ms of kernel time, over the wall time)")
+
+        parts = "; ".join(
+            f"{'train' if i == 0 else 'test'} split ({'native' if s['native'] else 'PIL'}) "
+            f"{s['rows'] / s['wall_s']:.1f} img/s, {s['wall_s']:.2f} s, {busy(s)}; the encode "
+            f"calls span {s['span_s'] / s['wall_s']:.3f} of the split between CUDA events (the "
+            f"card waiting on the host's launches)" for i, s in enumerate(splits[name]))
+        log(f"jpeg_extract {name}: {n} images in {times[name]:.2f} s of the app, "
+            f"{n / times[name]:.1f} img/s end to end (session set-up and text tower included); "
+            f"{parts}; {host}")
+    log("jpeg_extract the loader alone over test rows (EvalTransform 224, batch 32; 256 rows at "
+        "1 thread, 512 otherwise): "
+        + ", ".join(f"{k} {v:.1f} img/s" for k, v in out["loader"].items()) + f"; {host}")
+    if failures:
+        raise AssertionError("jpeg_extract: " + "; ".join(failures))
+
+
 def ckpt_leaves(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -5736,7 +6195,8 @@ MAIN_PATHS = {"tip_adapter": TIP_PATH, "clip_search": SEARCH_PATH, "gen_gpt": GE
               "train_coop": TRAIN_PATH, "tip_adapter_imagenet": TIP_IMAGENET_PATH,
               "onehot_sweep": ONEHOT_SWEEP_PATH, "prompt_search": PROMPT_SEARCH_PATH,
               "multi_device": MULTI_PATH, "multi_device_train": MDT_PATH,
-              "train_gpt": TRAIN_GPT_PATH, "int8_towers": INT8_PATH, "sandbox": SANDBOX_PATH}
+              "jpeg_extract": JPEG_PATH, "train_gpt": TRAIN_GPT_PATH, "int8_towers": INT8_PATH,
+              "sandbox": SANDBOX_PATH}
 
 
 def kernel_entry(name: str, results: dict, by_path: dict) -> dict:
@@ -5788,6 +6248,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script runs only on a "
               "CUDA card", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(versions())
@@ -5801,12 +6262,17 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     sources = ONLY_BUILDS[args.only] if args.only else KERNEL_SOURCES
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(old)) as pool:   # one nvcc each
+    # one nvcc a source, and g++ for the native library
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(old) + 1) as pool:
         builds = [pool.submit(_lib.build, name, True) for name in sources]
         baselines = {name: pool.submit(load_baseline, cu, name) for name, cu in old.items()}
+        # the native JPEG library (g++) beside them, for phase (r)
+        preprocess = None if args.only else pool.submit(build_native)
         for b in builds:
             b.result()
         BASELINE.update({name: b.result() for name, b in baselines.items()})
+        if preprocess is not None:
+            log(preprocess.result())
     log(f"phase build: {time.perf_counter() - t0:.2f} s")
 
     results: dict = {}
@@ -5873,11 +6339,12 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
             lambda: run_gen_gpt(Path(tmp) / "gen", lambda: {k: f.launches for k, f in counters.items()}))
         check_gen_gpt(gen)
 
-        train, train_launches = counted(
-            "train_coop ViT-L/14", TRAIN_PATH,
-            lambda: run_training(Path(tmp) / "train", search["store"], pipe["store"],
-                                 Path(tmp) / "gen" / "ckpt" / "step_0",
-                                 lambda: {k: f.launches for k, f in counters.items()}))
+        with shared_towers():
+            train, train_launches = counted(
+                "train_coop ViT-L/14", TRAIN_PATH,
+                lambda: run_training(Path(tmp) / "train", search["store"], pipe["store"],
+                                     Path(tmp) / "gen" / "ckpt" / "step_0",
+                                     lambda: {k: f.launches for k, f in counters.items()}))
         t0 = time.perf_counter()
         cos, _ = check_against_cpu(train["store"], "ViT-L/14", n=2, ds_name="synthetic_1k")
         log(f"stored ViT-L/14 features in mlp mode vs f32 CPU model: min cosine {cos:.6f} "
@@ -5890,10 +6357,11 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
 
         search_sizes = prompt_search_sizes(search["store"], Path(tmp) / "search", pipe["store"],
                                            Path(tmp) / "gen" / "ckpt" / "step_0")
-        prompts, prompts_launches = counted(
-            "prompt_search", PROMPT_SEARCH_PATH,
-            lambda: run_prompt_search(Path(tmp) / "prompt_search", search_sizes,
-                                      lambda: {k: f.launches for k, f in counters.items()}))
+        with shared_towers():
+            prompts, prompts_launches = counted(
+                "prompt_search", PROMPT_SEARCH_PATH,
+                lambda: run_prompt_search(Path(tmp) / "prompt_search", search_sizes,
+                                          lambda: {k: f.launches for k, f in counters.items()}))
         t0 = time.perf_counter()
         check_prompt_search(prompts)
         log(f"phase check prompt_search: {time.perf_counter() - t0:.2f} s")
@@ -5951,13 +6419,20 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         mdt_launches = check_multi_device_train(mdt, Path(tmp) / "multi_device_train")
         log(f"phase multi_device_train: {time.perf_counter() - t0:.2f} s")
 
+        t0 = time.perf_counter()
+        jpeg, jpeg_launches = counted("jpeg_extract ViT-B/16 caltech101", JPEG_PATH,
+                                      lambda: run_jpeg_extract(Path(tmp) / "jpeg"))
+        check_jpeg_extract(jpeg)
+        log(f"phase jpeg_extract: {time.perf_counter() - t0:.2f} s")
+
     kernels, off_path = kernels_lines(results, {
         "tip_adapter": tip_launches, "clip_search": search_launches, "gen_gpt": gen_launches,
         "train_coop": train_launches, "tip_adapter_imagenet": tipi_launches,
         "onehot_sweep": sweep_launches, "prompt_search": prompts_launches,
         "train_gpt": lm_launches, "int8_towers": int8_launches, "sandbox": sandbox_launches,
-        "multi_device": md_launches, "multi_device_train": mdt_launches})
-    log(f"card: {card}")
+        "multi_device": md_launches, "multi_device_train": mdt_launches,
+        "jpeg_extract": jpeg_launches})
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all; card: {card}")
     # ported kernels that no main path runs: checked and timed above, listed apart
     print(json.dumps({"kernels_off_the_main_paths": off_path}))
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,10 @@
 Counterpart of ``summer_clip_tpu/apps/common.py``. A :class:`ClipSession`
 holds a frozen CLIP on an explicit device in the compute dtype. Its image and
 token encoders run under ``torch.inference_mode()``; uint8 image batches are
-normalized on the device. :meth:`ClipSession.encode_text_embeds` runs with
-autograd, so prompt learning differentiates through the frozen text tower
-with respect to the embeddings.
+normalized on the device, float32 batches (PIL without ``device_normalize``,
+the native JPEG path) arrive normalized and go to the tower as they are.
+:meth:`ClipSession.encode_text_embeds` runs with autograd, so prompt learning
+differentiates through the frozen text tower with respect to the embeddings.
 
 With a mesh (``parallel.create_mesh``) :func:`extract_image_features` splits
 every batch over its ``data`` axis: each rank decodes and encodes only its own

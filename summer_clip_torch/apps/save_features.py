@@ -7,6 +7,9 @@ port's copy of its config (``summer_clip_torch/conf/save_features.yaml``). Featu
 ``<dataset>_{train,test}-<model>`` with the same (N, D) row layout, so either
 package reads what the other wrote.
 
+An eval split of JPEG files decodes through the native library
+(:mod:`summer_clip_torch.native`) where it builds, as in the JAX app.
+
 Run: ``python -m summer_clip_torch.apps.save_features dataset_name=sun397``.
 """
 
@@ -33,6 +36,7 @@ def save_split_features(cfg, session, store: FeatureStore, dataset_cfg, key: str
     if hasattr(view.transform, "device_normalize"):
         # ship raw uint8 to the device; normalization runs there
         view.transform.device_normalize = bool(cfg.data.get("device_normalize", False))
+    # native rows are normalized float32 on the host whatever device_normalize says
     batcher = view.batcher(batch_size=int(cfg.data.batch_size))
     logger.log_info(f"Extracting features for {key}: {len(view)} images")
 

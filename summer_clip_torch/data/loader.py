@@ -10,11 +10,16 @@ reference's torch DataLoader worker processes
 - :func:`summer_clip_torch.data.prefetch.prefetch_to_device` keeps N batches
   in flight on the accelerator.
 
-Two differences from the JAX package's module: the native C++ JPEG decoder is
-not ported (``use_native`` is accepted and the PIL path always runs), and
-``prefetch_to_device`` lives in :mod:`summer_clip_torch.data.prefetch`. One
-addition: :meth:`ImageBatcher.shard`, a data-parallel rank's rows of every
-batch (the JAX package decodes every row in its one controller).
+The native C++ path (:mod:`summer_clip_torch.native`: Pillow's libjpeg decode
+at a DCT scale, then the C++ resize, crop and normalize, in a thread pool)
+decodes an ``EvalTransform`` batch of JPEG files, as in the JAX package; it
+yields normalized float32 whatever ``device_normalize`` says. Differences from the JAX package's module: an
+explicit ``use_native=True`` raises where the library does not build or the
+transform is not ``EvalTransform`` (the JAX loader quietly decodes with PIL,
+or drops the augmentation), ``prefetch_to_device`` lives in
+:mod:`summer_clip_torch.data.prefetch`, and :meth:`ImageBatcher.shard` gives a
+data-parallel rank's rows of every batch (the JAX package decodes every row in
+its one controller).
 
 The label-only fast path (reference ``NoImageImageNetDataset`` /
 ``load_images=False``) never touches image bytes.
@@ -97,14 +102,26 @@ class ImageBatcher:
             raise ValueError(f"Cannot augment the image {k_tfm} times because transform is None")
         self.k_tfm = k_tfm
         self._epoch = 0
-        # native C++ decode path: eval transform over JPEG files only
+        # native C++ decode path: eval transform over JPEG files only; asked
+        # for explicitly, it raises for another transform (it would drop the
+        # augmentation) and where the library does not build
+        eval_tfm = type(self.transform).__name__ == "EvalTransform"
         if use_native is None:
             use_native = (
-                type(self.transform).__name__ == "EvalTransform"
+                eval_tfm
                 and bool(self.data)
                 and self.data[0].impath.lower().endswith((".jpg", ".jpeg"))
             )
-        self.use_native = bool(use_native) and self.k_tfm == 1 and self._native_available()
+            self.use_native = use_native and self.k_tfm == 1 and self._native_available()
+        else:
+            self.use_native = bool(use_native) and self.k_tfm == 1
+            if self.use_native and not eval_tfm:
+                raise ValueError(f"use_native=True decodes with the eval transform only, "
+                                 f"not {type(self.transform).__name__}")
+            if self.use_native:
+                from summer_clip_torch import native
+
+                native.ensure_built()
         # fast=True: relaxed DCT-scale margin (1x instead of 2x the target
         # short side) - ~2x decode throughput for typical source sizes at a
         # small quality cost (native.preprocess_batch docstring); default
@@ -121,7 +138,9 @@ class ImageBatcher:
 
     @staticmethod
     def _native_available() -> bool:
-        return False   # the native decoder is not ported: PIL decodes every batch
+        from summer_clip_torch import native
+
+        return native.is_available()
 
     def __len__(self) -> int:
         n = len(self.data)
@@ -137,6 +156,22 @@ class ImageBatcher:
             return np.arange(len(self.data))
         rng = np.random.default_rng((self.seed, self._epoch))
         return rng.permutation(len(self.data))
+
+    def _native_rows(self, idx: np.ndarray) -> np.ndarray:
+        """Normalized float32 rows of ``idx`` through the native library; a
+        row it cannot decode goes through PIL and is normalized here even
+        under ``device_normalize`` (the native rows are normalized already)."""
+        from summer_clip_torch.native import preprocess_batch
+
+        size = getattr(self.transform, "input_size", 224)
+        images, ok = preprocess_batch([self.data[i].impath for i in idx], size,
+                                      num_threads=self.num_threads, fast=self.native_fast)
+        for row in np.flatnonzero(~ok):
+            dec = self._decode_one(int(idx[row]), int(idx[row]))
+            if dec.dtype == np.uint8:
+                dec = (dec.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
+            images[row] = dec
+        return images
 
     def _decode_one(self, ds_index: int, aug_seed: int) -> np.ndarray:
         item = self.data[ds_index]
@@ -189,7 +224,9 @@ class ImageBatcher:
             idx = order[s:s + bs][self.rows]
 
             def build() -> Batch:
-                if len(idx):
+                if self.use_native:
+                    images = self._native_rows(idx)
+                elif len(idx):
                     with cf.ThreadPoolExecutor(max_workers=min(self.num_threads, len(idx))) as inner:
                         images = np.stack(list(inner.map(self._decode_one, idx,
                                                          [int(i) for i in idx])))

@@ -173,13 +173,15 @@ def test_train_gpt_corpora_have_the_phase_sizes(tmp_path):
 
 
 def test_kernels_line_lists_every_path():
-    """Every kernel entry carries launches for all twelve paths, train_gpt,
-    int8_towers, sandbox and multi_device_train among them, and ``launches``
-    is their sum."""
+    """Every kernel entry carries launches for all thirteen paths, train_gpt,
+    int8_towers, sandbox, multi_device_train and jpeg_extract among them, and
+    ``launches`` is their sum."""
     paths = list(chip_smoke.MAIN_PATHS)
     assert paths[-3:] == ["train_gpt", "int8_towers", "sandbox"]
-    assert len(paths) == 12 and "multi_device_train" in paths
+    assert len(paths) == 13 and {"multi_device_train", "jpeg_extract"} <= set(paths)
+    assert chip_smoke.MAIN_PATHS["jpeg_extract"] == ("K5 fused_ln_attn", "K6 fused_ln_mlp")
     launches = {p: {n: 0 for n in chip_smoke.KERNELS} for p in paths}
+    launches["jpeg_extract"]["K5 fused_ln_attn"] = 1572
     launches["multi_device_train"]["K4 short_attention_packed"] = 1980
     launches["train_gpt"]["K4 short_attention_packed"] = 396
     launches["int8_towers"]["K4 short_attention_packed"] = 24
@@ -198,6 +200,8 @@ def test_kernels_line_lists_every_path():
     assert k4["launches_by_path"]["sandbox"] == 1044
     assert k4["launches_by_path"]["multi_device_train"] == 1980
     assert k4["launches"] == 396 + 24 + 2280 + 1044 + 1980
+    k5 = next(e for e in on if e["name"] == "K5 fused_ln_attn")
+    assert k5["launches_by_path"]["jpeg_extract"] == k5["launches"] == 1572
     assert all({"name", "route", "source", "replaces", "launches", "max_abs_err", *keys}
                <= set(e) for e in on + off)
 
@@ -338,3 +342,30 @@ def test_tp_k7_launch_arithmetic():
         gemv.streamed_qmatmul = real
     assert calls["n"] == 11
     assert cache[0]["k"].shape == (1, 8, 128)     # the rank's half of the embedding dim
+
+
+def test_shared_towers_draw_once_and_leave_the_global_generator_as_a_build_would():
+    """Inside ``shared_towers`` an app's second session of the same random
+    model takes the first one's towers, and torch's global generator ends
+    where a build would have left it, from the same start or another; outside,
+    every build draws anew."""
+    from summer_clip_torch.apps import common
+
+    def session(seed):
+        torch.manual_seed(seed)
+        model, _ = common.build_clip("test-vit", torch.Generator().manual_seed(0),
+                                     dtype=torch.float32, device="cpu")
+        return model, torch.rand(4)
+
+    want = {seed: session(seed) for seed in (42, 7)}
+    with chip_smoke.shared_towers():
+        first, after = session(42)
+        for seed in (42, 7, 42):
+            model, after = session(seed)
+            assert model is first
+            torch.testing.assert_close(after, want[seed][1], rtol=0, atol=0)
+        other, _ = common.build_clip("test-vit", torch.Generator().manual_seed(1),
+                                     dtype=torch.float32, device="cpu")
+        assert other is not first
+    torch.testing.assert_close(first.visual.proj, want[42][0].visual.proj, rtol=0, atol=0)
+    assert session(42)[0] is not first

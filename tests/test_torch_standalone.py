@@ -56,11 +56,14 @@ def test_walk_imports_and_compose_configs_without_jax():
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|summer_clip_tpu)\b")
 
 
-@pytest.mark.parametrize("path", sorted([*PORT.rglob("*.py"), REPO / "chip_smoke.py", *TOOLS]),
+@pytest.mark.parametrize("path", sorted([*PORT.rglob("*.py"), *PORT.glob("native/*.cpp"),
+                                          REPO / "chip_smoke.py", *TOOLS]),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_nothing_of_jax_or_the_jax_package(path):
     for no, line in enumerate(path.read_text().splitlines(), 1):
         assert not _IMPORT.match(line), f"{path}:{no}: {line}"
+        # the native library's C++ source names nothing of the JAX package
+        assert path.suffix != ".cpp" or "summer_clip_tpu" not in line, f"{path}:{no}: {line}"
         assert "summer_clip_tpu/conf" not in line or "config_path" not in line, f"{path}:{no}"
 
 
