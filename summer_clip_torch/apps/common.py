@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from summer_clip_torch.core import profiling
 from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.data.loader import Batch
 from summer_clip_torch.data.transforms import CLIP_MEAN, CLIP_STD
@@ -184,29 +185,44 @@ def extract_image_features(session: ClipSession, batcher: tp.Iterable[Batch],
 
     With the session's mesh each rank decodes and encodes only its rows of
     every batch (``batcher.shard``), and the axis's first rank gathers every
-    rank's rows at the end; the other ranks return no rows."""
+    rank's rows at the end; the other ranks return no rows.
+
+    Spans (``core/profiling``): ``extract`` around the call, ``extract.load``
+    and ``extract.stage`` (``data/prefetch``), ``extract.encode`` a batch,
+    ``extract.gather`` after the last batch with ``extract.fetch`` around its
+    blocking copies; counters ``extract.batches`` and ``extract.images``
+    (rows the masks keep)."""
     from summer_clip_torch.parallel import gather_rows
 
-    mesh = session.mesh
-    if mesh is not None:
-        batcher = batcher.shard(mesh.coords["data"], mesh.shape["data"])
-    encode = session.encode_image_preproj if preproj else session.encode_image
-    feats_parts: tp.List[torch.Tensor] = []
-    labels_parts, index_parts, masks = [], [], []
-    for batch in prefetch_to_device(batcher, session.device, size=2):
-        feats_parts.append(encode(batch.images))
-        labels_parts.append(batch.labels)
-        index_parts.append(batch.indices)
-        masks.append(batch.mask)
-    local = torch.cat(feats_parts)
-    feats = gather_rows(local, mesh, "data")
-    meta = np.stack([np.concatenate(labels_parts), np.concatenate(index_parts),
-                     np.concatenate(masks)], 1).astype(np.int64)
-    meta = gather_rows(torch.from_numpy(meta).to(session.device), mesh, "data")
-    if feats is None:   # not the axis's first rank
-        return np.zeros((0, local.shape[1]), np.float32), np.zeros(0, np.int32), np.zeros(0, np.int32)
-    feats, meta = feats.float().cpu().numpy(), meta.cpu().numpy()
-    labels, indices, mask = meta[:, 0].astype(np.int32), meta[:, 1].astype(np.int32), meta[:, 2] > 0
-    feats, labels, indices = feats[mask], labels[mask], indices[mask]
-    order = np.argsort(indices, kind="stable")
-    return feats[order], labels[order], indices[order]
+    with profiling.span("extract"):
+        mesh = session.mesh
+        if mesh is not None:
+            batcher = batcher.shard(mesh.coords["data"], mesh.shape["data"])
+        encode = session.encode_image_preproj if preproj else session.encode_image
+        feats_parts: tp.List[torch.Tensor] = []
+        labels_parts, index_parts, masks = [], [], []
+        for batch in prefetch_to_device(batcher, session.device, size=2):
+            with profiling.span("extract.encode"):
+                feats_parts.append(encode(batch.images))
+            profiling.count("extract.batches")
+            labels_parts.append(batch.labels)
+            index_parts.append(batch.indices)
+            masks.append(batch.mask)
+        with profiling.span("extract.gather"):
+            local = torch.cat(feats_parts)
+            feats = gather_rows(local, mesh, "data")
+            meta = np.stack([np.concatenate(labels_parts), np.concatenate(index_parts),
+                             np.concatenate(masks)], 1).astype(np.int64)
+            profiling.count("extract.images", int(meta[:, 2].sum()))
+            with profiling.span("extract.fetch"):
+                # blocking copies: the metadata's upload waits for the card's queue
+                meta = gather_rows(torch.from_numpy(meta).to(session.device), mesh, "data")
+                if feats is None:   # not the axis's first rank
+                    return (np.zeros((0, local.shape[1]), np.float32), np.zeros(0, np.int32),
+                            np.zeros(0, np.int32))
+                feats, meta = feats.float().cpu().numpy(), meta.cpu().numpy()
+            labels, indices = meta[:, 0].astype(np.int32), meta[:, 1].astype(np.int32)
+            mask = meta[:, 2] > 0
+            feats, labels, indices = feats[mask], labels[mask], indices[mask]
+            order = np.argsort(indices, kind="stable")
+            return feats[order], labels[order], indices[order]

@@ -35,6 +35,14 @@ on its rows and one all-reduce adds the partial logits; values built on the
 host go through ``parallel.sharded_cache_logits`` (K1 on each rank's rows).
 Rank 0 logs the records and saves the arrays.
 
+Spans and counters (:mod:`summer_clip_torch.core.profiling`): a pass is
+``search.pass`` (counter ``search.passes``) around ``search.zero_shot``, each
+selection's ``search.select``, each value strategy's ``search.values``, each
+cache-logits call's ``search.cache`` (``search.cache_calls``), each chunk's
+``search.evaluate`` with its host copy ``search.fetch`` (``search.points``:
+the accuracies evaluated, one a value, beta and alpha) and each beta's
+``search.log``.
+
 Run: ``python -m summer_clip_torch.apps.image_attention dataset_name=<name>
 data.features_key=<key> cache.features_key=<key> cache.outs_key=<key>``
 (``img_attn_dataset@dataset_cfg=<dataset>`` composes a dataset's keys, as for
@@ -53,6 +61,7 @@ from summer_clip_torch.apps.common import create_clip_session
 from summer_clip_torch.apps.features_io import resolve_array
 from summer_clip_torch.apps.savers import TensorsNumpySaver
 from summer_clip_torch.core import config as C
+from summer_clip_torch.core import profiling
 from summer_clip_torch.engine.trainer import BaseTrainer, run_trainer, visible_world
 from summer_clip_torch.methods import cache as cache_methods
 from summer_clip_torch.methods.cache import cache_logits_for_betas
@@ -241,13 +250,18 @@ class ImageAttention(BaseTrainer):
         k5 = min(5, int(clip_logits.shape[1]))
 
         def evaluate(cache_chunk: torch.Tensor) -> np.ndarray:
-            accs = []
-            for cache_one in cache_chunk:
-                for alpha in alphas:
-                    rank = label_rank(clip_logits + alpha * cache_one, labels)
-                    accs.append(torch.stack([(rank == 0).float().mean() * 100.0,
-                                             (rank < k5).float().mean() * 100.0]))
-            return torch.stack(accs).reshape(len(cache_chunk), len(alphas), 2).cpu().numpy()
+            with profiling.span("search.evaluate"):
+                accs = []
+                for cache_one in cache_chunk:
+                    for alpha in alphas:
+                        rank = label_rank(clip_logits + alpha * cache_one, labels)
+                        accs.append(torch.stack([(rank == 0).float().mean() * 100.0,
+                                                 (rank < k5).float().mean() * 100.0]))
+                stacked = torch.stack(accs)
+                with profiling.span("search.fetch"):
+                    out = stacked.reshape(len(cache_chunk), len(alphas), 2).cpu().numpy()
+                profiling.count("search.points", out.shape[0] * out.shape[1])
+                return out
 
         return evaluate
 
@@ -261,31 +275,37 @@ class ImageAttention(BaseTrainer):
         return cfg
 
     def train_loop(self):
-        a1, a5 = compute_accuracy(self.clip_logits, self.test_labels)
-        zinfo: dict = {"acc1": a1, "acc5": a5}
-        if self.cfg.run_saves.save_preds and self.leads:
-            preds = self.clip_logits.argmax(dim=1).cpu().numpy()
-            zinfo["preds_path"] = str(self.preds_saver.save_tensor(preds))
-        if self.cfg.run_saves.save_logits and self.leads:
-            zinfo["logits_path"] = str(self.preds_saver.save_tensor(self.clip_logits.cpu().numpy()))
-        self.logger.log_info({**zinfo, "type": "zero_shot"})
+        with profiling.span("search.pass"):
+            profiling.count("search.passes")
+            with profiling.span("search.zero_shot"):
+                a1, a5 = compute_accuracy(self.clip_logits, self.test_labels)
+                zinfo: dict = {"acc1": a1, "acc5": a5}
+                if self.cfg.run_saves.save_preds and self.leads:
+                    preds = self.clip_logits.argmax(dim=1).cpu().numpy()
+                    zinfo["preds_path"] = str(self.preds_saver.save_tensor(preds))
+                if self.cfg.run_saves.save_logits and self.leads:
+                    zinfo["logits_path"] = str(
+                        self.preds_saver.save_tensor(self.clip_logits.cpu().numpy()))
+                self.logger.log_info({**zinfo, "type": "zero_shot"})
+            evaluate = self._grid_eval_fn()
+            alphas = list(self.cfg.cache.alpha)
+            weights_cfg = C.to_container(self.cfg.cache_weights_strategy, resolve=True)
+            value_cfg = C.to_container(self.cfg.cache_value_strategy, resolve=True)
 
-        evaluate = self._grid_eval_fn()
-        alphas = list(self.cfg.cache.alpha)
-        weights_cfg = C.to_container(self.cfg.cache_weights_strategy, resolve=True)
-        value_cfg = C.to_container(self.cfg.cache_value_strategy, resolve=True)
+            for strategy_cfg in self.cfg.cache_strategies.values():
+                raw_cfg = C.to_container(strategy_cfg, resolve=True)
+                for strategy, strategy_params in C.instantiate_all(self._inject_context(raw_cfg)):
+                    strategy_params = {k: v for k, v in strategy_params.items()
+                                       if not isinstance(v, np.ndarray)}
+                    with profiling.span("search.select"):
+                        cf, co, cache_info = self.build_cache(
+                            strategy, self.origin_cache_image_features,
+                            self.origin_cache_image_outs)
+                    self.logger.log_info({**cache_info, "cache_strategy": strategy_params,
+                                          "type": "cache_info"})
+                    self._sweep_weights_values(cf, co, strategy_params, weights_cfg,
+                                               value_cfg, alphas, evaluate)
 
-        for strategy_cfg in self.cfg.cache_strategies.values():
-            raw_cfg = C.to_container(strategy_cfg, resolve=True)
-            for strategy, strategy_params in C.instantiate_all(self._inject_context(raw_cfg)):
-                strategy_params = {k: v for k, v in strategy_params.items()
-                                   if not isinstance(v, np.ndarray)}
-                cf, co, cache_info = self.build_cache(
-                    strategy, self.origin_cache_image_features, self.origin_cache_image_outs)
-                self.logger.log_info({**cache_info, "cache_strategy": strategy_params,
-                                      "type": "cache_info"})
-                self._sweep_weights_values(cf, co, strategy_params, weights_cfg,
-                                           value_cfg, alphas, evaluate)
 
     def _selection_dev(self) -> tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor, int]]:
         """(features, outs, valid_rows) of the current selection gathered from
@@ -350,38 +370,43 @@ class ImageAttention(BaseTrainer):
         return None
 
     def _fused_cache_logits(self, cache_features, values, betas) -> torch.Tensor:
-        if self.mesh is not None:
-            if isinstance(values, _ShardedValueSpec):
-                # the resident ranks: the selection goes as a row mask
-                return self._resident_shards.logits(self._test_norm, self._last_inds, list(betas),
-                                                    kind=values.kind, scale=values.scale)
-            from summer_clip_torch.parallel import sharded_cache_logits
+        profiling.count("search.cache_calls")
+        with profiling.span("search.cache"):
+            if self.mesh is not None:
+                if isinstance(values, _ShardedValueSpec):
+                    # the resident ranks: the selection goes as a row mask
+                    return self._resident_shards.logits(self._test_norm, self._last_inds,
+                                                        list(betas), kind=values.kind,
+                                                        scale=values.scale)
+                from summer_clip_torch.parallel import sharded_cache_logits
 
-            return sharded_cache_logits(self._test_norm, _l2n(np.asarray(cache_features, np.float32)),
-                                        np.asarray(values), list(betas), self.mesh, axis="model")
-        sel = self._selection_dev()
-        if sel is None:
-            return cache_logits_for_betas(self.test_image_features, cache_features,
-                                          values, betas, device=self.device)
-        cf_dev, _, valid = sel
-        bet = torch.as_tensor(np.asarray(list(betas), np.float32)).to(self.device)
-        if isinstance(values, _OnehotValues):
-            # K3 for class-grouped selections, K2 for scattered ones: either
-            # way the (N, C) value matrix never exists
-            labels_p = np.full((cf_dev.shape[0],), -1, np.int32)
-            labels_p[:valid] = values.labels
-            return cache_attention_from_labels(self._test_norm, cf_dev, labels_p, bet,
-                                               values.num_classes)
-        if not isinstance(values, torch.Tensor):
-            # value matrix built on the host in selection order: bring it into
-            # the gather's row order, pad, and keep int8 one-hots int8 on CUDA
-            vals = _pad_rows(np.asarray(values)[self._sel_perm])
-            as_int8 = np.issubdtype(vals.dtype, np.integer) and self.device.type == "cuda"
-            values = torch.from_numpy(vals.astype(np.int8 if as_int8 else np.float32)
-                                      ).to(self.device)
-        if values.shape[0] != cf_dev.shape[0]:
-            raise ValueError(f"values rows {values.shape[0]} != cache rows {cf_dev.shape[0]}")
-        return cache_attention_auto(self._test_norm, cf_dev, values, bet)
+                return sharded_cache_logits(self._test_norm,
+                                            _l2n(np.asarray(cache_features, np.float32)),
+                                            np.asarray(values), list(betas), self.mesh,
+                                            axis="model")
+            sel = self._selection_dev()
+            if sel is None:
+                return cache_logits_for_betas(self.test_image_features, cache_features,
+                                              values, betas, device=self.device)
+            cf_dev, _, valid = sel
+            bet = torch.as_tensor(np.asarray(list(betas), np.float32)).to(self.device)
+            if isinstance(values, _OnehotValues):
+                # K3 for class-grouped selections, K2 for scattered ones: either
+                # way the (N, C) value matrix never exists
+                labels_p = np.full((cf_dev.shape[0],), -1, np.int32)
+                labels_p[:valid] = values.labels
+                return cache_attention_from_labels(self._test_norm, cf_dev, labels_p, bet,
+                                                   values.num_classes)
+            if not isinstance(values, torch.Tensor):
+                # value matrix built on the host in selection order: bring it into
+                # the gather's row order, pad, and keep int8 one-hots int8 on CUDA
+                vals = _pad_rows(np.asarray(values)[self._sel_perm])
+                as_int8 = np.issubdtype(vals.dtype, np.integer) and self.device.type == "cuda"
+                values = torch.from_numpy(vals.astype(np.int8 if as_int8 else np.float32)
+                                          ).to(self.device)
+            if values.shape[0] != cf_dev.shape[0]:
+                raise ValueError(f"values rows {values.shape[0]} != cache rows {cf_dev.shape[0]}")
+            return cache_attention_auto(self._test_norm, cf_dev, values, bet)
 
     def _sweep_weights_values(self, cache_features, cache_outs, strategy_params,
                               weights_cfg, value_cfg, alphas, evaluate,
@@ -390,9 +415,10 @@ class ImageAttention(BaseTrainer):
         all_tip = all(isinstance(w, cache_methods.TipAdapterWeightsStrategy)
                       for w, _ in weights_list)
         for value_strategy, value_params in C.instantiate_all(value_cfg):
-            values = self._device_values(value_strategy) if all_tip else None
-            if values is None:
-                values = value_strategy.transform(cache_outs)
+            with profiling.span("search.values"):
+                values = self._device_values(value_strategy) if all_tip else None
+                if values is None:
+                    values = value_strategy.transform(cache_outs)
             if not all_tip:
                 # another weights strategy: the kernels compute
                 # exp(-beta (1 - affinity)) and nothing else, so its weights
@@ -425,18 +451,20 @@ class ImageAttention(BaseTrainer):
                      alphas, accs: np.ndarray, cache_logits_one: torch.Tensor) -> None:
         if not self.leads:
             return
-        for ai, alpha in enumerate(alphas):
-            info: dict = {
-                "cache_strategy": strategy_params,
-                "cache_value_strategy": value_params,
-                "cache_weights_strategy": weights_params,
-                "alpha": float(alpha),
-                "acc1": float(accs[ai, 0]), "acc5": float(accs[ai, 1]),
-            }
-            if self.cfg.run_saves.save_preds:
-                preds = (self.clip_logits + alpha * cache_logits_one).argmax(dim=1).cpu().numpy()
-                info["preds_path"] = str(self.preds_saver.save_tensor(preds))
-            self.logger.log_info_wandb({**info, "type": "searcher_result"})
+        with profiling.span("search.log"):
+            for ai, alpha in enumerate(alphas):
+                info: dict = {
+                    "cache_strategy": strategy_params,
+                    "cache_value_strategy": value_params,
+                    "cache_weights_strategy": weights_params,
+                    "alpha": float(alpha),
+                    "acc1": float(accs[ai, 0]), "acc5": float(accs[ai, 1]),
+                }
+                if self.cfg.run_saves.save_preds:
+                    preds = (self.clip_logits
+                             + alpha * cache_logits_one).argmax(dim=1).cpu().numpy()
+                    info["preds_path"] = str(self.preds_saver.save_tensor(preds))
+                self.logger.log_info_wandb({**info, "type": "searcher_result"})
 
 
 @C.main(config_path="../conf", config_name="image_attention")

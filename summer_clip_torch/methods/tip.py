@@ -6,6 +6,12 @@ call per chunk), alphas are a broadcast blend, and the best point is the first
 maximum in grid order. Tip-Adapter-F (:func:`finetune_cache_keys`) trains the
 cache keys on the plain f32 route: the cache kernels are forward-only, and the
 JAX function has no kernel either.
+
+Spans and counters of a search (:mod:`summer_clip_torch.core.profiling`):
+``tip.search`` (``tip.searches``) around each chunk's ``tip.cache`` (the
+kernel call; ``tip.chunks``, ``tip.betas``) and ``tip.blend`` (the blend,
+argmax and accuracies) with its host copy ``tip.fetch``; ``tip.points`` adds
+the size of every accuracy array a chunk produced.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from summer_clip_torch.core import profiling
 from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.engine.optim import adamw, cosine_decay_schedule
 from summer_clip_torch.ops.cache_kernels import cache_attention_auto
@@ -69,30 +76,40 @@ def search_hp(features, labels, clip_logits, cache_keys, cache_values,
               device: tp.Union[None, str, torch.device] = None) -> tp.Tuple[float, float, float]:
     """Grid-search (beta, alpha) on ``device`` (the card when None); returns
     (best_beta, best_alpha, best_acc)."""
-    device = resolve_device(device)
-    betas, alphas = beta_alpha_grid(search_scale, search_step)
-    f = _t(features, device)
-    cl = _t(clip_logits, device)
-    keys = _t(cache_keys, device)
-    vals = _t(cache_values, device)
-    y = torch.as_tensor(np.asarray(labels), dtype=torch.long).to(device)
-    alphas_t = torch.as_tensor(alphas).to(device)
+    with profiling.span("tip.search"):
+        profiling.count("tip.searches")
+        device = resolve_device(device)
+        betas, alphas = beta_alpha_grid(search_scale, search_step)
+        f = _t(features, device)
+        cl = _t(clip_logits, device)
+        keys = _t(cache_keys, device)
+        vals = _t(cache_values, device)
+        y = torch.as_tensor(np.asarray(labels), dtype=torch.long).to(device)
+        alphas_t = torch.as_tensor(alphas).to(device)
 
-    best = (-1.0, 0.0, 0.0)  # acc, beta, alpha
-    for s in range(0, len(betas), beta_chunk):
-        chunk = betas[s:s + beta_chunk]
-        cache = cache_attention_auto(f, keys, vals, chunk, cache_labels=cache_labels)
-        # (Bc, A, Nt, C) blends -> argmax per row -> accuracy per (beta, alpha)
-        accs = torch.stack([
-            ((cl[None] + alphas_t[:, None, None] * c[None]).argmax(-1) == y[None])
-            .float().mean(-1) * 100.0
-            for c in cache]).cpu().numpy()
-        bi, ai = np.unravel_index(np.argmax(accs), accs.shape)
-        if accs[bi, ai] > best[0]:
-            best = (float(accs[bi, ai]), float(chunk[bi]), float(alphas[ai]))
-            if log_fn:
-                log_fn({"type": "tip_hp", "beta": best[1], "alpha": best[2], "acc": best[0]})
-    return best[1], best[2], best[0]
+        best = (-1.0, 0.0, 0.0)  # acc, beta, alpha
+        for s in range(0, len(betas), beta_chunk):
+            chunk = betas[s:s + beta_chunk]
+            profiling.count("tip.chunks")
+            profiling.count("tip.betas", len(chunk))
+            with profiling.span("tip.cache"):
+                cache = cache_attention_auto(f, keys, vals, chunk, cache_labels=cache_labels)
+            with profiling.span("tip.blend"):
+                # (Bc, A, Nt, C) blends -> argmax per row -> accuracy per (beta, alpha)
+                accs = torch.stack([
+                    ((cl[None] + alphas_t[:, None, None] * c[None]).argmax(-1) == y[None])
+                    .float().mean(-1) * 100.0
+                    for c in cache])
+                with profiling.span("tip.fetch"):
+                    accs = accs.cpu().numpy()
+                profiling.count("tip.points", accs.size)
+            bi, ai = np.unravel_index(np.argmax(accs), accs.shape)
+            if accs[bi, ai] > best[0]:
+                best = (float(accs[bi, ai]), float(chunk[bi]), float(alphas[ai]))
+                if log_fn:
+                    log_fn({"type": "tip_hp", "beta": best[1], "alpha": best[2],
+                            "acc": best[0]})
+        return best[1], best[2], best[0]
 
 
 def finetune_cache_keys(train_features, train_labels, clip_logits_train, cache_keys,

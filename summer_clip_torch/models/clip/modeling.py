@@ -49,6 +49,12 @@ final projections stay in the compute dtype, as in the JAX package. The port
 keeps q, k and v stacked in ``in_proj_weight``; quantizing the stack column by
 column with the rows' shared activation scale is the JAX package's three
 separate ``QuantDense``s.
+
+Spans (:mod:`summer_clip_torch.core.profiling`, recorded only while it is on):
+``tower.image`` and ``tower.text`` around each tower, and around each half of
+every residual block, whatever its route, ``block.attn`` and ``block.mlp``,
+timed on the card by CUDA events; the counter ``tower.blocks`` adds the blocks
+a tower runs.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from summer_clip_torch.core import profiling
 from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.models.clip.configs import CLIP_CONFIGS, CLIPConfig
 from summer_clip_torch.ops import block_kernels as bk
@@ -164,32 +171,34 @@ class ResidualAttentionBlock(nn.Module):
         return [a.in_proj_weight, a.in_proj_bias, *a.out_proj.parameters(),
                 *m.c_fc.parameters(), *m.c_proj.parameters()]
 
-    def _forward_int8(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
-        """The JAX package's quantized module path: int8 q/k/v (one product
-        of the stacked weight), :func:`multi_head_attention`, int8 out_proj,
-        then int8 c_fc -> QuickGELU -> int8 c_proj; results in x's dtype."""
-        a, m = self.attn, self.mlp
-        d = x.shape[-1]
-        q, k, v = int8.int8_linear(self.ln_1(x), a.in_proj_weight, a.in_proj_bias).split(d, dim=-1)
-        o = multi_head_attention(q, k, v, num_heads=a.num_heads, causal=causal)
-        x = x + int8.int8_linear(o, a.out_proj.weight, a.out_proj.bias)
-        h = bk.quick_gelu(int8.int8_linear(self.ln_2(x), m.c_fc.weight, m.c_fc.bias))
-        return x + int8.int8_linear(h, m.c_proj.weight, m.c_proj.bias)
-
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        if self.quant == "int8":
-            return self._forward_int8(x, causal)
-        a, m = self.attn, self.mlp
+    def _attn_half(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
+        """``x + out_proj(MHA(LN(x)))``: K5, the module route (K4 between two
+        products) or, under ``quant``, the JAX package's quantized module path
+        (int8 q/k/v in one product of the stacked weight, int8 out_proj)."""
+        a = self.attn
         t, d = x.shape[-2], x.shape[-1]
-        if attn_route(d, t, a.num_heads) == "k5":
-            x = bk.fused_ln_attn_ad(x, self.ln_1.weight, self.ln_1.bias, a.in_proj_weight,
-                                    a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
-                                    num_heads=a.num_heads, causal=causal, eps=self.ln_1.eps)
-        else:
-            # q, k, v stay views of the fused projection: K4 reads them in place
-            q, k, v = bk.dense(self.ln_1(x), a.in_proj_weight, a.in_proj_bias).split(d, dim=-1)
+        if self.quant == "int8":
+            q, k, v = int8.int8_linear(self.ln_1(x), a.in_proj_weight,
+                                       a.in_proj_bias).split(d, dim=-1)
             o = multi_head_attention(q, k, v, num_heads=a.num_heads, causal=causal)
-            x = x + bk.dense(o, a.out_proj.weight, a.out_proj.bias)
+            return x + int8.int8_linear(o, a.out_proj.weight, a.out_proj.bias)
+        if attn_route(d, t, a.num_heads) == "k5":
+            return bk.fused_ln_attn_ad(x, self.ln_1.weight, self.ln_1.bias, a.in_proj_weight,
+                                       a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
+                                       num_heads=a.num_heads, causal=causal, eps=self.ln_1.eps)
+        # q, k, v stay views of the fused projection: K4 reads them in place
+        q, k, v = bk.dense(self.ln_1(x), a.in_proj_weight, a.in_proj_bias).split(d, dim=-1)
+        o = multi_head_attention(q, k, v, num_heads=a.num_heads, causal=causal)
+        return x + bk.dense(o, a.out_proj.weight, a.out_proj.bias)
+
+    def _mlp_half(self, x: torch.Tensor) -> torch.Tensor:
+        """``x + c_proj(QuickGELU(c_fc(LN(x))))``: K6 or K9, the plain
+        products, or int8 c_fc and c_proj under ``quant``."""
+        a, m = self.attn, self.mlp
+        if self.quant == "int8":
+            h = bk.quick_gelu(int8.int8_linear(self.ln_2(x), m.c_fc.weight, m.c_fc.bias))
+            return x + int8.int8_linear(h, m.c_proj.weight, m.c_proj.bias)
+        t, d = x.shape[-2], x.shape[-1]
         if mlp_route(d, t, a.num_heads, m.c_fc.out_features) != "plain":
             # K6 or K9, by the weight size (bk.mlp_kernel)
             return bk.fused_ln_mlp_ad(x, self.ln_2.weight, self.ln_2.bias, m.c_fc.weight,
@@ -197,6 +206,14 @@ class ResidualAttentionBlock(nn.Module):
                                       eps=self.ln_2.eps)
         h = bk.quick_gelu(bk.dense(self.ln_2(x), m.c_fc.weight, m.c_fc.bias))
         return x + bk.dense(h, m.c_proj.weight, m.c_proj.bias)
+
+    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        """Both halves, each in a device span (``core/profiling``); results
+        in x's dtype."""
+        with profiling.span("block.attn", device=x):
+            x = self._attn_half(x, causal)
+        with profiling.span("block.mlp", device=x):
+            return self._mlp_half(x)
 
 
 class Transformer(nn.Module):
@@ -207,6 +224,7 @@ class Transformer(nn.Module):
         self.remat = False   # recompute each block's activations in the backward
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        profiling.count("tower.blocks", len(self.resblocks))
         for block in self.resblocks:
             if self.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(block, x, causal, use_reentrant=False)
@@ -415,12 +433,13 @@ class TextTransformer(nn.Module):
         return self.token_embedding(token_ids)
 
     def _encode(self, x: torch.Tensor, eot_idx: torch.Tensor) -> torch.Tensor:
-        t = x.shape[1]
-        x = x + self.positional_embedding[:t].to(x.dtype)
-        x = self.transformer(x, causal=True)
-        x = self.ln_final(x)
-        pooled = x[torch.arange(x.shape[0], device=x.device), eot_idx]
-        return pooled @ self.text_projection.to(x.dtype)
+        with profiling.span("tower.text"):
+            t = x.shape[1]
+            x = x + self.positional_embedding[:t].to(x.dtype)
+            x = self.transformer(x, causal=True)
+            x = self.ln_final(x)
+            pooled = x[torch.arange(x.shape[0], device=x.device), eot_idx]
+            return pooled @ self.text_projection.to(x.dtype)
 
     def encode_text(self, token_ids: torch.Tensor) -> torch.Tensor:
         return self._encode(self.embed(token_ids), token_ids.argmax(dim=-1))
@@ -507,10 +526,12 @@ class CLIP(TextTransformer):
         return self
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
-        return self.visual(images)
+        with profiling.span("tower.image"):
+            return self.visual(images)
 
     def encode_image_preproj(self, images: torch.Tensor) -> torch.Tensor:
-        return self.visual(images, apply_proj=False)
+        with profiling.span("tower.image"):
+            return self.visual(images, apply_proj=False)
 
     def encode_text_embeds(self, inputs_embeds: torch.Tensor,
                            input_lens: torch.Tensor) -> torch.Tensor:

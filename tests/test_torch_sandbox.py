@@ -455,18 +455,24 @@ def test_utils_alias_has_the_references_names():
     assert putils.train_utils.adamw is not None and callable(putils.set_random_state)
 
 
-def test_profiling_timed_and_trace(tmp_path):
+def test_profiling_trace(tmp_path):
     from summer_clip_torch.core import profiling
 
-    seen = []
-    mm = profiling.timed(lambda a, b: a @ b, name="mm", sink=lambda n, s: seen.append((n, s)))
-    x = torch.randn(64, 64)
-    assert torch.equal(mm(x, x), x @ x)
-    assert [n for n, _ in seen] == ["mm"] and seen[0][1] >= 0
     with profiling.trace(str(tmp_path / "trace"), enabled=False) as prof:
         assert prof is None
+    assert not (tmp_path / "trace").exists()
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        torch.randn(32, 32) @ torch.randn(32, 32)
+        with profiling.span("outer"):
+            with profiling.span("mm"):
+                torch.randn(32, 32) @ torch.randn(32, 32)
+            profiling.count("products", 2)
     assert any("mm" in e.key for e in prof.key_averages())
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert any("mm" in str(e.get("name", "")) for e in trace["traceEvents"])
+    lines = [json.loads(line) for line in
+             (tmp_path / "trace" / "spans.jsonl").read_text().splitlines()]
+    assert [(x["name"], x["parent"], x["device_ms"]) for x in lines[:-1]] == [
+        ("outer", -1, None), ("mm", 0, None)]
+    assert all(0 < x["start_ns"] <= x["end_ns"] for x in lines[:-1])
+    assert lines[-1] == {"counters": {"products": 2}, "dropped": 0}
+    profiling.reset()
