@@ -73,6 +73,10 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
      "highest" == "split3" bit for bit, both against K3 and K1 (int8
      one-hots), "default" against "highest", two runs bit for bit, and the
      readings of a planted fault (one class's partial dropped);
+   - K14 blend_argmax_hits at a Tip chunk (16 betas x 50,000 rows x 1,000
+     classes x the grid's 20 alphas) against its plain version bit for bit,
+     with planted ties, two runs bit for bit, timed beside the plain version
+     and its bound;
    - K7 streamed_qmatmul at every matrix a decoded token of ClipGPT on
      gpt2-large reads ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280),
      the head (1280, 49408), the adapters (512, 1024) and (1024, 1280)) with
@@ -210,7 +214,7 @@ K6 entries (``PER_HEAD_BLOCK_SIGNATURES``), a ``gemv_kernels.cu`` or
      over a written store: 16 shots x 1000 classes of 1024-wide keys, 50000
      val and 50000 test rows, 16000 train rows, class prototypes plus noise.
      Checks the records, the searched accuracy, that Tip-Adapter-F's train CE
-     falls, K3's launch count, and the same store through the plain route
+     falls, K3's and K14's launch counts, and the same store through the plain route
      (the same searched (beta, alpha) and accuracies); prints each stage's
      time and the peak memory.
    - ClipGPT training (``train_gpt``): tokenize_dataset writes a synthetic
@@ -769,6 +773,43 @@ def check_cache_kernels(results: dict) -> None:
         results["K2 labels_dense"]["max_abs_err"] = max(
             results["K2 labels_dense"]["max_abs_err"], err2)
     torch.cuda.synchronize()
+
+
+def check_blend_argmax(results: dict) -> None:
+    """K14 at a Tip chunk: (16, 50,000, 1,000) cache logits and the grid's 20
+    alphas, half the rows on a 0.5 grid (exact ties, lowest index) with labels
+    at a tied maximum, against the plain version bit for bit; two runs equal."""
+    import torch
+
+    from summer_clip_torch.methods.tip import beta_alpha_grid
+    from summer_clip_torch.ops import cache_kernels as ck
+
+    nb, nt, c = 16, 50000, 1000
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cl = torch.randn(nt, c, device="cuda", generator=gen) * 4
+    cache = torch.rand(nb, nt, c, device="cuda", generator=gen)
+    half = nt // 2
+    cl[:half] = torch.randint(0, 4, (half, c), device="cuda", generator=gen) * 0.5
+    cache[:, :half] = torch.randint(0, 3, (nb, half, c), device="cuda", generator=gen) * 0.5
+    alphas = torch.from_numpy(beta_alpha_grid((7, 3), (200, 20))[1]).cuda()
+    alphas[-1] = 1.0        # exact blends on the grid rows: ties
+    labels = torch.randint(0, c, (nt,), device="cuda", generator=gen)
+    labels[:half] = (cl[:half] + cache[0, :half]).argmax(-1)
+    kern = lambda: ck.blend_argmax_hits(cache, cl, labels, alphas)     # noqa: E731
+    plain = lambda: ck.blend_argmax_hits_reference(cache, cl, labels, alphas)  # noqa: E731
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    equal, repeat = bool(torch.equal(got, want)), bool(torch.equal(got, again))
+    ms, plain_ms = cuda_time_ms(kern, 10), cuda_time_ms(plain, 2, 1)
+    work = bound(nb * nt * c * 4 + nt * c * 4 + nt * 8 + nb * 20 * 4, 0.0, 2.0 * nb * nt * c * 20)
+    log(f"K14 blend_argmax_hits Tip chunk betas={nb} Nt={nt} C={c} alphas=20: counts equal to "
+        f"plain {equal}, two runs equal {repeat}, hits {int(got.sum())} of {nb * 20 * nt}; "
+        f"kernel {ms:.4f} ms ({ms / nb:.4f} a beta) plain {plain_ms:.4f} ms bound "
+        f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
+    if not (equal and repeat):
+        raise AssertionError("K14: counts differ from the plain version or between runs")
+    results["K14 blend_argmax_hits"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                        "library_ms": None, "shapes": {}, **work}
 
 
 def check_weight_rate() -> None:
@@ -3205,6 +3246,7 @@ TIP_IMAGENET = dict(classes=1000, shots=16, d=1024, n_val=50000, n_test=50000, n
 # one K3 launch per 16-beta chunk: tip_result 1, the search ceil(200 / 16) = 13,
 # tip_searched 1, and the same again for Tip-Adapter-F
 TIP_IMAGENET_K3 = 2 * (1 + -(-200 // 16) + 1)
+TIP_IMAGENET_K14 = 2 * -(-200 // 16)    # one K14 launch a chunk of each search
 # tip_searched acc1, chance 0.1: the first run on an H100 read 17.602 (Tip-Adapter-F
 # searched 35.648; the random RN50 text tower's zero-shot logits are noise that
 # the cache term has to outvote)
@@ -6180,14 +6222,18 @@ KERNELS = {
                         "summer_clip_tpu/ops/decode_block.py:723", "B=1 T=256 int8"),
     "K13 onehot_variant": ("summer_clip_torch/csrc/cache_kernels.cu",
                            "tools/sweep_onehot_variants.py:38", "split3"),
+    "K14 blend_argmax_hits": ("summer_clip_torch/csrc/cache_kernels.cu",
+                              "none: XLA fuses summer_clip_tpu/methods/tip.py:107-116", None),
 }
-TIP_PATH = ("K5 fused_ln_attn", "K6 fused_ln_mlp", "K3 onehot_grouped", "K2 labels_dense")
+TIP_PATH = ("K5 fused_ln_attn", "K6 fused_ln_mlp", "K3 onehot_grouped", "K2 labels_dense",
+            "K14 blend_argmax_hits")
 SEARCH_PATH = ("K1 cache_dense", "K2 labels_dense", "K3 onehot_grouped",
                "K4 short_attention_packed", "K5 fused_ln_attn", "K6 fused_ln_mlp")
 GEN_PATH = ("K7 streamed_qmatmul", "K8 decode_block", "K10 fused_qmlp", "K11 flash_attention")
 TRAIN_PATH = ("K4 short_attention_packed", "K5 fused_ln_attn", "K6 fused_ln_mlp",
               "K9 fused_ln_mlp_chunked")
-TIP_IMAGENET_PATH = ("K3 onehot_grouped", "K5 fused_ln_attn", "K6 fused_ln_mlp")
+TIP_IMAGENET_PATH = ("K3 onehot_grouped", "K5 fused_ln_attn", "K6 fused_ln_mlp",
+                     "K14 blend_argmax_hits")
 ONEHOT_SWEEP_PATH = ("K1 cache_dense", "K13 onehot_variant")
 
 
@@ -6230,7 +6276,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     parser.add_argument("--only", choices=sorted(ONLY_SOURCES),
                         help="only build and run the checks of one kernel family, then stop "
                              "(no contract line): attention (K4, K11, K12 and the towers), "
-                             "block (K5, K6, K9 and the towers), cache (K1, K2, K3, K13) or "
+                             "block (K5, K6, K9 and the towers), cache (K1, K2, K3, K13, "
+                             "K14) or "
                              "decode (K7, K10, K8)")
     parser.add_argument("--baseline", metavar="CU", nargs="+",
                         help="with --only: earlier copies of its sources (attention_kernels.cu, "
@@ -6288,6 +6335,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
             check_decode_block(results)
         else:
             check_cache_kernels(results)
+            check_blend_argmax(results)
             check_dense_cache_kernel(results)
             check_onehot_variant(results)
         if args.only in ("attention", "block"):
@@ -6302,6 +6350,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     check_block_kernels(results)
     check_attention_kernels(results)
     check_cache_kernels(results)
+    check_blend_argmax(results)
     check_dense_cache_kernel(results)
     t1 = time.perf_counter()
     check_onehot_variant(results)
@@ -6388,12 +6437,13 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         t0 = time.perf_counter()
         _, tipi_launches = counted("tip_adapter_imagenet RN50", TIP_IMAGENET_PATH,
                                       lambda: run_tip_imagenet(Path(tmp) / "tip_imagenet"))
-        if (tipi_launches["K3 onehot_grouped"], tipi_launches["K2 labels_dense"]) != (
-                TIP_IMAGENET_K3, 0):
+        if (tipi_launches["K3 onehot_grouped"], tipi_launches["K2 labels_dense"],
+                tipi_launches["K14 blend_argmax_hits"]) != (TIP_IMAGENET_K3, 0, TIP_IMAGENET_K14):
             raise AssertionError(f"tip_adapter_imagenet launched K3 "
-                                 f"{tipi_launches['K3 onehot_grouped']} and K2 "
-                                 f"{tipi_launches['K2 labels_dense']} times, expected "
-                                 f"{TIP_IMAGENET_K3} and 0")
+                                 f"{tipi_launches['K3 onehot_grouped']}, K2 "
+                                 f"{tipi_launches['K2 labels_dense']} and K14 "
+                                 f"{tipi_launches['K14 blend_argmax_hits']} times, expected "
+                                 f"{TIP_IMAGENET_K3}, 0 and {TIP_IMAGENET_K14}")
         check_tip_imagenet(Path(tmp) / "tip_imagenet")
         log(f"phase tip_adapter_imagenet: {time.perf_counter() - t0:.2f} s")
 

@@ -1020,6 +1020,272 @@ weight_rate_probe_kernel(const float* __restrict__ betas, float* __restrict__ ou
   out[blockIdx.x * 256 + threadIdx.x] = (open[0] + open[1]) + (open[2] + open[3]);
 }
 
+// ---------------------------------------------------------------------------
+// K14 blend_argmax_hits: the Tip search's blend, argmax and hit count,
+//   hits[b, a] = #{n : argmax_j(cl[n, j] + alpha_a * cache[b, n, j]) == labels[n]}.
+// It replaces no TPU kernel: in the JAX package XLA fuses argmax(cl + alpha * c)
+// (summer_clip_tpu/methods/tip.py, accs_for_chunk_args); the eager port wrote
+// each beta's (A, Nt, C) product and sum whole and read the sum back.
+// What bounds it on the H100 (a Tip chunk: 16 betas, Nt = 50,000, C = 1,000,
+// 20 alphas, 1.6e10 (value, alpha) blends):
+//   - the instructions: a blend is a product and a sum (the FMA pipe, 128 a
+//     clock an SM) and a running maximum a compare on the ALU pipe (64 a
+//     clock): 0.10 ms a beta at one ALU instruction a blend;
+//   - the bytes: each beta's cache logits read once and the zero-shot logits
+//     once a row (200 MB + 200 MB / 16 a beta): 0.06 ms a beta at 3.35 TB/s;
+//   - the latency of those reads, which only resident warps hide, and
+//     registers bound the resident warps.
+// What the design does about them:
+//   - a warp owns one test row at a time and reads it in slices of 1024
+//     columns, a lane's 32 columns of a beta's cache row in flight at once
+//     (16-byte loads where C % 4 == 0, evict-first: read once) and the
+//     zero-shot row 4 columns at a time as they are used (cached: every beta
+//     reads it again); every value serves every alpha of the launch (up to 24),
+//     whose values are kernel parameters (a constant operand of the product,
+//     no register);
+//   - the maximum alone runs over every blend (fmaxf: one ALU instruction); the
+//     column is kept a group of 4 of a lane's columns at a time (a compare and
+//     a select a group): the first group that raised the lane's maximum. The
+//     warp's maximum M then comes by shuffles, and the row hits where its
+//     label's blend equals M and no column before the label reaches M: a lane
+//     whose first group reaching M lies wholly before the label has one, and
+//     where the group straddles the label the lane blends those columns again.
+//     So the first column wins a tie, as in torch.argmax. Column groups wholly
+//     past C are skipped (uniform branch): a narrow C costs its own width;
+//   - NaN counts as the maximum, as in torch.argmax, and fmaxf drops it. A
+//     blend can be NaN only where a value read or an alpha is not finite, so a
+//     (row, beta) is blended again only then, decided for the warp at once,
+//     column by column with a (value, column) pair a lane and alpha (NaN the
+//     largest, the lowest column on a tie) reduced across the warp by shuffles;
+//   - each blended value is __fadd_rn(cl, __fmul_rn(alpha, c)): the product
+//     rounded, then the sum, as the eager expression does, never contracted
+//     into an FMA, so the counts equal the plain version's bit for bit;
+//   - a block tallies its hits in shared memory (nb x G ints) and adds them to
+//     the output once, by integer atomics: exact and independent of order.
+namespace blend {
+constexpr int kWarps = 4;               // warps of a block
+constexpr int kMinBlocks = 3;           // resident blocks an SM (caps the registers)
+constexpr int kGroups = 8;              // groups of 4 columns a lane holds in a slice
+constexpr int kSlice = 32 * 4 * kGroups;   // columns of a slice
+constexpr int kMaxAlphas = 24;          // alphas of a launch
+constexpr int kMaxBetas = 512;          // betas of a launch (the tally: 48 KB of shared memory)
+constexpr int kNone = 0x7fffffff;       // no column yet
+
+struct Alphas {
+  float a[kMaxAlphas];
+};
+
+__device__ __forceinline__ bool finite(float x) { return fabsf(x) < INFINITY; }
+
+__device__ __forceinline__ float blended(float cl, float alpha, float c) {
+  return __fadd_rn(cl, __fmul_rn(alpha, c));
+}
+
+// A lane's columns of the slice at col0, in groups of 4: group g holds columns
+// first + j step (j < 4), increasing with g and j.
+template <int V>
+__device__ __forceinline__ int group_first(int col0, int g, int lane) {
+  return V == 4 ? col0 + (g * 32 + lane) * 4 : col0 + g * 128 + lane;
+}
+template <int V>
+__host__ __device__ constexpr int group_step() { return V == 4 ? 1 : 32; }
+
+// The 4 values of a group, pad past C. V = 4: C % 4 == 0, so a vector lies
+// wholly inside the row or wholly past it.
+template <int V, bool kStream>
+__device__ __forceinline__ void load_group(float (&v)[4], const float* __restrict__ row,
+                                           int first, int C, float pad) {
+  if constexpr (V == 4) {
+    float4 t = make_float4(pad, pad, pad, pad);
+    if (first < C) {
+      const float4* p = reinterpret_cast<const float4*>(row + first);
+      t = kStream ? __ldcs(p) : __ldg(p);
+    }
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = first + 32 * j;
+      v[j] = col < C ? (kStream ? __ldcs(row + col) : __ldg(row + col)) : pad;
+    }
+  }
+}
+
+// Whether the first column reaching the warp's maximum is the label L: bv, bk
+// the lane's maximum and the first column of the first group that reached it,
+// vL the label's blend.
+template <int V>
+__device__ __forceinline__ bool first_max_at(float bv, int bk, float vL, int L, float alpha,
+                                             const float* __restrict__ cl_row,
+                                             const float* __restrict__ c_row) {
+  float M = bv;
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, m));
+  if (vL != M) return false;                // uniform
+  constexpr int s = group_step<V>();
+  bool before = false;                      // a column before L reaches M
+  if (bv == M) {
+    if (bk + 3 * s < L) {
+      before = true;
+    } else if (bk < L) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int col = bk + j * s;
+        if (col < L) before |= blended(cl_row[col], alpha, c_row[col]) == M;
+      }
+    }
+  }
+  return !__any_sync(0xffffffffu, before);
+}
+
+// The same for any values: the lane's (value, column) pair of each alpha over
+// its columns (NaN the largest, the first NaN stays), the warp's by shuffles
+// (the lower column on a tie), against the label. Returns the hit bits.
+template <int G, int V>
+__device__ __forceinline__ unsigned hits_exact(const Alphas& al, const float* __restrict__ cl_row,
+                                            const float* __restrict__ c_row, int C,
+                                            long long label, int lane) {
+  float bv[G];
+  int bi[G];
+#pragma unroll
+  for (int a = 0; a < G; ++a) bv[a] = -INFINITY, bi[a] = kNone;
+  for (int col0 = 0; col0 < C; col0 += kSlice)
+    for (int g = 0; g < kGroups; ++g)
+      for (int j = 0; j < 4; ++j) {
+        const int col = group_first<V>(col0, g, lane) + j * group_step<V>();
+        if (col >= C) continue;
+        const float x = cl_row[col], y = c_row[col];
+#pragma unroll
+        for (int a = 0; a < G; ++a) {
+          const float v = blended(x, al.a[a], y);
+          const bool take = bi[a] == kNone || v > bv[a] || (v != v && bv[a] == bv[a]);
+          bv[a] = take ? v : bv[a];
+          bi[a] = take ? col : bi[a];
+        }
+      }
+  unsigned hit = 0;
+#pragma unroll
+  for (int a = 0; a < G; ++a) {
+    float v = bv[a];
+    int i = bi[a];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, m);
+      const int oi = __shfl_xor_sync(0xffffffffu, i, m);
+      const bool take = ov != ov ? (v == v || oi < i) : (ov > v || (ov == v && oi < i));
+      v = take ? ov : v;
+      i = take ? oi : i;
+    }
+    hit |= (unsigned)((long long)i == label) << a;
+  }
+  return hit;
+}
+}  // namespace blend
+
+// cache (nb, Nt, C), cl (Nt, C) f32, labels (Nt,) int64; the launch's A <= G
+// alphas (the last repeated up to G); hits (nb, ldh) int32 from its first
+// alpha's column, zero on entry. Rows go to warps in turn.
+template <int G, int V>
+__global__ void __launch_bounds__(blend::kWarps * 32, blend::kMinBlocks)
+blend_argmax_kernel(const float* __restrict__ cache, const float* __restrict__ cl,
+                    const long long* __restrict__ labels, const blend::Alphas al,
+                    int* __restrict__ hits, int nb, int Nt, int C, int A, int ldh) {
+  using namespace blend;
+  extern __shared__ int counts[];   // (nb, A): the block's hits
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < nb * A; i += blockDim.x) counts[i] = 0;
+  bool alphas_finite = true;
+#pragma unroll
+  for (int a = 0; a < G; ++a) alphas_finite &= finite(al.a[a]);
+  __syncthreads();
+  const size_t plane = (size_t)Nt * C;
+  constexpr int s = group_step<V>();
+  for (int n = blockIdx.x * kWarps + (threadIdx.x >> 5); n < Nt; n += gridDim.x * kWarps) {
+    const long long label = labels[n];
+    const bool label_in = label >= 0 && label < C;   // else the row never hits
+    const int L = label_in ? (int)label : 0;
+    const float* cl_row = cl + (size_t)n * C;
+    const float clL = cl_row[L];
+    for (int b = 0; b < nb; ++b) {
+      const float* c_row = cache + b * plane + (size_t)n * C;
+      const float cL = c_row[L];
+      float bv[G];
+      int bk[G];
+#pragma unroll
+      for (int a = 0; a < G; ++a) bv[a] = -INFINITY, bk[a] = lane * V;
+      bool ok = alphas_finite;
+      for (int col0 = 0; col0 < C; col0 += kSlice) {
+        float y[kGroups][4];
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g)
+          if (col0 + g * 128 < C) load_group<V, true>(y[g], c_row, group_first<V>(col0, g, lane), C, 0.f);
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          if (col0 + g * 128 >= C) break;   // uniform: the rest lies past C
+          const int first = group_first<V>(col0, g, lane);
+          float x[4];
+          load_group<V, false>(x, cl_row, first, C, -INFINITY);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) ok &= (finite(x[j]) || first + j * s >= C) & finite(y[g][j]);
+#pragma unroll
+          for (int a = 0; a < G; ++a) {
+            float m = bv[a];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) m = fmaxf(m, blended(x[j], al.a[a], y[g][j]));
+            bk[a] = m > bv[a] ? first : bk[a];
+            bv[a] = m;
+          }
+        }
+      }
+      unsigned hit = 0;
+      if (__all_sync(0xffffffffu, ok)) {
+#pragma unroll
+        for (int a = 0; a < G; ++a)
+          if (label_in && first_max_at<V>(bv[a], bk[a], blended(clL, al.a[a], cL), L, al.a[a],
+                                            cl_row, c_row))
+            hit |= 1u << a;
+      } else {
+        hit = hits_exact<G, V>(al, cl_row, c_row, C, label, lane);
+      }
+      if (lane < A && (hit >> lane & 1u)) atomicAdd(&counts[b * A + lane], 1);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nb * A; i += blockDim.x)
+    if (counts[i]) atomicAdd(&hits[(i / A) * ldh + i % A], counts[i]);
+}
+
+template <int G, int V>
+int launch_blend_at(const float* cache, const float* cl, const long long* labels,
+                    const blend::Alphas& al, int* hits, int nb, int Nt, int C, int A, int ldh,
+                    cudaStream_t s) {
+  const int threads = blend::kWarps * 32, smem = nb * A * (int)sizeof(int);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, blend_argmax_kernel<G, V>, threads, smem);
+  const int row_blocks = (Nt + blend::kWarps - 1) / blend::kWarps;
+  const int resident = (per_sm > 0 ? per_sm : 1) * sms;
+  blend_argmax_kernel<G, V><<<row_blocks < resident ? row_blocks : resident, threads, smem, s>>>(
+      cache, cl, labels, al, hits, nb, Nt, C, A, ldh);
+  return (int)cudaGetLastError();
+}
+
+// The register group: the launch's alphas rounded up to a multiple of 4.
+template <int V>
+int launch_blend(const float* cache, const float* cl, const long long* labels,
+                 const blend::Alphas& al, int* hits, int nb, int Nt, int C, int A, int ldh,
+                 cudaStream_t s) {
+  switch ((A + 3) / 4) {
+    case 1: return launch_blend_at<4, V>(cache, cl, labels, al, hits, nb, Nt, C, A, ldh, s);
+    case 2: return launch_blend_at<8, V>(cache, cl, labels, al, hits, nb, Nt, C, A, ldh, s);
+    case 3: return launch_blend_at<12, V>(cache, cl, labels, al, hits, nb, Nt, C, A, ldh, s);
+    case 4: return launch_blend_at<16, V>(cache, cl, labels, al, hits, nb, Nt, C, A, ldh, s);
+    case 5: return launch_blend_at<20, V>(cache, cl, labels, al, hits, nb, Nt, C, A, ldh, s);
+    default: return launch_blend_at<24, V>(cache, cl, labels, al, hits, nb, Nt, C, A, ldh, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1092,6 +1358,23 @@ int affinity_probe_bf16(const void* f, const void* cf, void* out, int D, int til
   return (int)cudaGetLastError();
 }
 
+
+// K14: cache (nb, Nt, C) and cl (Nt, C) f32, labels (Nt,) int64, all contiguous;
+// alphas: A <= 24 values on the host; hits (nb, ldh) int32 from the launch's
+// first alpha's column, zeroed by the caller; nb <= 512
+int blend_argmax_hits_f32(const void* cache, const void* cl, const void* labels,
+                          const float* alphas, void* hits, int nb, int Nt, int C, int A, int ldh,
+                          void* stream) {
+  if (nb < 1 || nb > blend::kMaxBetas || Nt < 1 || C < 1 || A < 1 || A > blend::kMaxAlphas ||
+      ldh < A)
+    return (int)cudaErrorInvalidValue;
+  blend::Alphas al;
+  for (int a = 0; a < blend::kMaxAlphas; ++a) al.a[a] = alphas[a < A ? a : A - 1];
+  const float *c = (const float*)cache, *l = (const float*)cl;
+  const bool v4 = C % 4 == 0 && ((uintptr_t)c | (uintptr_t)l) % 16 == 0;
+  return (v4 ? launch_blend<4> : launch_blend<1>)(c, l, (const long long*)labels, al, (int*)hits,
+                                                  nb, Nt, C, A, ldh, (cudaStream_t)stream);
+}
 
 // betas (16,) f32; out (blocks x 256,) f32; rows % 8 == 0
 int weight_rate_probe_bf16(const void* betas, void* out, int rows, int blocks, void* stream) {

@@ -2,16 +2,19 @@
 
 Counterpart of ``summer_clip_tpu/methods/tip.py``. The beta axis of the grid
 search runs through the label-driven cache kernels in chunks of 16 betas (one
-call per chunk), alphas are a broadcast blend, and the best point is the first
-maximum in grid order. Tip-Adapter-F (:func:`finetune_cache_keys`) trains the
-cache keys on the plain f32 route: the cache kernels are forward-only, and the
-JAX function has no kernel either.
+call per chunk); every alpha's blend of a chunk, its argmax and the hits against
+the labels are one call of :func:`blend_argmax_hits` (K14 on the card, which
+writes no blend), and the best point is the first maximum in grid order.
+Tip-Adapter-F (:func:`finetune_cache_keys`) trains the cache keys on the plain
+f32 route: the cache kernels are forward-only, and the JAX function has no
+kernel either.
 
 Spans and counters of a search (:mod:`summer_clip_torch.core.profiling`):
 ``tip.search`` (``tip.searches``) around each chunk's ``tip.cache`` (the
 kernel call; ``tip.chunks``, ``tip.betas``) and ``tip.blend`` (the blend,
-argmax and accuracies) with its host copy ``tip.fetch``; ``tip.points`` adds
-the size of every accuracy array a chunk produced.
+argmax and accuracies; ``tip.blended``, the betas blended) with its host copy
+``tip.fetch``; ``tip.points`` adds the size of every accuracy array a chunk
+produced.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 from summer_clip_torch.core import profiling
 from summer_clip_torch.core.device import resolve_device
 from summer_clip_torch.engine.optim import adamw, cosine_decay_schedule
-from summer_clip_torch.ops.cache_kernels import cache_attention_auto
+from summer_clip_torch.ops.cache_kernels import blend_argmax_hits, cache_attention_auto
 
 __all__ = ["build_cache_from_features", "tip_logits", "search_hp", "beta_alpha_grid",
            "finetune_cache_keys"]
@@ -85,7 +88,6 @@ def search_hp(features, labels, clip_logits, cache_keys, cache_values,
         keys = _t(cache_keys, device)
         vals = _t(cache_values, device)
         y = torch.as_tensor(np.asarray(labels), dtype=torch.long).to(device)
-        alphas_t = torch.as_tensor(alphas).to(device)
 
         best = (-1.0, 0.0, 0.0)  # acc, beta, alpha
         for s in range(0, len(betas), beta_chunk):
@@ -95,13 +97,12 @@ def search_hp(features, labels, clip_logits, cache_keys, cache_values,
             with profiling.span("tip.cache"):
                 cache = cache_attention_auto(f, keys, vals, chunk, cache_labels=cache_labels)
             with profiling.span("tip.blend"):
-                # (Bc, A, Nt, C) blends -> argmax per row -> accuracy per (beta, alpha)
-                accs = torch.stack([
-                    ((cl[None] + alphas_t[:, None, None] * c[None]).argmax(-1) == y[None])
-                    .float().mean(-1) * 100.0
-                    for c in cache])
+                # (Bc, A) rows whose blend's argmax is their label -> accuracy per (beta, alpha)
+                hits = blend_argmax_hits(cache, cl, y, alphas)
+                profiling.count("tip.blended", cache.shape[0])
+                del cache   # one chunk's logits live at a time
                 with profiling.span("tip.fetch"):
-                    accs = accs.cpu().numpy()
+                    accs = (hits.float() / y.shape[0] * 100.0).cpu().numpy()
                 profiling.count("tip.points", accs.size)
             bi, ai = np.unravel_index(np.argmax(accs), accs.shape)
             if accs[bi, ai] > best[0]:

@@ -1,4 +1,5 @@
-"""Cache attention ``out[b] = exp(-beta_b * (1 - F @ C^T)) @ V`` (K1, K2, K3).
+"""Cache attention ``out[b] = exp(-beta_b * (1 - F @ C^T)) @ V`` (K1, K2, K3),
+and the Tip search's blend of its output (K14).
 
 Counterpart of ``summer_clip_tpu/ops/cache_kernels.py``.
 
@@ -34,6 +35,13 @@ its host tables (the row order, the class and segment boundaries, the work
 items and the workspace slots of the classes an item boundary cuts) and
 :func:`grouped_items` the number of work items.
 
+- :func:`blend_argmax_hits` -- K14, the Tip search's blend of a chunk's cache
+  logits with the zero-shot logits at every alpha, its argmax and the hits
+  against the labels, (B, A) int32 counts; no blend is written. It replaces no
+  TPU kernel: in the JAX package XLA fuses ``argmax(cl + alpha * c)``
+  (``methods/tip.py:107-116``). Its plain version is
+  :func:`blend_argmax_hits_reference`, equal to it bit for bit.
+
 :func:`cache_attention_from_labels` routes between them by the same test as the
 JAX package (``:678-685``): K3 when every ``block_n``-row cache block spans at
 most ``k_limit`` classes, K2 otherwise. :func:`cache_attention_auto` sends a
@@ -63,7 +71,8 @@ __all__ = ["cache_attention_reference", "cache_attention_dense_reference",
            "onehot_block_classes", "onehot_k_max", "class_row_table", "grouped_plan",
            "grouped_items", "GroupedPlan", "onehot_variant",
            "onehot_variant_reference", "EXPAND_MODES", "k1_grid", "k1_feature_stages",
-           "k1_shared_bytes"]
+           "k1_shared_bytes", "blend_argmax_hits", "blend_argmax_hits_reference",
+           "BLEND_MAX_ALPHAS", "BLEND_MAX_BETAS"]
 
 K3_MAX_BETA = 16   # betas per K2 / K3 / K13 launch (4 threads a query, 4 betas each)
 GROUPED_QUERIES = 64   # queries of a K2 / K3 / K13 block (test rows pad to it)
@@ -76,6 +85,8 @@ K1_MAX_D = 1152    # widest feature row whose query boxes leave K1 a ring (k1_fe
 K1_ROWS = 16       # queries of a K1 block (test rows pad to it)
 K1_CACHE_STEP = 128   # cache rows of a K1 step: two 64-row k-blocks (cache rows pad to it)
 K1_CLASSES = 256   # classes of a K1 block (value columns pad to it)
+BLEND_MAX_ALPHAS = 24   # alphas of a K14 launch (kernel parameters)
+BLEND_MAX_BETAS = 512   # betas of a K14 launch (a block's tally in shared memory)
 # K1's shared memory (csrc/cache_kernels.cu, namespace k1): 64 x 64 bf16 boxes
 _K1_BOX, _K1_QBOX, _K1_MAX_STAGES, _K1_SMEM_LIMIT, _K1_VSLOTS = 8192, 2048, 12, 232448, 2
 _K1_VBOXES = K1_CLASSES // 64
@@ -93,6 +104,7 @@ _SIGNATURES = {
     "onehot_variant_bf16": _GROUPED_ARGS + [_I, _P],
     "grouped_stages": [_I],
     "weight_rate_probe_bf16": [_P, _P, _I, _I, _P],
+    "blend_argmax_hits_f32": [_P] * 5 + [_I] * 5 + [_P],
 }
 # K13's precisions of the class-sum scatter, in the kernel's numbering
 EXPAND_MODES = ("highest", "split3", "default")
@@ -614,3 +626,66 @@ def onehot_variant(test_features: torch.Tensor, cache_features: torch.Tensor,
 
 
 onehot_variant.launches = 0
+
+
+def blend_argmax_hits_reference(cache: torch.Tensor, clip_logits: torch.Tensor,
+                                labels: torch.Tensor, alphas: tp.Any) -> torch.Tensor:
+    """Plain version of K14: for each beta the (A, Nt, C) blend
+    ``clip_logits + alphas[a] * cache[b]`` written whole, its ``argmax`` over
+    the classes (the lowest index on ties, NaN the largest) compared with
+    ``labels``; (B, A) int32 counts of the rows that hit."""
+    al = torch.as_tensor(alphas, dtype=torch.float32).reshape(-1).to(cache.device)
+    hits = torch.zeros(cache.shape[0], al.shape[0], dtype=torch.int32, device=cache.device)
+    for b, c in enumerate(cache):
+        preds = (clip_logits[None] + al[:, None, None] * c[None]).argmax(-1)
+        hits[b] = (preds == labels[None]).sum(-1)
+    return hits
+
+
+def blend_argmax_hits(cache: torch.Tensor, clip_logits: torch.Tensor, labels: torch.Tensor,
+                      alphas: tp.Any) -> torch.Tensor:
+    """K14: ``hits[b, a]``, the number of rows n whose blend
+    ``clip_logits[n] + alphas[a] * cache[b, n]`` takes its largest value first
+    at ``labels[n]``; (B, A) int32. cache (B, Nt, C) and clip_logits (Nt, C)
+    f32, labels (Nt,) int64, on one device; alphas (A,) floats, read on the
+    host (they are the launch's parameters: a CUDA tensor is copied there).
+    Any B, Nt, C and A, launched ``BLEND_MAX_ALPHAS`` alphas and
+    ``BLEND_MAX_BETAS`` betas at a time; equal to
+    :func:`blend_argmax_hits_reference` bit for bit."""
+    if cache.device.type == "cpu":
+        return blend_argmax_hits_reference(cache, clip_logits, labels, alphas)
+    dev = cache.device
+    if cache.dim() != 3:
+        raise ValueError(f"cache: expected (B, Nt, C), got {tuple(cache.shape)}")
+    nb, nt, c = cache.shape
+    for name, t, shape, dtype in (("cache", cache, (nb, nt, c), torch.float32),
+                                  ("clip_logits", clip_logits, (nt, c), torch.float32),
+                                  ("labels", labels, (nt,), torch.int64)):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    host = torch.as_tensor(alphas).detach()
+    if host.dim() != 1 or not host.is_floating_point():
+        raise ValueError(f"alphas: expected (A,) floats, got {host.dtype} {tuple(host.shape)}")
+    host = np.ascontiguousarray(host.cpu().numpy(), np.float32)
+    na = host.shape[0]
+    if c < 1:
+        raise ValueError("K14 takes C >= 1")
+    hits = torch.zeros(nb, na, dtype=torch.int32, device=dev)
+    if not (nb and nt and na):
+        return hits
+    cache, cl, labels = cache.contiguous(), clip_logits.contiguous(), labels.contiguous()
+    lib, stream = _lib_cache(), _lib.torch_stream()
+    for s in range(0, nb, BLEND_MAX_BETAS):
+        part = cache[s:s + BLEND_MAX_BETAS]
+        for a0 in range(0, na, BLEND_MAX_ALPHAS):
+            group = host[a0:a0 + BLEND_MAX_ALPHAS]
+            _lib.check(lib.blend_argmax_hits_f32(
+                part.data_ptr(), cl.data_ptr(), labels.data_ptr(), group.ctypes.data,
+                hits[s:, a0:].data_ptr(), part.shape[0], nt, c, group.shape[0], na, stream),
+                "blend_argmax_hits")
+            blend_argmax_hits.launches += 1
+    return hits
+
+
+blend_argmax_hits.launches = 0

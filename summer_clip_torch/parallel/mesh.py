@@ -394,7 +394,8 @@ def kernel_counters() -> tp.Dict[str, tp.Any]:
             "K7 streamed_qmatmul": gemv.streamed_qmatmul, "K8 decode_block": DB.decode_block,
             "K9 fused_ln_mlp_chunked": bk.fused_ln_mlp_chunked,
             "K10 fused_qmlp": gemv.fused_qmlp, "K11 flash_attention": at.flash_attention,
-            "K12 short_attention": at.short_attention, "K13 onehot_variant": ck.onehot_variant}
+            "K12 short_attention": at.short_attention, "K13 onehot_variant": ck.onehot_variant,
+            "K14 blend_argmax_hits": ck.blend_argmax_hits}
 
 
 def _start_hash_seed() -> tp.Optional[str]:

@@ -158,7 +158,8 @@ def test_tip_search_spans_and_points():
         search_hp(feats, np.arange(12) % 3, rng.standard_normal((12, 3)).astype(np.float32),
                   keys, values, search_step=(5, 3), beta_chunk=2, device="cpu")
     rec = profiling.recorded()
-    assert rec.counters == {"tip.searches": 1, "tip.chunks": 3, "tip.betas": 5, "tip.points": 15}
+    assert rec.counters == {"tip.searches": 1, "tip.chunks": 3, "tip.betas": 5, "tip.blended": 5,
+                            "tip.points": 15}
     names = _names(rec)
     assert names.count("tip.cache") == names.count("tip.blend") == names.count("tip.fetch") == 3
     assert all(_parent(rec, i) == {"tip.search": None, "tip.cache": "tip.search",
